@@ -1,0 +1,8 @@
+"""Division-accuracy measurement for the port.
+
+  * ``ulp``              — exact ULP distance vs the f64 oracle + sweeps
+  * ``golden``           — the reference's committed golden stores, checked
+    against the port on a chosen device
+  * ``workload_metrics`` — K-Means inertia delta, QR residuals
+"""
+from . import ulp, workload_metrics  # noqa: F401
