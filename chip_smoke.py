@@ -1,9 +1,10 @@
-"""Drive the PyTorch port's division unit on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's division unit and dense-LM serving on one NVIDIA
+GPU and check them.
 
     python3 chip_smoke.py [--seed N] [--json PATH]
 
-Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc, at
-first use), then runs, each phase printing one line:
+Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc per
+source, in parallel), then runs, each phase printing one line:
 
   1. device    — torch/CUDA versions, the card, the kernel build time;
   2. kernels   — each kernel against its plain PyTorch version on the card,
@@ -21,17 +22,35 @@ first use), then runs, each phase printing one line:
                  phase's inputs and through the same entry point, held bit
                  for bit against the plain version (the whole 10^6 x 1024
                  distance plane included, in chunks of 2^26 lanes);
-  8. times     — each kernel, its plain version and the torch yardstick, on
-                 the K-Means distance plane.
+  8. consumers — the softmax and RMSNorm kernels against their plain
+                 versions on the consumer corpora (D = 128, 768, 2048, 2176,
+                 f32 and bf16, edge rows included), bit for bit, and the
+                 consumer gates (row sums, distance from the exact twin,
+                 masked rows);
+  9. serve     — paper_fpdiv at full width (bf16 params from --seed) served
+                 in taylor_pallas: generate_batch over 8 prompts of 2048 ..
+                 256 tokens, 64 new tokens each, and serve() with 4 slots
+                 over the same requests, 32 new tokens each; the same batch
+                 under mode="exact"; timings; the greedy agreement with
+                 the exact twin gated as tests/test_decode_equiv.py gates
+                 it (teacher-forced, f32 params: the same seeded weights
+                 before their bf16 rounding) and reported in bf16;
+ 10. serve calls — every softmax and RMSNorm call of one prefill and one
+                 decode step, made again on its own inputs through the same
+                 entry point, held bit for bit against the plain version;
+ 11. times     — each kernel, its plain version and the torch yardstick: the
+                 tsdiv kernels on the K-Means distance plane, softmax and
+                 RMSNorm at the serving prefill and decode shapes.
 
-Phases 4-6 are the main path: launch counts are reset before each and read
-after it. Any failed check raises, and the script then exits non-zero
+Phases 4-6 and 9 are the main path: launch counts are reset before each and
+read after it. Any failed check raises, and the script then exits non-zero
 without printing a result. It needs a CUDA card and the repository around
 it; it imports nothing of JAX or of the reference package.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -46,13 +65,30 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet, at the 700 W limit
 F32_OPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
 # f32 operations per element of each timed body (n_iters=2, factored;
 # newton_iters=2), an fma counting two: counted from csrc/tsdiv_body.cuh.
-OPS_PER_ELEMENT = {"tsdiv_divide": 52, "tsdiv_recip": 29, "tsdiv_rsqrt": 50}
-SOURCE = "src/repro_torch/kernels/csrc/tsdiv.cu"
+# softmax: max, sub, exp (~10 in libdevice), add, mul; rmsnorm: x*x, add,
+# x*r, *w. Per-row work (the reciprocal, the rsqrt, the trees) is left out.
+OPS_PER_ELEMENT = {"tsdiv_divide": 52, "tsdiv_recip": 29, "tsdiv_rsqrt": 50,
+                   "softmax_f32": 14, "rmsnorm_f32": 4}
+CSRC = "src/repro_torch/kernels/csrc/"
+SOURCES = {"tsdiv_divide": CSRC + "tsdiv.cu", "tsdiv_recip": CSRC + "tsdiv.cu",
+           "tsdiv_rsqrt": CSRC + "tsdiv.cu", "softmax_f32": CSRC + "softmax.cu",
+           "rmsnorm_f32": CSRC + "rmsnorm.cu"}
 REPLACES = {"tsdiv_divide": "src/repro/kernels/tsdiv.py:199",
             "tsdiv_recip": "src/repro/kernels/tsdiv.py:122",
-            "tsdiv_rsqrt": "src/repro/kernels/tsdiv.py:147"}
+            "tsdiv_rsqrt": "src/repro/kernels/tsdiv.py:147",
+            "softmax_f32": "src/repro/kernels/softmax.py:46",
+            "rmsnorm_f32": "src/repro/kernels/rmsnorm.py:47"}
 N_PLANE, D, K = 1_000_000, 128, 1024
 PLAIN_ELEMENTS = 1 << 26
+CONSUMER_DIMS = (128, 768, 2048, 2176)
+SCHEDULES = ("paper", "factored", "goldschmidt")
+SERVE_LENS = tuple(2048 - 256 * i for i in range(8))   # 2048, 1792, ..., 256
+SERVE_NEW, SLOTS, SLOT_NEW = 64, 4, 32
+DEVICE = "cuda"     # the phases of the serving slice run here
+
+
+def sync() -> None:
+    torch.cuda.synchronize()
 
 
 class CheckFailed(RuntimeError):
@@ -86,9 +122,14 @@ def corpus(n: int, seed: int) -> np.ndarray:
 
 def mismatch(got: torch.Tensor, want: torch.Tensor):
     """(lanes whose bits differ, nan matching nan; max |got - want| there)."""
-    same = (got.view(torch.int32) == want.view(torch.int32)) | (got.isnan() & want.isnan())
+    check(got.dtype == want.dtype and got.shape == want.shape,
+          f"kernel gave {got.dtype} {tuple(got.shape)}, plain {want.dtype} {tuple(want.shape)}")
+    ints = {4: torch.int32, 2: torch.int16}[got.element_size()]
+    same = (got.view(ints) == want.view(ints)) | (got.isnan() & want.isnan())
     bad = ~same
-    err = torch.where(bad, (got - want).abs().nan_to_num(nan=float("inf")), 0.0)
+    if not got.numel():
+        return 0, 0.0
+    err = torch.where(bad, (got.float() - want.float()).abs().nan_to_num(nan=float("inf")), 0.0)
     return int(bad.sum()), float(err.max())
 
 
@@ -137,14 +178,21 @@ def phase_device():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
+    # Full f32 and bf16 matmuls: the reference's numbers, not TF32's.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     t0 = time.perf_counter()
-    _build.library()
+    _build.build_all()
     build_s = time.perf_counter() - t0
-    regs = [line.strip() for line in _build.build_info.get("log", "").splitlines()
-            if "registers" in line]
+    regs = {name: [line.strip() for line in log.splitlines() if "registers" in line]
+            for name, log in _build.build_info.get("log", {}).items()}
     say("device", torch=torch.__version__, cuda=torch.version.cuda,
         name=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
-        nvidia_smi=smi, build_s=round(build_s, 3), ptxas=regs)
+        nvidia_smi=smi, build_s=round(build_s, 3), ptxas=regs,
+        allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+        allow_bf16_reduced_precision_reduction=(
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction))
     return smi
 
 
@@ -351,8 +399,19 @@ def phase_calls(seed: int, err: dict) -> torch.Tensor:
     return d2
 
 
-def phase_times(x: torch.Tensor, err: dict, launches: dict):
-    from repro_torch.kernels import common, tsdiv
+def kernel_row(name, ms, plain_ms, library_ms, nbytes, elements, launches, err, **extra):
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = OPS_PER_ELEMENT[name] * elements / F32_OPS_PER_S * 1e3
+    return {"name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "launches": launches[name],
+            "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": library_ms, "elements": elements, **extra}
+
+
+def phase_times(x: torch.Tensor, err: dict, launches: dict, consumer_inputs: dict):
+    from repro_torch.kernels import common, rmsnorm, softmax, tsdiv
     from repro_torch.core.seeds import compute_segments, rsqrt_seed_table
 
     torch.cuda.empty_cache()
@@ -374,19 +433,323 @@ def phase_times(x: torch.Tensor, err: dict, launches: dict):
     }
     rows = []
     for name, (kernel, plain, library, bytes_per) in cases.items():
-        ms = event_ms(kernel)
-        bytes_ms = bytes_per * n / HBM_BYTES_PER_S * 1e3
-        ops_ms = OPS_PER_ELEMENT[name] * n / F32_OPS_PER_S * 1e3
-        rows.append({
-            "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[name], "launches": launches[name],
-            "max_abs_err": err[name], "ms": ms, "plain_ms": event_ms(plain, 3),
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": event_ms(library), "elements": n,
-            "plain_elements": PLAIN_ELEMENTS})
+        rows.append(kernel_row(name, event_ms(kernel), event_ms(plain, 3), event_ms(library),
+                               bytes_per * n, n, launches, err,
+                               shape=list(x.shape), plain_elements=PLAIN_ELEMENTS))
         say("times", **rows[-1])
+    del x, d, xs, ds
+    torch.cuda.empty_cache()
+    # The consumers at the serving path's own shapes and inputs (phase 10).
+    sched = dm_config("taylor_pallas").schedule
+    for step in ("prefill", "decode"):
+        sx = consumer_inputs[("softmax", step)]
+        rx, w = consumer_inputs[("rmsnorm", step)]
+        wf = w.float()
+        for name, kernel, plain, library, nbytes, t in (
+                ("softmax_f32", lambda: softmax.softmax(sx, 2, 24, sched),
+                 lambda: softmax.softmax_plain(sx, table, 2, sched),
+                 lambda: torch.softmax(sx, -1), 2 * sx.numel() * sx.element_size(), sx),
+                ("rmsnorm_f32", lambda: rmsnorm.rmsnorm(rx, wf, 1e-6, 2, 16),
+                 lambda: rmsnorm.rmsnorm_plain(rx, wf, 1e-6, rsqrt_seed_table(16), 2),
+                 lambda: torch.nn.functional.rms_norm(rx, (rx.shape[-1],), w.to(rx.dtype), 1e-6),
+                 2 * rx.numel() * rx.element_size() + 4 * wf.numel(), rx)):
+            row = kernel_row(name, event_ms(kernel), event_ms(plain, 3), event_ms(library),
+                             nbytes, t.numel(), launches, err, shape=list(t.shape),
+                             dtype=str(t.dtype).replace("torch.", ""), step=step)
+            say("times", **row)
+            if step == "prefill":
+                rows.append(row)
     return rows
+
+
+def dm_config(mode: str):
+    """paper_fpdiv's own division config (paper schedule, n=2, p=24) in ``mode``."""
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config("paper_fpdiv").division, mode=mode)
+
+
+def consumer_corpus(d: int, seed: int):
+    """The ported softmax and RMSNorm corpora at row length d, edge rows
+    included: (softmax logits, rmsnorm activations, rmsnorm weight), f32."""
+    from repro_torch.eval import consumers
+
+    sm = np.concatenate([*consumers.softmax_rows("float32", 64, d, seed).values(),
+                         consumers.softmax_edge_rows("float32", d),
+                         np.full((2, d), -1e30, np.float32)])       # NEG_INF rows
+    edges = np.zeros((4, d), np.float32)
+    edges[1, :] = 3e38                  # sum of squares overflows: scale by 0
+    edges[2, 0] = np.inf
+    edges[3, d // 2] = np.nan
+    rms = np.concatenate([*consumers.rmsnorm_rows("float32", 64, d, seed).values(), edges])
+    return sm, rms, consumers.rmsnorm_weight(d, seed)
+
+
+def phase_consumers(seed: int, err: dict):
+    """Kernels vs plain versions on the corpora, then the consumer gates."""
+    from repro_torch.core import division_modes as dm
+    from repro_torch.core.seeds import compute_segments, rsqrt_seed_table
+    from repro_torch.eval import consumers
+    from repro_torch.kernels import rmsnorm, softmax
+
+    rows = []
+    for d in CONSUMER_DIMS:
+        sm, rms, w = consumer_corpus(d, seed)
+        sm, rms, w = (torch.from_numpy(a).to(DEVICE) for a in (sm, rms, w))
+        for dtype in (torch.float32, torch.bfloat16):
+            xs, xr = sm.to(dtype), rms.to(dtype)
+            for sched in SCHEDULES:
+                n_bad, e = mismatch(softmax.softmax(xs, 2, 24, sched),
+                                    softmax.softmax_plain(xs, compute_segments(2, 24), 2, sched))
+                rows.append(("softmax_f32", d, str(dtype), sched, xs.numel(), n_bad))
+                err["softmax_f32"] = max(err["softmax_f32"], e)
+            n_bad, e = mismatch(rmsnorm.rmsnorm(xr, w, 1e-6, 2, 16),
+                                rmsnorm.rmsnorm_plain(xr, w, 1e-6, rsqrt_seed_table(16), 2))
+            rows.append(("rmsnorm_f32", d, str(dtype), "newton2", xr.numel(), n_bad))
+            err["rmsnorm_f32"] = max(err["rmsnorm_f32"], e)
+    sync()
+    # The reference's gates (tests/test_consumer_conformance.py), on the card.
+    gates = {}
+    sm_corpus = consumers.softmax_rows("float32", n_rows=32, d=128, seed=5)
+    rms_corpus = consumers.rmsnorm_rows("float32", n_rows=32, d=128, seed=6)
+    w6 = consumers.rmsnorm_weight(128, seed=6)
+    wt = torch.from_numpy(w6).to(DEVICE)
+    for mode, sched in (("taylor_pallas", "factored"), ("taylor_pallas", "paper"),
+                        ("goldschmidt_pallas", "factored")):
+        cfg = dm.DivisionConfig(mode=mode, schedule=sched)
+        row_sum, vs_exact = 0.0, 0
+        for name, x in sm_corpus.items():
+            xt = torch.from_numpy(x).to(DEVICE)
+            out = dm.softmax(xt, -1, cfg).cpu().numpy()
+            twin = dm.softmax(xt, -1, dm.EXACT).cpu().numpy()
+            row_sum = max(row_sum, float(consumers.row_sum_ulp1(out).max()))
+            vs_exact = max(vs_exact, consumers.vs_exact_int_ulp(
+                out, twin, consumers.softmax_oracle(x.astype(np.float64))))
+        rms_vs_exact = 0
+        for name, x in rms_corpus.items():
+            xt = torch.from_numpy(x).to(DEVICE)
+            out = dm.rmsnorm(xt, wt, cfg).cpu().numpy()
+            twin = dm.rmsnorm(xt, wt, dm.EXACT).cpu().numpy()
+            rms_vs_exact = max(rms_vs_exact, consumers.vs_exact_int_ulp(
+                out, twin, consumers.rmsnorm_oracle(x.astype(np.float64), w6.astype(np.float64))))
+        masked_zero = True
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.from_numpy(np.random.default_rng(3).normal(size=(3, 16))).to(DEVICE, dtype)
+            where = torch.from_numpy(np.stack([np.zeros(16, bool), np.eye(16, dtype=bool)[5],
+                                               np.arange(16) < 9])).to(DEVICE)
+            s = dm.softmax(x, -1, cfg, where=where).float()
+            inf_rows = dm.softmax(torch.full((2, 8), -torch.inf, device=DEVICE, dtype=dtype),
+                                  -1, cfg).float()
+            masked_zero &= bool((s[0] == 0).all() and (s[2, 9:] == 0).all()
+                                and (inf_rows == 0).all())
+        gates[f"{mode}/{sched}"] = {"row_sum_ulp": row_sum, "softmax_vs_exact_ulp": vs_exact,
+                                    "rmsnorm_vs_exact_ulp": rms_vs_exact,
+                                    "masked_rows_zero": masked_zero}
+    say("consumers", mismatched_lanes=rows, gates=gates,
+        row_sum_gate_ulp=consumers.ROW_SUM_GATE_ULP, vs_exact_gate_ulp=consumers.VS_EXACT_GATE_ULP)
+    check(all(r[-1] == 0 for r in rows), f"a consumer kernel differs from its plain version: {rows}")
+    for key, g in gates.items():
+        check(g["row_sum_ulp"] <= consumers.ROW_SUM_GATE_ULP, f"{key}: row-sum gate {g}")
+        check(g["softmax_vs_exact_ulp"] <= consumers.VS_EXACT_GATE_ULP, f"{key}: softmax gate {g}")
+        check(g["rmsnorm_vs_exact_ulp"] <= consumers.VS_EXACT_GATE_ULP, f"{key}: rmsnorm gate {g}")
+        check(g["masked_rows_zero"], f"{key}: masked rows are not zero")
+
+
+def serve_setup(seed: int, param_dtype: str = "bfloat16"):
+    """paper_fpdiv at full width, params drawn in f32 from a CUDA generator
+    seeded with ``seed`` and cast to ``param_dtype`` (so the bf16 model is the
+    f32 one rounded), and the 8 unequal prompts (token ids from ``seed``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    cfg = dataclasses.replace(get_config("paper_fpdiv"), param_dtype=param_dtype)
+    params = init_params(cfg, torch.Generator(device=DEVICE).manual_seed(seed))
+    rng = np.random.default_rng(seed + 11)
+    prompts = [rng.integers(1, cfg.vocab, n).tolist() for n in SERVE_LENS]
+    return cfg, params, prompts
+
+
+def padded(prompts):
+    toks = torch.zeros((len(prompts), max(len(p) for p in prompts)), dtype=torch.int64)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = torch.tensor(p)
+    lengths = torch.tensor([len(p) for p in prompts], dtype=torch.int32, device=DEVICE)
+    return toks.to(DEVICE), lengths
+
+
+def replay(engine, prompts, steps: int, teacher=None):
+    """Greedy decode through the engine's own steps, as
+    tests/test_decode_equiv.py does: with ``teacher`` (the exact run's
+    tokens, (steps, B)) that stream is fed back instead of the engine's own
+    argmax, so both runs see the same context at every step. Returns the
+    argmax of every step (steps, B) and the logits (steps, B, V)."""
+    from repro_torch.serving import pad_cache_to
+
+    toks, lengths = padded(prompts)
+    logits, cache = engine._prefill_tok(toks, lengths)
+    cache = pad_cache_to(cache, toks.shape[1], engine.max_len, engine.cfg)
+    pos, picks, seen = lengths, [], []
+    for t in range(steps):
+        seen.append(logits)
+        choice = torch.argmax(logits, -1)[:, None].to(torch.int32)
+        picks.append(choice[:, 0])
+        feed = choice if teacher is None else torch.as_tensor(
+            teacher[t], dtype=torch.int32, device=DEVICE)[:, None]
+        logits, cache = engine._decode(cache, feed, pos)
+        pos = pos + 1
+    return torch.stack(picks).cpu().numpy(), torch.stack(seen)
+
+
+def mode_agreement(cfg, params, prompts, steps: int):
+    """Teacher-forced greedy agreement of taylor_pallas with the exact twin,
+    and the logit drift max|dl| / max|l| (the gates of test_decode_equiv)."""
+    from repro_torch.serving import ServingEngine
+
+    engs = {m: ServingEngine(cfg, params, max_len=max(SERVE_LENS) + steps,
+                             division=dm_config(m)) for m in ("exact", "taylor_pallas")}
+    teacher, exact_logits = replay(engs["exact"], prompts, steps)
+    picks, logits = replay(engs["taylor_pallas"], prompts, steps, teacher)
+    drift = float((logits - exact_logits).abs().max() / exact_logits.abs().max())
+    return float((picks == teacher).mean()), drift, teacher
+
+
+def phase_serve(seed: int, launches: dict):
+    from repro_torch.kernels import rmsnorm, softmax
+    from repro_torch.serving import Request, ServingEngine
+
+    cfg, params, prompts = serve_setup(seed)
+    max_len = max(SERVE_LENS) + SERVE_NEW
+    engines = {mode: ServingEngine(cfg, params, max_len=max_len, division=dm_config(mode))
+               for mode in ("taylor_pallas", "exact")}
+    toks, lengths = padded(prompts)
+    out, runs = {}, {}
+    for mode, eng in engines.items():
+        eng.generate_batch([prompts[-1][:16]], max_new=2)        # warm-up
+        sync()
+        t0 = time.perf_counter()
+        eng._prefill_tok(toks, lengths)
+        sync()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.reset_peak_memory_stats()
+        softmax.reset_launches()
+        rmsnorm.reset_launches()
+        t0 = time.perf_counter()
+        runs[mode] = eng.generate_batch(prompts, max_new=SERVE_NEW)
+        sync()
+        wall = time.perf_counter() - t0
+        counts = {**softmax.LAUNCHES, **rmsnorm.LAUNCHES}
+        forwards = 1 + SERVE_NEW
+        out[mode] = {"generate_batch_s": wall, "prefill_ms": prefill_ms,
+                     "decode_ms_per_step": (wall * 1e3 - prefill_ms) / SERVE_NEW,
+                     "tokens_per_s": len(prompts) * SERVE_NEW / wall,
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                     "launches": counts}
+        if mode == "taylor_pallas":
+            for k, v in counts.items():
+                launches[k] += v
+            check(counts == {"softmax_f32": 12 * forwards, "rmsnorm_f32": 25 * forwards},
+                  f"generate_batch launches {counts}, expected 12 and 25 per forward x {forwards}")
+        else:
+            check(not any(counts.values()), f"exact mode launched a consumer kernel: {counts}")
+    # serve(): 4 slots over the same 8 requests, 32 new tokens each.
+    eng = engines["taylor_pallas"]
+    reqs = [Request(list(p), max_new=SLOT_NEW) for p in prompts]
+    softmax.reset_launches()
+    rmsnorm.reset_launches()
+    t0 = time.perf_counter()
+    eng.serve(reqs, slots=SLOTS)
+    sync()
+    wall = time.perf_counter() - t0
+    counts = {**softmax.LAUNCHES, **rmsnorm.LAUNCHES}
+    for k, v in counts.items():
+        launches[k] += v
+    fwd = counts["softmax_f32"] // 12
+    check(counts["softmax_f32"] > 0 and counts == {"softmax_f32": 12 * fwd, "rmsnorm_f32": 25 * fwd},
+          f"serve() launches {counts}: not 12 and 25 per forward")
+    check(all(r.done and len(r.out) == SLOT_NEW for r in reqs), "serve() left a request unfinished")
+    gb = runs["taylor_pallas"]
+    serve_diff = sum(a != b for r, g in zip(reqs, gb) for a, b in zip(r.out, g[:SLOT_NEW]))
+    n_serve = len(reqs) * SLOT_NEW
+    out["serve"] = {"slots": SLOTS, "seconds": wall, "tokens_per_s": n_serve / wall,
+                    "forwards": fwd, "launches": counts, "tokens_differing_from_generate_batch":
+                    serve_diff, "agreement": 1 - serve_diff / n_serve}
+    # Greedy agreement with the exact twin. The gate is the reference's
+    # (tests/test_decode_equiv.py: teacher forcing, f32 params, >= 99% of
+    # tokens, logit drift < 5e-3), here at full width on the same seeded
+    # weights before their bf16 rounding. In bf16 a 1-ulp f32 difference in
+    # a probability or a norm output can flip a bf16 rounding; that is
+    # reported, with the free-running agreement.
+    teacher = np.array(runs["exact"]).T                        # (steps, B)
+    bf16_forced, _ = replay(eng, prompts, SERVE_NEW, teacher)
+    del engines, eng, params
+    torch.cuda.empty_cache()
+    f32_agree, f32_drift, _ = mode_agreement(*serve_setup(seed, "float32"), SERVE_NEW)
+    out["agreement_vs_exact"] = {
+        "bf16_free_running": float((np.array(gb).T == teacher).mean()),
+        "bf16_teacher_forced": float((bf16_forced == teacher).mean()),
+        "f32_teacher_forced": f32_agree, "f32_logit_drift": f32_drift}
+    say("serve", arch=cfg.name, params_dtype=cfg.param_dtype, prompt_lens=list(SERVE_LENS),
+        max_new=SERVE_NEW, division=dataclasses.asdict(dm_config("taylor_pallas")), runs=out)
+    for mode, toks_out in runs.items():
+        check(all(len(o) == SERVE_NEW for o in toks_out), f"{mode}: short output")
+    check(f32_agree >= 0.99, f"greedy agreement with the exact twin {f32_agree} < 0.99")
+    check(f32_drift < 5e-3, f"logit drift from the exact twin {f32_drift} >= 5e-3")
+    check(out["serve"]["agreement"] >= 0.99,
+          f"serve() agrees with generate_batch on {out['serve']['agreement']} < 0.99 of tokens")
+
+
+def phase_serve_calls(seed: int, err: dict) -> dict:
+    """Every softmax and RMSNorm call of one prefill and one decode step, on
+    its own inputs through the same entry point, against the plain version.
+    Returns the first call's inputs of each kind and step, for the times."""
+    from repro_torch.core.seeds import compute_segments, rsqrt_seed_table
+    from repro_torch.kernels import rmsnorm, softmax
+    from repro_torch.serving import ServingEngine, pad_cache_to
+
+    cfg, params, prompts = serve_setup(seed)
+    eng = ServingEngine(cfg, params, max_len=max(SERVE_LENS) + SERVE_NEW,
+                        division=dm_config("taylor_pallas"))
+    rows, first, step = [], {}, ["prefill"]
+    real_sm, real_rms = softmax.softmax, rmsnorm.rmsnorm
+
+    def sm_spy(x, n_iters=2, precision_bits=24, schedule="factored"):
+        got = real_sm(x, n_iters, precision_bits, schedule)
+        want = softmax.softmax_plain(x, compute_segments(n_iters, precision_bits), n_iters, schedule)
+        n_bad, e = mismatch(got, want)
+        rows.append(("softmax_f32", step[0], list(x.shape), n_bad))
+        err["softmax_f32"] = max(err["softmax_f32"], e)
+        first.setdefault(("softmax", step[0]), x.clone())
+        return got
+
+    def rms_spy(x, w, eps=1e-6, newton_iters=2, n_segments=16):
+        got = real_rms(x, w, eps, newton_iters, n_segments)
+        want = rmsnorm.rmsnorm_plain(x, w, eps, rsqrt_seed_table(n_segments), newton_iters)
+        n_bad, e = mismatch(got, want)
+        rows.append(("rmsnorm_f32", step[0], list(x.shape), n_bad))
+        err["rmsnorm_f32"] = max(err["rmsnorm_f32"], e)
+        first.setdefault(("rmsnorm", step[0]), (x.clone(), w.clone()))
+        return got
+
+    softmax.softmax, rmsnorm.rmsnorm = sm_spy, rms_spy
+    try:
+        toks, lengths = padded(prompts)
+        logits, cache = eng._prefill_tok(toks, lengths)
+        cache = pad_cache_to(cache, toks.shape[1], eng.max_len, cfg)
+        step[0] = "decode"
+        eng._decode(cache, torch.argmax(logits, -1)[:, None].to(torch.int32), lengths)
+        sync()
+    finally:
+        softmax.softmax, rmsnorm.rmsnorm = real_sm, real_rms
+    n_calls = {k: sum(1 for r in rows if r[:2] == k) for k in
+               (("softmax_f32", "prefill"), ("rmsnorm_f32", "prefill"),
+                ("softmax_f32", "decode"), ("rmsnorm_f32", "decode"))}
+    say("serve_calls", calls={f"{a}/{b}": n for (a, b), n in n_calls.items()},
+        shapes=sorted({(r[0], r[1], str(r[2])) for r in rows}),
+        mismatched_lanes=sum(r[3] for r in rows))
+    check(list(n_calls.values()) == [12, 25, 12, 25], f"serving call sites: {n_calls}")
+    check(all(r[3] == 0 for r in rows), f"a serving call differs from the plain version: "
+          f"{[r for r in rows if r[3]]}")
+    return first
 
 
 def main(argv=None) -> int:
@@ -403,17 +766,21 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     smi = phase_device()
     err = phase_kernels(args.seed)
+    err.update(softmax_f32=0.0, rmsnorm_f32=0.0)
     phase_golden()
-    launches = {k: 0 for k in tsdiv.LAUNCHES}
+    launches = {k: 0 for k in err}
     tsdiv.reset_launches()
     phase_gradients(args.seed)
     for k, v in tsdiv.LAUNCHES.items():
         launches[k] += v
     phase_kmeans(args.seed, launches)
     phase_qr(args.seed, launches)
-    check(all(launches.values()), f"a kernel was not launched on the main path: {launches}")
     plane = phase_calls(args.seed, err)
-    rows = phase_times(plane, err, launches)
+    phase_consumers(args.seed, err)
+    phase_serve(args.seed, launches)
+    check(all(launches.values()), f"a kernel was not launched on the main path: {launches}")
+    consumer_inputs = phase_serve_calls(args.seed, err)
+    rows = phase_times(plane, err, launches, consumer_inputs)
     result = {"kernels": rows}
     if args.json:
         args.json.parent.mkdir(parents=True, exist_ok=True)

@@ -1,8 +1,10 @@
 """PyTorch/CUDA port of the Taylor-series division unit (arXiv:1705.00218).
 
 Beside the JAX reference in ``repro``: the division unit's recip / div /
-rsqrt with hand-written CUDA kernels for Hopper (``kernels/``), and the
-K-Means and Givens-QR workloads on it. Imports torch and numpy only.
+rsqrt and its consumers softmax / RMSNorm, with hand-written CUDA kernels
+for Hopper (``kernels/``); the K-Means and Givens-QR workloads on it; and
+dense LMs (``configs/``, ``models/``) served on it (``serving/``,
+``launch/serve.py``). Imports torch and numpy only.
 """
 from .core.division_modes import (EXACT, MODES, TAYLOR, DivisionConfig, div,
                                   recip, rsqrt)

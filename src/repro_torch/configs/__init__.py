@@ -1,0 +1,6 @@
+"""Model configs of the port: the dense architectures ported so far."""
+from .base import (ARCH_IDS, PORTED_ARCHS, Group, LayerSpec, ModelConfig,
+                   get_config, get_smoke_config)
+
+__all__ = ["ARCH_IDS", "PORTED_ARCHS", "Group", "LayerSpec", "ModelConfig",
+           "get_config", "get_smoke_config"]

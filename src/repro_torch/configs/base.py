@@ -1,0 +1,154 @@
+"""Model configs: layer pattern, grouping and the registry.
+
+The PyTorch counterpart of ``src/repro/configs/base.py``. ``ModelConfig``
+keeps the reference's fields that the ported models and the layer pattern
+read, with the same defaults and derived pattern (``layer_specs``,
+``groups``, ``q_per_kv``), so a config means the same model in both
+packages. The MoE, SSM and encoder fields, the sharding rules, shape cells
+and dry-run knobs arrive with the slices that read them.
+
+The registry resolves the architectures whose modules are ported; any other
+architecture raises, naming the ROADMAP item that ports it.
+"""
+from __future__ import annotations
+
+import importlib
+from dataclasses import dataclass, field
+from typing import List, Tuple
+
+from repro_torch.core.division_modes import DivisionConfig
+
+__all__ = ["MIXERS", "FFNS", "LayerSpec", "Group", "ModelConfig", "ARCH_IDS",
+           "PORTED_ARCHS", "canon", "get_config", "get_smoke_config"]
+
+MIXERS = ("attn", "swa", "mamba")
+FFNS = ("dense", "moe", "none")
+
+
+@dataclass(frozen=True)
+class LayerSpec:
+    mixer: str
+    ffn: str
+
+    def __post_init__(self):
+        if self.mixer not in MIXERS or self.ffn not in FFNS:
+            raise ValueError(f"bad layer spec {self.mixer}/{self.ffn}")
+
+
+@dataclass(frozen=True)
+class Group:
+    """``repeat`` copies of the layer ``period`` (one lax.scan in the
+    reference; a Python loop here)."""
+
+    period: Tuple[LayerSpec, ...]
+    repeat: int
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                    # dense | moe | ssm | hybrid | encdec | vlm | audio
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    d_ff: int
+    vocab: int
+    # --- layer pattern ---
+    attn_period: int = 1
+    attn_offset: int = 0
+    moe_period: int = 0
+    moe_offset: int = 0
+    first_dense: int = 0
+    # --- attention ---
+    sliding_window: int = 0
+    global_every: int = 0
+    rope_theta: float = 10_000.0
+    d_ff_dense: int = 0            # dense-FFN width when it differs
+    # --- enc-dec ---
+    is_encoder_decoder: bool = False
+    # --- io ---
+    embed_inputs: bool = False
+    tie_embeddings: bool = False
+    # --- numerics ---
+    param_dtype: str = "bfloat16"
+    norm_eps: float = 1e-6
+    division: DivisionConfig = field(default_factory=lambda: DivisionConfig(mode="taylor"))
+    attn_chunk: int = 2048          # query-chunked attention threshold/size
+
+    def layer_specs(self) -> List[LayerSpec]:
+        specs = []
+        for i in range(self.n_layers):
+            if self.family == "ssm":
+                mixer = "mamba"
+            elif self.attn_period > 1:
+                mixer = "attn" if i % self.attn_period == self.attn_offset else "mamba"
+            elif self.sliding_window > 0 and self.global_every > 0:
+                mixer = "attn" if i % self.global_every == self.global_every - 1 else "swa"
+            else:
+                mixer = "attn"
+            if self.family == "ssm":
+                ffn = "none"
+            elif self.moe_period > 0 and i >= self.first_dense \
+                    and i % self.moe_period == self.moe_offset:
+                ffn = "moe"
+            else:
+                ffn = "dense"
+            specs.append(LayerSpec(mixer, ffn))
+        return specs
+
+    def groups(self) -> List[Group]:
+        """Greedy periodic grouping: the shortest period p for which the
+        pattern (after ``first_dense`` leading layers) is p-periodic."""
+        specs = self.layer_specs()
+        lead, rest = specs[: self.first_dense], specs[self.first_dense:]
+        out: List[Group] = [Group(tuple(lead), 1)] if lead else []
+        m = len(rest)
+        for p in range(1, m + 1):
+            if m % p == 0 and all(rest[i] == rest[i % p] for i in range(m)):
+                out.append(Group(tuple(rest[:p]), m // p))
+                return out
+        out.append(Group(tuple(rest), 1))
+        return out
+
+    @property
+    def dense_ff(self) -> int:
+        return self.d_ff_dense or self.d_ff
+
+    @property
+    def q_per_kv(self) -> int:
+        return self.n_heads // self.n_kv_heads
+
+
+ARCH_IDS = [
+    "mamba2_780m", "granite_8b", "llama3_8b", "gemma3_12b", "tinyllama_1_1b",
+    "llava_next_mistral_7b", "whisper_tiny", "jamba_1_5_large",
+    "moonshot_v1_16b_a3b", "deepseek_moe_16b", "paper_fpdiv",
+]
+# Dense full-attention models: every module they run is ported.
+PORTED_ARCHS = ("paper_fpdiv", "tinyllama_1_1b")
+
+
+def canon(arch: str) -> str:
+    return arch.replace("-", "_").replace(".", "_")
+
+
+def _module(arch: str):
+    name = canon(arch)
+    if name not in ARCH_IDS:
+        raise ValueError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
+    if name not in PORTED_ARCHS:
+        raise NotImplementedError(
+            f"arch {name!r} is not ported yet: its sliding-window, MoE, SSM, "
+            f"encoder-decoder or embedding-input modules are ROADMAP Queue 1 "
+            f"item 10 (ported: {', '.join(PORTED_ARCHS)})")
+    return importlib.import_module(f"repro_torch.configs.{name}")
+
+
+def get_config(arch: str) -> ModelConfig:
+    return _module(arch).CONFIG
+
+
+def get_smoke_config(arch: str) -> ModelConfig:
+    return _module(arch).SMOKE_CONFIG

@@ -1,10 +1,13 @@
-"""Hand the reference's configs and inputs to the port.
+"""Hand the reference's configs, inputs and model state to the port.
 
-This system has no weights: its parameters are the ``DivisionConfig`` and
-the seed tables, which are recomputed from ``(n_iters, precision_bits)``.
-So a test carries a run across by its config (``dataclasses.asdict`` of the
-reference's) and by its numpy inputs (K-Means points and inits, QR
-matrices).
+The division unit's parameters are the ``DivisionConfig`` and the seed
+tables, which are recomputed from ``(n_iters, precision_bits)``, so a run of
+the unit is carried across by its config (``dataclasses.asdict`` of the
+reference's) and its numpy inputs. A model's parameters and caches are
+carried across as numpy trees (``jax.tree_util.tree_map(np.asarray, ...)``
+of the reference's), bits unchanged, bf16 included: the reference stacks a
+group's ``repeat`` copies of each leaf on a leading axis, and the port keeps
+them as separate layers (index ``r * period + i``).
 """
 from __future__ import annotations
 
@@ -15,7 +18,8 @@ import torch
 
 from repro_torch.core.division_modes import DivisionConfig
 
-__all__ = ["config_from_reference", "tensors_from_numpy"]
+__all__ = ["config_from_reference", "tensors_from_numpy",
+           "params_from_reference", "cache_from_reference"]
 
 
 def config_from_reference(fields: Dict) -> DivisionConfig:
@@ -27,3 +31,44 @@ def tensors_from_numpy(arrays: Dict[str, np.ndarray], device) -> Dict[str, torch
     """Same-named tensors on ``device``, bits unchanged."""
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
             for k, v in arrays.items()}
+
+
+def _tensor(a, device) -> torch.Tensor:
+    a = np.array(a)                     # a writable, contiguous copy
+    if a.dtype.name == "bfloat16":      # ml_dtypes' bf16: carry the bits
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def _tree(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _tree(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree(v, fn) for v in tree]
+    return fn(tree)
+
+
+def _unstack_groups(groups, cfg, device):
+    out = []
+    for g, gtree in zip(cfg.groups(), groups):
+        layers = []
+        for r in range(g.repeat):
+            for i in range(len(g.period)):
+                pick = (lambda a, r=r: a[r]) if g.repeat > 1 else (lambda a: a)
+                layers.append(_tree(gtree["layers"][i],
+                                    lambda a, pick=pick: _tensor(pick(a), device)))
+        out.append({"layers": layers})
+    return out
+
+
+def params_from_reference(tree, cfg, device) -> Dict:
+    """The port's parameters from the reference's as a numpy tree."""
+    out = {k: _tree(v, lambda a: _tensor(a, device))
+           for k, v in tree.items() if k != "groups"}
+    out["groups"] = _unstack_groups(tree["groups"], cfg, device)
+    return out
+
+
+def cache_from_reference(tree, cfg, device) -> Dict:
+    """The port's decode cache from the reference's as a numpy tree."""
+    return {"groups": _unstack_groups(tree["groups"], cfg, device)}

@@ -1,7 +1,8 @@
 """Division dispatch: the paper's unit as one config knob.
 
 The PyTorch counterpart of ``src/repro/core/division_modes.py`` for the
-scalar ops :func:`recip`, :func:`div` and :func:`rsqrt`. Modes:
+scalar ops :func:`recip`, :func:`div` and :func:`rsqrt` and their consumers
+:func:`softmax` and :func:`rmsnorm`. Modes:
 
   * ``exact``              — torch's own divide / rsqrt (the baseline).
   * ``taylor``             — the paper's unit as torch ops (PWL seed + series).
@@ -12,9 +13,11 @@ scalar ops :func:`recip`, :func:`div` and :func:`rsqrt`. Modes:
   * ``goldschmidt_pallas`` — the same refinement in the fused kernel.
   * ``ilm``                — not ported yet (ROADMAP Queue 1 item 7).
 
-A CUDA tensor in a ``*_pallas`` mode launches the kernel or raises; nothing
-falls back to another path or to the CPU. The consumers (``softmax``,
-``rmsnorm``, ``attention``) are not ported yet either and raise.
+The consumers :func:`softmax` and :func:`rmsnorm` route every mode the same
+way, the kernel modes to the fused softmax and RMSNorm kernels. A CUDA
+tensor in a ``*_pallas`` mode launches the kernel or raises; nothing falls
+back to another path or to the CPU. ``attention`` is not ported yet and
+raises.
 """
 from __future__ import annotations
 
@@ -180,16 +183,87 @@ def rsqrt(x: torch.Tensor, cfg: DivisionConfig = TAYLOR) -> torch.Tensor:
                         underflow=effective_underflow(cfg))
 
 
-def softmax(*args, **kwargs):
-    """Not ported yet: the fused softmax kernel is ROADMAP Queue 1 item 8."""
-    raise NotImplementedError("softmax is not ported yet (ROADMAP Queue 1 item 8)")
+def softmax(x: torch.Tensor, axis: int = -1, cfg: DivisionConfig = TAYLOR,
+            where=None) -> torch.Tensor:
+    """Numerically stable softmax whose 1/sum goes through the division unit.
+
+    The kernel modes run the fused softmax kernel (``kernels.ops.softmax``;
+    ``schedule="goldschmidt"`` for ``goldschmidt_pallas``) on f32/bf16
+    operands with at least one element; other operands take the twin below,
+    whose f32 1/sum still goes through :func:`recip` under the same config.
+    On a CUDA tensor of another dtype a kernel mode raises. ``where`` masks
+    logits out (as -inf for the kernel). Fully-masked rows (``where``
+    all False, or every logit -inf) come out as zeros in every mode.
+    """
+    if x.dim() == 0:
+        return torch.ones_like(x)    # a single logit normalises to 1
+    if x.shape[axis] == 0:
+        return x                     # no logits: empty in, empty out
+    if where is not None:
+        where = torch.as_tensor(where, device=x.device)
+    if cfg.mode == "ilm":
+        raise NotImplementedError(_ILM_TODO)
+    if cfg.mode in _KERNEL_MODES and _takes_kernel(x):
+        from repro_torch.kernels import ops as kops
+
+        xm = x if where is None else torch.where(where, x, -torch.inf)
+        out = kops.softmax(xm.movedim(axis, -1), cfg.n_iters,
+                           cfg.precision_bits, _kernel_schedule(cfg))
+        return out.movedim(-1, axis)
+    # f32 compute with the input dtype back out, like the kernel; the row sum
+    # runs in the kernel's order, so the modes share every exp and sum
+    # rounding and differ only in the division (the reference's twins and
+    # kernels share XLA's order in the same way).
+    from repro_torch.kernels.common import row_sum
+
+    xf = x.to(torch.float32)
+    if where is not None:
+        xf, where = torch.broadcast_tensors(xf, where)
+        where = where.movedim(axis, -1)
+    xf = xf.movedim(axis, -1)
+    xs = xf if where is None else torch.where(where, xf, -torch.inf)
+    xmax = torch.amax(xs, dim=-1, keepdim=True)
+    xmax = torch.where(torch.isfinite(xmax), xmax, 0.0)
+    ex = torch.exp(xf - xmax.detach())
+    if where is not None:
+        ex = torch.where(where, ex, 0.0)
+    s = row_sum(ex)
+    # Fully-masked rows have ex == 0 lane-wise, so a divisor of 1 yields the
+    # zero row exactly; rows with any surviving logit have s >= 1.
+    safe = torch.where(s == 0, torch.ones_like(s), s)
+    out = ex / safe if cfg.mode == "exact" else ex * recip(safe, cfg)
+    return out.movedim(-1, axis).to(x.dtype)
 
 
-def rmsnorm(*args, **kwargs):
-    """Not ported yet: the fused RMSNorm kernel is ROADMAP Queue 1 item 8."""
-    raise NotImplementedError("rmsnorm is not ported yet (ROADMAP Queue 1 item 8)")
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, cfg: DivisionConfig = TAYLOR, *,
+            eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm over the last axis; the 1/sqrt runs the configured mode.
+
+    The kernel modes run the fused RMSNorm kernel (``kernels.ops.rmsnorm``)
+    on f32/bf16 operands with at least one element; every other mode runs
+    the twin with the rsqrt through :func:`rsqrt` (``torch.rsqrt`` for
+    ``exact``); its mean of squares sums in the kernel's order. f32
+    compute, the input dtype back out.
+    """
+    if x.dim() == 0 or x.shape[-1] == 0:
+        return x
+    if cfg.mode == "ilm":
+        raise NotImplementedError(_ILM_TODO)
+    if cfg.mode in _KERNEL_MODES and _takes_kernel(x):
+        from repro_torch.kernels import ops as kops
+
+        return kops.rmsnorm(x, w, eps, cfg.rsqrt_newton, cfg.rsqrt_segments)
+    from repro_torch.kernels.common import row_sum
+
+    xf = x.to(torch.float32)
+    se = row_sum(xf * xf) / x.shape[-1] + torch.tensor(eps, dtype=torch.float32)
+    r = torch.rsqrt(se) if cfg.mode == "exact" else rsqrt(se, cfg)
+    return (xf * r * w.to(torch.float32)).to(x.dtype)
 
 
 def attention(*args, **kwargs):
-    """Not ported yet: flash attention is ROADMAP Queue 1 item 9."""
-    raise NotImplementedError("attention is not ported yet (ROADMAP Queue 1 item 9)")
+    """Not ported yet: flash attention is the next slice (ROADMAP Queue 1
+    item 9, Queue 2 item 7)."""
+    raise NotImplementedError("attention and the flash-attention kernel are "
+                              "the next slice of the port (ROADMAP Queue 1 "
+                              "item 9)")

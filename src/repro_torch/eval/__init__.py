@@ -4,5 +4,6 @@
   * ``golden``           — the reference's committed golden stores, checked
     against the port on a chosen device
   * ``workload_metrics`` — K-Means inertia delta, QR residuals
+  * ``consumers``        — softmax / RMSNorm row corpora, oracles and gates
 """
-from . import ulp, workload_metrics  # noqa: F401
+from . import consumers, ulp, workload_metrics  # noqa: F401

@@ -90,7 +90,7 @@ def golden_rsqrt_cells() -> List[Tuple[str, Dict]]:
 
 
 def compute(key: str, kw: Dict, x: np.ndarray, a: np.ndarray,
-            device="cpu") -> np.ndarray:
+            device="cuda") -> np.ndarray:
     """One cell's f32 output on ``device``: div(a, x), rsqrt(x) or recip(x)."""
     from repro_torch.core.division_modes import DivisionConfig, div, recip, rsqrt
 
@@ -129,7 +129,7 @@ def _load(path: Path):
 
 
 def check(path: Path = GOLDEN_PATH, tolerance_ulp: int = 0,
-          device="cpu") -> List[Dict]:
+          device="cuda") -> List[Dict]:
     """Diff the reciprocal store (and its div cell). Empty list = pass."""
     z = _load(path)
     stored = {k[len("out:"):]: v for k, v in z.items() if k.startswith("out:")}
@@ -138,7 +138,7 @@ def check(path: Path = GOLDEN_PATH, tolerance_ulp: int = 0,
 
 
 def check_divide(path: Path = DIVIDE_PATH, tolerance_ulp: int = 0,
-                 device="cpu") -> List[Dict]:
+                 device="cuda") -> List[Dict]:
     """Diff the divide store. Empty list = pass."""
     z = _load(path)
     stored = {k[len("out:"):]: v for k, v in z.items() if k.startswith("out:")}
@@ -147,7 +147,7 @@ def check_divide(path: Path = DIVIDE_PATH, tolerance_ulp: int = 0,
 
 
 def check_rsqrt(path: Path = RSQRT_PATH, tolerance_ulp: int = 0,
-                device="cpu") -> List[Dict]:
+                device="cuda") -> List[Dict]:
     """Diff the rsqrt store. Empty list = pass."""
     z = _load(path)
     stored = {k[len("out:"):]: v for k, v in z.items() if k.startswith("out:")}

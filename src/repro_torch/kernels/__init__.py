@@ -1,8 +1,10 @@
 """Hopper kernels of the division unit and their plain PyTorch versions.
 
-Layout per kernel: ``csrc/`` (CUDA C++ for sm_90a, built by ``_build.py``),
-``common.py`` (plain versions), ``tsdiv.py`` (launch wrappers and counts),
-``ops.py`` (shape-generic entry points with VJPs), ``ref.py`` (oracles).
+Layout: ``csrc/`` (CUDA C++ for sm_90a, one library per ``.cu``, built by
+``_build.py``); ``common.py`` (the shared plain bodies and the row-sum
+order); ``tsdiv.py``, ``softmax.py``, ``rmsnorm.py`` (launch wrappers,
+launch counts, and the consumers' plain versions); ``ops.py``
+(shape-generic entry points with VJPs); ``ref.py`` (oracles).
 """
 from . import ops, ref
 

@@ -1,10 +1,12 @@
-"""Build and load the CUDA division-unit kernels (nvcc + ctypes).
+"""Build and load the port's CUDA kernels (nvcc + ctypes).
 
-The sources in ``csrc/`` are compiled at first use, on the machine with the
-card, into ``build/repro_torch_kernels/`` at the repository root (listed in
-``.gitignore``). The library is named by a hash of its sources, so an edit
-rebuilds and a stale library is never loaded. Nothing is compiled when this
-module is imported.
+Each ``csrc/*.cu`` source is compiled at first use, on the machine with the
+card, into its own library in ``build/repro_torch_kernels/`` at the
+repository root (listed in ``.gitignore``). A library is named by a hash of
+its source, the shared headers and the flags, so an edit rebuilds and a
+stale library is never loaded. :func:`build_all` starts one ``nvcc`` per
+missing library, all at once. Nothing is compiled when this module is
+imported.
 """
 from __future__ import annotations
 
@@ -16,11 +18,12 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["SeedTableC", "library", "BUILD_DIR", "build_info"]
+__all__ = ["SeedTableC", "library", "build_all", "BUILD_DIR", "build_info"]
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("tsdiv.cu", "tsdiv_body.cuh")
+LIBRARIES = ("tsdiv", "softmax", "rmsnorm")      # csrc/<name>.cu each
+HEADERS = ("tsdiv_body.cuh", "rows.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 MAX_SEGMENTS = 32   # TSDIV_MAX_SEGMENTS in csrc/tsdiv_body.cuh
@@ -36,7 +39,24 @@ class SeedTableC(ctypes.Structure):
                 ("inner", ctypes.c_float * (MAX_SEGMENTS - 1))]
 
 
-_lib = None
+_vp, _i64, _i32, _f32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
+# The C entry points of each library: name -> argument types (all return int).
+_SIGNATURES = {
+    "tsdiv": {
+        "tsdiv_recip_f32": [_vp, _vp, _i64, SeedTableC, _i32, _i32, _vp],
+        "tsdiv_divide_f32": [_vp, _vp, _vp, _i64, SeedTableC, _i32, _i32, _vp],
+        "tsdiv_rsqrt_f32": [_vp, _vp, _i64, SeedTableC, _i32, _vp],
+    },
+    "softmax": {
+        "softmax_rows": [_vp, _vp, _i64, _i32, _i32, SeedTableC, _i32, _i32, _vp],
+    },
+    "rmsnorm": {
+        "rmsnorm_rows": [_vp, _vp, _vp, _i64, _i32, _i32, _f32, _f32, SeedTableC,
+                         _i32, _vp],
+    },
+}
+
+_libs: dict = {}
 build_info: dict = {}
 
 
@@ -48,34 +68,51 @@ def _nvcc() -> str:
     return path
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, building it first if needed."""
-    global _lib
-    if _lib is not None:
-        return _lib
+def _so_path(name: str) -> Path:
     digest = hashlib.sha256()
-    for name in SOURCES:
-        digest.update((CSRC / name).read_bytes())
+    for src in (f"{name}.cu", *HEADERS):
+        digest.update((CSRC / src).read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    so = BUILD_DIR / f"libtsdiv_{digest.hexdigest()[:16]}.so"
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
+
+
+def build_all(names=LIBRARIES) -> None:
+    """Compile every missing library, one nvcc process per source, in parallel."""
+    todo = [(n, _so_path(n)) for n in names if not _so_path(n).exists()]
+    if not todo:
+        return
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    procs = []
+    for name, so in todo:
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                               str(CSRC / "tsdiv.cu")],
-                              capture_output=True, text=True)
+        procs.append((name, so, tmp, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for name, so, tmp, proc in procs:
+        _, err = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+            failed.append(f"{name}.cu: nvcc failed ({proc.returncode}):\n{err}")
+            continue
         os.replace(tmp, so)
-        build_info.update(seconds=time.perf_counter() - t0, log=proc.stderr)
+        build_info.setdefault("log", {})[name] = err
+    build_info["seconds"] = time.perf_counter() - t0
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def library(name: str = "tsdiv") -> ctypes.CDLL:
+    """The loaded kernel library ``name``, building it first if needed."""
+    if name in _libs:
+        return _libs[name]
+    so = _so_path(name)
+    if not so.exists():
+        build_all((name,))
     lib = ctypes.CDLL(str(so))
-    vp, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.tsdiv_recip_f32.argtypes = [vp, vp, i64, SeedTableC, i32, i32, vp]
-    lib.tsdiv_divide_f32.argtypes = [vp, vp, vp, i64, SeedTableC, i32, i32, vp]
-    lib.tsdiv_rsqrt_f32.argtypes = [vp, vp, i64, SeedTableC, i32, vp]
-    for fn in (lib.tsdiv_recip_f32, lib.tsdiv_divide_f32, lib.tsdiv_rsqrt_f32):
-        fn.restype = ctypes.c_int
-    build_info["library"] = str(so)
-    _lib = lib
+    for fn, argtypes in _SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    build_info.setdefault("libraries", {})[name] = str(so)
+    _libs[name] = lib
     return lib

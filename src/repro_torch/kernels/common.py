@@ -1,11 +1,13 @@
 """Plain PyTorch versions of the fused division-unit kernels.
 
 Each function here computes, with torch ops, exactly the bits its CUDA
-kernel in ``csrc/tsdiv_body.cuh`` computes; both reproduce the reference's
-Pallas kernel bodies (``src/repro/kernels/common.py``: ``recip_f32_bits``,
-``divide_f32_bits``, ``rsqrt_f32_bits``). The wrappers in :mod:`.tsdiv`
-run these for CPU tensors, and ``chip_smoke.py`` holds each kernel to its
-plain version on the card.
+counterpart in ``csrc/tsdiv_body.cuh`` computes; both reproduce the
+reference's Pallas kernel bodies (``src/repro/kernels/common.py``:
+``recip_f32_bits``, ``divide_f32_bits``, ``rsqrt_f32_bits``, and the norms'
+``rsqrt_f32``). :func:`row_sum` is the consumer kernels' reduction order
+(``csrc/rows.cuh``). The wrappers in :mod:`.tsdiv`, :mod:`.softmax` and
+:mod:`.rmsnorm` run these for CPU tensors, and ``chip_smoke.py`` holds each
+kernel to its plain version on the card.
 
 Two facts of the reference's compiled kernels are reproduced on purpose:
 
@@ -34,7 +36,8 @@ from repro_torch.core import fpparts, goldschmidt, taylor
 from repro_torch.core.seeds import SeedTable
 
 __all__ = ["fma", "seed_ladder", "series_refine", "recip_f32_bits",
-           "divide_f32_bits", "rsqrt_f32_bits"]
+           "divide_f32_bits", "rsqrt_f32_bits", "rsqrt_f32", "REDUCE_THREADS",
+           "row_sum"]
 
 _I32 = torch.int32
 _F32 = torch.float32
@@ -178,3 +181,58 @@ def rsqrt_f32_bits(x: torch.Tensor, table: SeedTable,
     neg = (sign != 0) & ~x_zero
     nan = _f32(torch.tensor(_NAN_BITS, dtype=_I32, device=x.device))
     return torch.where(neg | x_nan, nan, r)
+
+
+def rsqrt_f32(x: torch.Tensor, table: SeedTable,
+              newton_iters: int) -> torch.Tensor:
+    """rsqrt for strictly positive normal x: the norms' variant, no edges.
+
+    Not :func:`rsqrt_f32_bits`: the exponent is unbiased without the +1 of
+    the frexp convention, ``u = where(odd, man*2, man) * 0.5`` and the
+    result is assembled as ``(y * (1/sqrt 2)) * 2^-s`` with two roundings.
+    The sign bit is ignored and zero, subnormal, inf and nan inputs give
+    whatever the arithmetic gives: the caller pins those classes.
+    """
+    bits = x.contiguous().view(_I32)
+    exp = ((bits >> 23) & 0xFF) - 127
+    man = _f32((bits & fpparts.F32_MAN_MASK) | fpparts.F32_ONE_BITS)
+    s = exp >> 1                             # floor(exp / 2)
+    odd = exp - 2 * s
+    u = torch.where(odd == 1, man * 2.0, man) * 0.5
+    y = taylor.newton_rsqrt(u, seed_ladder(u, table), newton_iters, fma)
+    inv_sqrt2 = torch.tensor(np.float32(1.0 / np.sqrt(2.0)), device=x.device)
+    return (y * inv_sqrt2) * _f32(torch.clamp(127 - s, 1, 254) << 23)
+
+
+# Threads per row in the consumer kernels (kThreads in csrc/rows.cuh). The
+# row sums below follow their reduction order, which is part of the result.
+REDUCE_THREADS = 256
+
+
+def row_sum(v: torch.Tensor, madd=None) -> torch.Tensor:
+    """Sum over the last axis in the consumer kernels' fixed order.
+
+    Thread t of ``REDUCE_THREADS`` adds lanes t, t+T, t+2T, ... in sequence
+    onto +0; then a halving tree adds partial t+h onto partial t for
+    h = T/2, ..., 1. Lanes past the row's end count as +0, which leaves
+    every partial unchanged (the summands are never -0 where this is
+    used). With ``madd`` the lanes are ``(a, b)`` pairs summed as
+    ``acc = madd(a, b, acc)``. Returns the sums with a kept last axis.
+    """
+    t = REDUCE_THREADS
+    a, b = (v, None) if madd is None else v
+    d = a.shape[-1]
+    pad = -d % t
+    if pad:
+        a = torch.nn.functional.pad(a, (0, pad))
+        b = None if b is None else torch.nn.functional.pad(b, (0, pad))
+    a = a.reshape(*a.shape[:-1], (d + pad) // t, t)
+    b = None if b is None else b.reshape(a.shape)
+    acc = torch.zeros(a.shape[:-2] + (t,), dtype=a.dtype, device=a.device)
+    for k in range(a.shape[-2]):
+        acc = acc + a[..., k, :] if madd is None else madd(a[..., k, :],
+                                                             b[..., k, :], acc)
+    while acc.shape[-1] > 1:
+        h = acc.shape[-1] // 2
+        acc = acc[..., :h] + acc[..., h:]
+    return acc

@@ -234,4 +234,19 @@ __device__ __forceinline__ float rsqrt_f32_bits(float x, const TsdivSeedTable& t
   return r;
 }
 
+// rsqrt for strictly positive normal x: the norms' variant (no edge classes;
+// the caller pins them). Unlike rsqrt_f32_bits the exponent is unbiased
+// without the frexp +1, u = (odd ? man*2 : man) * 0.5, and the result is
+// (y * (1/sqrt 2)) * 2^-s with two roundings. Mirrors common.rsqrt_f32.
+__device__ __forceinline__ float rsqrt_f32(float x, const TsdivSeedTable& t, int newton_iters) {
+  const uint32_t bits = f_bits(x);
+  const int exp = (int)((bits >> 23) & 0xFFu) - 127;
+  const float man = bits_f((bits & kManMask) | kOneBits);
+  const int s = floor_half(exp);
+  const float u = __fmul_rn(exp - 2 * s == 1 ? __fmul_rn(man, 2.0f) : man, 0.5f);
+  const float y = newton_rsqrt(u, seed_ladder(u, t), newton_iters);
+  const float inv_sqrt2 = 0.70710678118654752f;
+  return __fmul_rn(__fmul_rn(y, inv_sqrt2), bits_f((uint32_t)min(max(127 - s, 1), 254) << 23));
+}
+
 }  // namespace tsdiv

@@ -1,0 +1,54 @@
+"""Shared layer primitives. Every normalisation goes through division_modes.
+
+The PyTorch counterpart of ``src/repro/models/layers.py``, with its layouts.
+The reference contracts bf16 operands "with f32 accumulation"
+(``preferred_element_type=jnp.float32``) where the result is wanted in f32;
+here that is a matmul of the operands cast to f32 (bf16 products are exact
+in f32, so it is the same function up to the order of the sum). Its other
+contractions keep the operands' dtype, as ``torch.einsum`` does.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import division_modes as dm
+
+__all__ = ["rms_norm", "rope", "gated_mlp", "embed_tokens", "lm_logits"]
+
+
+def rms_norm(x, w, div: dm.DivisionConfig, eps: float = 1e-6):
+    """RMSNorm through the division unit's consumer dispatch: the kernel
+    modes run the fused kernel, every other mode the twin."""
+    return dm.rmsnorm(x, w, div, eps=eps)
+
+
+def rope(x, positions, theta: float):
+    """Rotary embeddings. x: (B, S, H, hd); positions: (B, S) int."""
+    half = x.shape[-1] // 2
+    exps = torch.arange(0, half, dtype=torch.float32, device=x.device) / half
+    freqs = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                         device=x.device), exps)
+    angles = positions[..., None].to(torch.float32) * freqs      # (B, S, half)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    xf1, xf2 = x[..., :half].to(torch.float32), x[..., half:].to(torch.float32)
+    return torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+def gated_mlp(p, x):
+    """SwiGLU MLP: wo(silu(wg x) * (wi x))."""
+    h = x @ p["wi"]
+    g = F.silu((x @ p["wg"]).to(torch.float32))
+    return (g.to(h.dtype) * h) @ p["wo"]
+
+
+def embed_tokens(embed, tokens, cfg: ModelConfig):
+    return embed[tokens]
+
+
+def lm_logits(params, x, cfg: ModelConfig):
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return x.to(torch.float32) @ head.to(torch.float32)

@@ -1,0 +1,122 @@
+"""Parameter specs and concrete init for the dense blocks.
+
+The PyTorch counterpart of ``src/repro/models/params.py``. Parameters are a
+plain dict tree with the reference's grouping, ``{"embed", "groups":
+[{"layers": [...]}], "final_norm", "lm_head"}``, except that a group's
+``repeat`` copies are separate entries of ``layers`` (index ``r * period +
+i``) instead of leaves stacked on a leading axis: the port loops over
+layers where the reference scans. ``convert.params_from_reference`` maps one
+layout onto the other.
+
+``init_params`` draws from a ``torch.Generator`` with the reference's scales
+and dtypes. The two packages' random streams differ (and the reference's
+per-leaf key hashes the leaf's path with a per-process salt), so equal
+parameters come from the converter, never from equal seeds.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import LayerSpec, ModelConfig
+
+__all__ = ["ParamSpec", "model_specs", "init_params", "param_count",
+           "torch_dtype"]
+
+_NOT_PORTED = "ROADMAP Queue 1 item 10"
+
+
+@dataclass(frozen=True)
+class ParamSpec:
+    shape: Tuple[int, ...]
+    init: str = "normal"           # normal | zeros | ones
+    scale: Optional[float] = None  # stddev for normal; default 1/sqrt(shape[0])
+    dtype: Optional[str] = None    # overrides cfg.param_dtype
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    return getattr(torch, name)
+
+
+def _attn_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    s_in, s_out = 1.0 / np.sqrt(d), 1.0 / np.sqrt(H * hd)
+    return {"wq": ParamSpec((d, H, hd), scale=s_in),
+            "wk": ParamSpec((d, KV, hd), scale=s_in),
+            "wv": ParamSpec((d, KV, hd), scale=s_in),
+            "wo": ParamSpec((H, hd, d), scale=s_out)}
+
+
+def _mlp_specs(cfg: ModelConfig, d_ff: int) -> Dict[str, ParamSpec]:
+    d = cfg.d_model
+    return {"wi": ParamSpec((d, d_ff), scale=1.0 / np.sqrt(d)),
+            "wg": ParamSpec((d, d_ff), scale=1.0 / np.sqrt(d)),
+            "wo": ParamSpec((d_ff, d), scale=1.0 / np.sqrt(d_ff))}
+
+
+def _block_specs(cfg: ModelConfig, spec: LayerSpec) -> Dict[str, Any]:
+    if spec.mixer != "attn" or spec.ffn != "dense":
+        raise NotImplementedError(
+            f"{spec.mixer}/{spec.ffn} blocks are not ported yet ({_NOT_PORTED})")
+    d = cfg.d_model
+    return {"mixer_norm": ParamSpec((d,), init="ones", dtype="float32"),
+            "attn": _attn_specs(cfg),
+            "ffn_norm": ParamSpec((d,), init="ones", dtype="float32"),
+            "ffn": _mlp_specs(cfg, cfg.dense_ff)}
+
+
+def model_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    """The spec tree of a dense decoder-only model."""
+    if cfg.is_encoder_decoder or cfg.embed_inputs:
+        raise NotImplementedError(
+            f"encoder-decoder and embedding-input models are not ported yet "
+            f"({_NOT_PORTED})")
+    d, V = cfg.d_model, cfg.vocab
+    out: Dict[str, Any] = {"embed": ParamSpec((V, d), scale=1.0)}
+    out["groups"] = [{"layers": [_block_specs(cfg, s)
+                                 for _ in range(g.repeat) for s in g.period]}
+                     for g in cfg.groups()]
+    out["final_norm"] = ParamSpec((d,), init="ones", dtype="float32")
+    if not cfg.tie_embeddings:
+        out["lm_head"] = ParamSpec((d, V), scale=1.0 / np.sqrt(d))
+    return out
+
+
+def _map(tree, fn):
+    if isinstance(tree, ParamSpec):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    return [_map(v, fn) for v in tree]
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator, device=None):
+    """Concrete init on the generator's device (or ``device``): normal(0, 1)
+    in f32 times the spec's scale, then cast, as the reference does."""
+    device = generator.device if device is None else torch.device(device)
+
+    def leaf(p: ParamSpec):
+        dt = torch_dtype(p.dtype or cfg.param_dtype)
+        if p.init == "zeros":
+            return torch.zeros(p.shape, dtype=dt, device=device)
+        if p.init == "ones":
+            return torch.ones(p.shape, dtype=dt, device=device)
+        scale = p.scale if p.scale is not None else 1.0 / np.sqrt(p.shape[0])
+        x = torch.randn(p.shape, generator=generator, dtype=torch.float32,
+                        device=generator.device)
+        return (x * np.float32(scale)).to(device=device, dtype=dt)
+
+    return _map(model_specs(cfg), leaf)
+
+
+def param_count(cfg: ModelConfig) -> int:
+    n = [0]
+
+    def count(p: ParamSpec):
+        n[0] += int(np.prod(p.shape))
+
+    _map(model_specs(cfg), count)
+    return n[0]

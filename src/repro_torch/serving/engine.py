@@ -1,0 +1,239 @@
+"""Serving engine: prefill + batched greedy decode with a full-attention KV cache.
+
+The PyTorch counterpart of ``src/repro/serving/engine.py`` for dense
+models. Eager PyTorch takes the place of ``jax.jit``; the KV cache is
+updated in place (the reference rebuilds it), so a cache handed to
+:func:`decode_step` or :func:`_insert_cache_row` is the one returned.
+
+Padded-prompt correctness: prompts of unequal length are right-padded, but
+padding never leaks into the output: prefill gathers each request's logit at
+``len(prompt) - 1``, and decode runs at per-request positions, so request
+i's token t lands at absolute position ``len(prompt_i) + t`` and attends to
+nothing above it. ``generate_batch`` is therefore token-identical to
+single-request ``generate`` (where the matmuls do not depend on the batch's
+shape, as on the CPU in f32).
+
+``ServingEngine.serve`` is the continuous-batching loop: admit a request
+into a free slot (single-row prefill + cache row insert), decode all active
+slots in lockstep, release on EOS / ``max_new``, refill from the queue. The
+division unit is a serving knob (``division=``).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.division_modes import DivisionConfig
+from repro_torch.models import forward, make_cache
+from repro_torch.models.model import group_layers
+
+__all__ = ["prefill", "decode_step", "pad_cache_to", "Request",
+           "ServingEngine"]
+
+
+def prefill(cfg: ModelConfig, params, tokens, *, lengths=None):
+    """Returns (last_logits (B, V), cache). With per-request ``lengths`` the
+    logits are gathered at each request's last real position ``lengths[i] -
+    1``; without, at the final position."""
+    logits, cache, _ = forward(cfg, params, tokens=tokens, mode="prefill")
+    if lengths is None:
+        return logits[:, -1], cache
+    lv = torch.as_tensor(lengths, device=logits.device).long()
+    return logits[torch.arange(logits.shape[0], device=logits.device), lv - 1], cache
+
+
+def decode_step(cfg: ModelConfig, params, cache, tokens, pos):
+    """One decode step. tokens: (B, 1); pos: scalar or per-request (B,)
+    vector of absolute positions. -> (logits (B, V), cache)."""
+    logits, new_cache, _ = forward(cfg, params, tokens=tokens, cache=cache,
+                                   pos=pos, mode="decode")
+    return logits[:, 0], new_cache
+
+
+def pad_cache_to(cache, from_len: int, to_len: int, cfg: ModelConfig):
+    """Grow the full-attention K/V caches from ``from_len`` to ``to_len``
+    slots along the sequence axis (axis -3), chosen by walking the cache
+    beside ``cfg.groups()``: only ``attn`` layers' K/V are padded."""
+    if to_len < from_len:
+        raise ValueError(f"pad_cache_to: to_len {to_len} < from_len {from_len}")
+    if to_len == from_len:
+        return cache
+
+    def pad(a):
+        tail = torch.zeros((*a.shape[:-3], to_len - from_len, *a.shape[-2:]),
+                           dtype=a.dtype, device=a.device)
+        return torch.cat([a, tail], dim=-3)
+
+    new_groups = []
+    for g, gc in zip(cfg.groups(), cache["groups"]):
+        layers = []
+        for spec, lc in zip(group_layers(g), gc["layers"]):
+            lc = dict(lc)
+            if spec.mixer == "attn" and "attn" in lc:
+                lc["attn"] = {k: pad(v) for k, v in lc["attn"].items()}
+            layers.append(lc)
+        new_groups.append({"layers": layers})
+    return {"groups": new_groups}
+
+
+def _insert_cache_row(cache, row, slot: int, cfg: ModelConfig):
+    """Write single-request cache ``row`` (batch 1) into batch slot ``slot``,
+    in place (the batch axis is 0 in every leaf: layers are not stacked)."""
+    for gc, rc in zip(cache["groups"], row["groups"]):
+        for lc, lr in zip(gc["layers"], rc["layers"]):
+            for kind, leaves in lc.items():
+                for name, a in leaves.items():
+                    a[slot] = lr[kind][name][0].to(a.dtype)
+    return cache
+
+
+@dataclasses.dataclass
+class Request:
+    tokens: List[int]
+    max_new: int = 32
+    out: List[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+
+
+class ServingEngine:
+    """Greedy-decoding engine: static batching (``generate`` /
+    ``generate_batch``) and continuous batching (``serve``).
+
+    ``division`` swaps the division unit the whole path runs on; ``eos_id``
+    enables early stop on that token. Work runs on the parameters' device.
+    """
+
+    def __init__(self, cfg: ModelConfig, params, *, max_len: int = 256,
+                 division: Optional[DivisionConfig] = None,
+                 eos_id: Optional[int] = None):
+        if division is not None:
+            cfg = dataclasses.replace(cfg, division=division)
+        if cfg.embed_inputs or cfg.is_encoder_decoder:
+            raise NotImplementedError("embedding-input and encoder-decoder "
+                                      "serving is not ported yet (ROADMAP "
+                                      "Queue 1 item 11)")
+        self.cfg = cfg
+        self.params = params
+        self.max_len = max_len
+        self.eos_id = eos_id
+        self.device = params["embed"].device
+
+    def _prefill_tok(self, tokens, lengths):
+        return prefill(self.cfg, self.params, tokens, lengths=lengths)
+
+    def _decode(self, cache, tokens, pos):
+        return decode_step(self.cfg, self.params, cache, tokens, pos)
+
+    def _check_fits(self, s_max: int, max_new: int):
+        need = s_max + max_new
+        if need > self.max_len:
+            raise ValueError(
+                f"prompt ({s_max}) + max_new ({max_new}) needs {need} cache "
+                f"slots but max_len is {self.max_len}")
+
+    @staticmethod
+    def _argmax(logits) -> torch.Tensor:
+        return torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+
+    # ----------------------------------------------------------- static batch
+
+    def generate_batch(self, prompts, max_new: int = 32):
+        """Batched requests of unequal length: right-pad to the longest,
+        prefill once, then decode all slots in lockstep at per-request
+        positions. Returns a list of generated-token lists."""
+        if not prompts:
+            raise ValueError("generate_batch: empty prompt list")
+        if any(len(p) == 0 for p in prompts):
+            raise ValueError("generate_batch: empty prompt")
+        lens = [len(p) for p in prompts]
+        B, s_max = len(prompts), max(lens)
+        self._check_fits(s_max, max_new)
+        toks = np.zeros((B, s_max), np.int64)
+        for i, p in enumerate(prompts):
+            toks[i, :len(p)] = p          # zero right-pad; pads never attended
+        lengths = torch.tensor(lens, dtype=torch.int32, device=self.device)
+        last_logits, cache = self._prefill_tok(
+            torch.from_numpy(toks).to(self.device), lengths)
+        cache = pad_cache_to(cache, s_max, self.max_len, self.cfg)
+        pos_v = lengths                   # request i's first new token: len_i
+        tok = self._argmax(last_logits)
+        outs: List[List[int]] = [[] for _ in range(B)]
+        stopped = [False] * B
+        for _ in range(max_new):
+            for i, t in enumerate(tok[:, 0].tolist()):
+                if not stopped[i]:
+                    outs[i].append(t)
+                    if self.eos_id is not None and t == self.eos_id:
+                        stopped[i] = True
+            if all(stopped):
+                break
+            logits, cache = self._decode(cache, tok, pos_v)
+            tok = self._argmax(logits)
+            pos_v = pos_v + 1
+        return outs
+
+    def generate(self, prompt_tokens, max_new: int = 32):
+        """Single-request generate: the batch-of-one ``generate_batch``."""
+        return self.generate_batch([list(prompt_tokens)], max_new)[0]
+
+    # ------------------------------------------------------ continuous batch
+
+    def serve(self, requests: Sequence[Request], *, slots: int = 2):
+        """Continuous batching: admit requests into free slots (single-row
+        prefill + cache-row insert), decode all active slots in lockstep,
+        release each on EOS / its own ``max_new``, refill from the queue.
+        Mutates and returns the ``Request`` objects (``out``/``done``)."""
+        cfg = self.cfg
+        for r in requests:
+            if not r.tokens:
+                raise ValueError("serve: empty prompt")
+            self._check_fits(len(r.tokens), r.max_new)
+        B = slots
+        cache = make_cache(cfg, B, self.max_len, self.device)
+        pos_v = np.zeros((B,), np.int32)
+        cur = np.zeros((B, 1), np.int32)
+        active: List[Optional[Request]] = [None] * B
+        queue = list(requests)
+
+        def admit(slot: int, req: Request):
+            s = len(req.tokens)
+            toks = torch.tensor([req.tokens], dtype=torch.int64,
+                                device=self.device)
+            last, row = self._prefill_tok(toks, [s])
+            row = pad_cache_to(row, s, self.max_len, cfg)
+            _insert_cache_row(cache, row, slot, cfg)
+            cur[slot, 0] = int(torch.argmax(last[0]))
+            pos_v[slot] = s
+            active[slot] = req
+
+        while True:
+            for i in range(B):
+                if active[i] is None and queue:
+                    admit(i, queue.pop(0))
+            if not any(a is not None for a in active):
+                break
+            # record this step's token; release finished slots before decode
+            for i in range(B):
+                req = active[i]
+                if req is None:
+                    continue
+                t = int(cur[i, 0])
+                req.out.append(t)
+                if len(req.out) >= req.max_new or (
+                        self.eos_id is not None and t == self.eos_id):
+                    req.done = True
+                    active[i] = None
+                    pos_v[i] = 0   # an idle slot decodes garbage at pos 0;
+                    # its row is overwritten on the next admit
+            if not any(a is not None for a in active) and not queue:
+                break
+            logits, cache = self._decode(
+                cache, torch.from_numpy(cur).to(self.device),
+                torch.from_numpy(pos_v).to(self.device))
+            cur = self._argmax(logits).cpu().numpy()
+            pos_v = pos_v + 1
+        return list(requests)

@@ -167,11 +167,12 @@ def kmeans(x, k: Optional[int] = None, *, cfg: dm.DivisionConfig = dm.TAYLOR,
 
 
 def make_blobs(generator: torch.Generator, n: int, d: int, k: int, *,
-               spread: float = 0.15, dtype=torch.float32, device="cpu"):
+               spread: float = 0.15, dtype=torch.float32, device=None):
     """Gaussian blob mixture: (n, d) points around k centers in [-1, 1]^d.
 
     The draws come from ``generator`` on its own device, so a CUDA
-    generator makes large sets on the card.
+    generator makes large sets on the card; the points stay there unless
+    ``device`` names another.
     """
     gdev = generator.device
     centers = torch.rand((k, d), generator=generator, dtype=dtype,
@@ -179,4 +180,4 @@ def make_blobs(generator: torch.Generator, n: int, d: int, k: int, *,
     which = torch.randint(0, k, (n,), generator=generator, device=gdev)
     pts = torch.randn((n, d), generator=generator, dtype=dtype, device=gdev)
     pts.mul_(spread).add_(centers[which])
-    return pts.to(device)
+    return pts if device is None else pts.to(device)

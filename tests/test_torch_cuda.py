@@ -8,9 +8,13 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_smoke_config
 from repro_torch.core import division_modes as dm
 from repro_torch.core.seeds import compute_segments, rsqrt_seed_table
-from repro_torch.kernels import common, ops, tsdiv
+from repro_torch.eval import consumers
+from repro_torch.kernels import common, ops, rmsnorm, softmax, tsdiv
+from repro_torch.models import init_params
+from repro_torch.serving import ServingEngine
 from repro_torch.workloads import kmeans
 
 pytestmark = pytest.mark.cuda
@@ -69,3 +73,54 @@ def test_kmeans_divides_through_the_kernel(cuda):
                         cfg=dm.DivisionConfig(mode="taylor_pallas"))
     assert tsdiv.LAUNCHES["tsdiv_divide"] == 3 * 5 + 2
     assert res.centroids.is_cuda and torch.isfinite(res.centroids).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [128, 768, 2176])
+def test_consumer_kernels_match_plain_versions_bit_for_bit(cuda, dtype, d):
+    x = np.concatenate([*consumers.softmax_rows("float32", 16, d, 1).values(),
+                        consumers.softmax_edge_rows("float32", d)])
+    xt = torch.from_numpy(x).to(cuda, dtype)
+    for sched in ("paper", "factored", "goldschmidt"):
+        got = softmax.softmax(xt, 2, 24, sched)
+        want = softmax.softmax_plain(xt, compute_segments(2, 24), 2, sched)
+        assert got.dtype == dtype and _same_any(got, want)
+    r = np.concatenate([*consumers.rmsnorm_rows("float32", 16, d, 1).values()])
+    rt = torch.from_numpy(r).to(cuda, dtype)
+    w = torch.from_numpy(consumers.rmsnorm_weight(d, 1)).to(cuda)
+    assert _same_any(rmsnorm.rmsnorm(rt, w), rmsnorm.rmsnorm_plain(rt, w, 1e-6,
+                                                                    rsqrt_seed_table(16), 2))
+
+
+def _same_any(got, want):
+    ints = torch.int32 if got.element_size() == 4 else torch.int16
+    eq = (got.view(ints) == want.view(ints)) | (got.isnan() & want.isnan())
+    return bool(eq.all())
+
+
+def test_consumer_wrappers_count_and_refuse(cuda):
+    softmax.reset_launches()
+    rmsnorm.reset_launches()
+    x = torch.randn(3, 5, 40, device=cuda)
+    dm.softmax(x, 1, dm.DivisionConfig(mode="taylor_pallas"))
+    dm.rmsnorm(x, torch.ones(40, device=cuda), dm.DivisionConfig(mode="goldschmidt_pallas"))
+    dm.softmax(x, -1, dm.EXACT)
+    assert softmax.LAUNCHES == {"softmax_f32": 1} and rmsnorm.LAUNCHES == {"rmsnorm_f32": 1}
+    with pytest.raises(TypeError):
+        dm.softmax(x.half(), -1, dm.DivisionConfig(mode="taylor_pallas"))
+    with pytest.raises(TypeError):
+        softmax.softmax(x)                      # 3-D: the wrapper takes rows
+
+
+def test_serving_smoke_model_on_the_card(cuda):
+    cfg = get_smoke_config("paper_fpdiv")
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0))
+    eng = ServingEngine(cfg, params, max_len=64,
+                        division=dm.DivisionConfig(mode="taylor_pallas", schedule="paper"))
+    softmax.reset_launches()
+    rmsnorm.reset_launches()
+    out = eng.generate_batch([list(range(1, 12)), list(range(3, 25))], max_new=4)
+    assert [len(o) for o in out] == [4, 4]
+    forwards = 1 + 4
+    assert softmax.LAUNCHES["softmax_f32"] == cfg.n_layers * forwards
+    assert rmsnorm.LAUNCHES["rmsnorm_f32"] == (2 * cfg.n_layers + 1) * forwards

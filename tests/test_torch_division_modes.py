@@ -136,6 +136,7 @@ def test_not_ported_parts_raise():
                  lambda: dm.rsqrt(x, ilm)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
-    for fn in (dm.softmax, dm.rmsnorm, dm.attention):
+    for call in (lambda: dm.softmax(x, -1, ilm), lambda: dm.rmsnorm(x, x, ilm),
+                 lambda: dm.attention(x, x, x)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn(x)
+            call()

@@ -78,3 +78,10 @@ def test_sweeps_equal_reference():
     np.testing.assert_array_equal(ulp.ulp_error(approx, exact),
                                   ref_ulp.ulp_error(approx, exact))
     np.testing.assert_array_equal(ulp.to_ordered(x), ref_ulp.to_ordered(x))
+
+
+def test_entry_points_default_to_the_card():
+    import inspect
+
+    for fn in (golden.compute, golden.check, golden.check_divide, golden.check_rsqrt):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__

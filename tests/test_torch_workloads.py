@@ -124,3 +124,13 @@ def test_givens_coeffs_identity_corner_and_bad_via():
         qr.givens_coeffs(z, z, via="sqrt")
     with pytest.raises(ValueError):
         qr.qr_givens(torch.zeros(2, 2, 2), device="cpu")
+
+
+def test_make_blobs_stays_on_the_generators_device():
+    import inspect
+
+    assert inspect.signature(kmeans.make_blobs).parameters["device"].default is None
+    x = kmeans.make_blobs(torch.Generator(device="cpu").manual_seed(1), 10, 3, 2)
+    assert x.device.type == "cpu" and x.shape == (10, 3)
+    y = kmeans.make_blobs(torch.Generator().manual_seed(1), 10, 3, 2, device="cpu")
+    assert torch.equal(x, y)
