@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's division unit and dense-LM serving on one NVIDIA
-GPU and check them.
+"""Drive the PyTorch port's division unit, dense-LM serving, attention and
+the ILM on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py [--seed N] [--json PATH]
 
@@ -10,7 +10,7 @@ source, in parallel), then runs, each phase printing one line:
   2. kernels   — each kernel against its plain PyTorch version on the card,
                  2^22 seeded inputs per schedule, bit for bit;
   3. golden    — the reference's committed golden stores through the port
-                 on the card, 0 int ulp (all cells but recip/ilm);
+                 on the card, 0 int ulp (every cell, recip/ilm included);
   4. gradients — autograd through div and rsqrt, against the analytic rule
                  evaluated with the plain versions on the card;
   5. kmeans    — K-Means at N=10^6, D=128, K=1024, 10 Lloyd steps (an
@@ -38,12 +38,32 @@ source, in parallel), then runs, each phase printing one line:
  10. serve calls — every softmax and RMSNorm call of one prefill and one
                  decode step, made again on its own inputs through the same
                  entry point, held bit for bit against the plain version;
- 11. times     — each kernel, its plain version and the torch yardstick: the
+ 11. flash     — the flash-attention kernel against its plain version on a
+                 corpus of (BH, S, hd) shapes (ragged S included), f32 and
+                 bf16, causal or not, three schedules, early skip on and
+                 off, bit for bit; then the reference's attention gates on
+                 the card (every mode against the exact twin, ragged S,
+                 the ILM window, the f64 oracle);
+ 12. flash serve — division_modes.attention at full width on paper_fpdiv's
+                 own layer-0 q/k/v (the served batch of phase 9, (96, 2048,
+                 64) bf16) in taylor_pallas and goldschmidt_pallas, and once
+                 at S = 1000: kernel vs plain version on 8 of the 96 heads,
+                 vs the model's materialised-score attention at every
+                 request's valid positions, peak memory;
+ 13. ilm       — ops.ilm_mul / ilm_square on 2^24 seeded operand pairs below
+                 2^16 (edges 0, 1, 2^16 - 1 included) at iters 1, 2, 3, 4,
+                 6, 8, 16: kernel vs plain version bit for bit, a*b exactly
+                 at the exact bound, and the accuracy table;
+ 14. ilm serve — paper_fpdiv at full width in mode="ilm", teacher-forced
+                 against the exact twin in f32 (reported, not gated);
+ 15. times     — each kernel, its plain version and the torch yardstick: the
                  tsdiv kernels on the K-Means distance plane, softmax and
-                 RMSNorm at the serving prefill and decode shapes.
+                 RMSNorm at the serving prefill and decode shapes, flash
+                 attention at (96, 2048, 64) bf16 causal, the ILM kernels on
+                 2^24 lanes at iters 16.
 
-Phases 4-6 and 9 are the main path: launch counts are reset before each and
-read after it. Any failed check raises, and the script then exits non-zero
+Phases 4-6, 9, 12 and 13 are the main path: launch counts are reset before
+each and read after it. Any failed check raises, and the script then exits non-zero
 without printing a result. It needs a CUDA card and the repository around
 it; it imports nothing of JAX or of the reference package.
 """
@@ -52,6 +72,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -63,27 +84,45 @@ import torch
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet, at the 700 W limit
 F32_OPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
+# No data-sheet figure: 132 SMs x 64 INT32 lanes (half the 128 FP32 lanes
+# behind the 67 TFLOP/s, which counts an fma as two) x 1.98 GHz boost.
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # f32 operations per element of each timed body (n_iters=2, factored;
 # newton_iters=2), an fma counting two: counted from csrc/tsdiv_body.cuh.
 # softmax: max, sub, exp (~10 in libdevice), add, mul; rmsnorm: x*x, add,
 # x*r, *w. Per-row work (the reciprocal, the rsqrt, the trees) is left out.
+# flash_attention_f32: per (query, key, d) triple of the causal pairs, one
+# fma in QK^T and one in PV. Per ILM stage, integer instructions counted from
+# csrc/ilm.cu: the loop tests, the leading-zero counts, the leading ones and
+# residues, the guarded shifts and the accumulate.
 OPS_PER_ELEMENT = {"tsdiv_divide": 52, "tsdiv_recip": 29, "tsdiv_rsqrt": 50,
-                   "softmax_f32": 14, "rmsnorm_f32": 4}
+                   "softmax_f32": 14, "rmsnorm_f32": 4, "flash_attention_f32": 4,
+                   "ilm_mul_u32": 22, "ilm_square_u32": 13}
 CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {"tsdiv_divide": CSRC + "tsdiv.cu", "tsdiv_recip": CSRC + "tsdiv.cu",
            "tsdiv_rsqrt": CSRC + "tsdiv.cu", "softmax_f32": CSRC + "softmax.cu",
-           "rmsnorm_f32": CSRC + "rmsnorm.cu"}
+           "rmsnorm_f32": CSRC + "rmsnorm.cu",
+           "flash_attention_f32": CSRC + "flash_attention.cu",
+           "ilm_mul_u32": CSRC + "ilm.cu", "ilm_square_u32": CSRC + "ilm.cu"}
 REPLACES = {"tsdiv_divide": "src/repro/kernels/tsdiv.py:199",
             "tsdiv_recip": "src/repro/kernels/tsdiv.py:122",
             "tsdiv_rsqrt": "src/repro/kernels/tsdiv.py:147",
             "softmax_f32": "src/repro/kernels/softmax.py:46",
-            "rmsnorm_f32": "src/repro/kernels/rmsnorm.py:47"}
+            "rmsnorm_f32": "src/repro/kernels/rmsnorm.py:47",
+            "flash_attention_f32": "src/repro/kernels/flash_attention.py:133",
+            "ilm_mul_u32": "src/repro/kernels/ilm.py:66",
+            "ilm_square_u32": "src/repro/kernels/ilm.py:77"}
 N_PLANE, D, K = 1_000_000, 128, 1024
 PLAIN_ELEMENTS = 1 << 26
 CONSUMER_DIMS = (128, 768, 2048, 2176)
 SCHEDULES = ("paper", "factored", "goldschmidt")
 SERVE_LENS = tuple(2048 - 256 * i for i in range(8))   # 2048, 1792, ..., 256
 SERVE_NEW, SLOTS, SLOT_NEW = 64, 4, 32
+FLASH_CORPUS = ((4, 128, 64), (2, 256, 64), (3, 1000, 64), (2, 384, 128), (2, 256, 32))
+FLASH_PLAIN_HEADS = tuple(range(0, 96, 12))   # head 0 of each request at full width
+ILM_LANES = 1 << 24
+ILM_ITERS = (1, 2, 3, 4, 6, 8, 16)
+ILM_SERVE_NEW = 32
 DEVICE = "cuda"     # the phases of the serving slice run here
 
 
@@ -230,7 +269,7 @@ def phase_golden():
     failures = (golden.check(device="cuda") + golden.check_divide(device="cuda")
                 + golden.check_rsqrt(device="cuda"))
     n = (len(golden.golden_cells()) + len(golden.golden_div_cells())
-         + len(golden.golden_rsqrt_cells()) - len(golden.NOT_PORTED))
+         + len(golden.golden_rsqrt_cells()))
     say("golden", cells=n, failures=failures)
     check(not failures, f"golden cells drifted: {failures}")
 
@@ -399,9 +438,12 @@ def phase_calls(seed: int, err: dict) -> torch.Tensor:
     return d2
 
 
-def kernel_row(name, ms, plain_ms, library_ms, nbytes, elements, launches, err, **extra):
+def kernel_row(name, ms, plain_ms, library_ms, nbytes, elements, launches, err,
+               ops_per_s=F32_OPS_PER_S, **extra):
+    """One entry of the kernels line; ``elements`` times OPS_PER_ELEMENT is
+    the operation count of the bound."""
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = OPS_PER_ELEMENT[name] * elements / F32_OPS_PER_S * 1e3
+    ops_ms = OPS_PER_ELEMENT[name] * elements / ops_per_s * 1e3
     return {"name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
@@ -600,15 +642,15 @@ def replay(engine, prompts, steps: int, teacher=None):
     return torch.stack(picks).cpu().numpy(), torch.stack(seen)
 
 
-def mode_agreement(cfg, params, prompts, steps: int):
-    """Teacher-forced greedy agreement of taylor_pallas with the exact twin,
-    and the logit drift max|dl| / max|l| (the gates of test_decode_equiv)."""
+def mode_agreement(cfg, params, prompts, steps: int, mode: str = "taylor_pallas"):
+    """Teacher-forced greedy agreement of ``mode`` with the exact twin, and
+    the logit drift max|dl| / max|l| (the gates of test_decode_equiv)."""
     from repro_torch.serving import ServingEngine
 
     engs = {m: ServingEngine(cfg, params, max_len=max(SERVE_LENS) + steps,
-                             division=dm_config(m)) for m in ("exact", "taylor_pallas")}
+                             division=dm_config(m)) for m in ("exact", mode)}
     teacher, exact_logits = replay(engs["exact"], prompts, steps)
-    picks, logits = replay(engs["taylor_pallas"], prompts, steps, teacher)
+    picks, logits = replay(engs[mode], prompts, steps, teacher)
     drift = float((logits - exact_logits).abs().max() / exact_logits.abs().max())
     return float((picks == teacher).mean()), drift, teacher
 
@@ -752,6 +794,300 @@ def phase_serve_calls(seed: int, err: dict) -> dict:
     return first
 
 
+def u32_mismatch(got: torch.Tensor, want: torch.Tensor):
+    """mismatch() for uint32 lanes: (lanes differing, max |got - want|)."""
+    from repro_torch.core.ilm import as_u32_lanes
+
+    check(got.dtype == want.dtype == torch.uint32 and got.shape == want.shape,
+          f"ILM kernel gave {got.dtype} {tuple(got.shape)}, plain {want.dtype} {tuple(want.shape)}")
+    d = (as_u32_lanes(got) - as_u32_lanes(want)).abs()
+    return int((d != 0).sum()), float(d.max()) if d.numel() else 0.0
+
+
+def qkv(seed: int, shape, dtype=torch.float32, scale: float = 1.0):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy((rng.normal(size=shape) * scale).astype(np.float32)).to(DEVICE, dtype)
+            for _ in range(3)]
+
+
+def attention_f64(q, k, v, causal: bool):
+    """Softmax attention in f64: the oracle of tests/test_flash_attention.py."""
+    qd, kd, vd = (t.double() for t in (q, k, v))
+    sc = qd @ kd.transpose(-1, -2) / math.sqrt(q.shape[-1])
+    if causal:
+        sc = sc.masked_fill(~torch.ones(sc.shape[-2:], dtype=torch.bool, device=sc.device).tril(),
+                            -math.inf)
+    return torch.softmax(sc, -1) @ vd
+
+
+def phase_flash(seed: int, err: dict):
+    """The flash kernel against its plain version on the corpus, bit for
+    bit, then the reference's attention gates on the card."""
+    from repro_torch.core import division_modes as dm
+    from repro_torch.core.seeds import compute_segments
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    table = compute_segments(2, 24)
+    rows = []
+    for i, shape in enumerate(FLASH_CORPUS):
+        for dtype in (torch.float32, torch.bfloat16):
+            q3, k3, v3, kw = ops.flash_padded(*qkv(seed + 20 + i, shape, dtype))
+            for causal in (True, False):
+                for sched in SCHEDULES:
+                    for skip in (True, False):
+                        got = fa.flash_attention(q3, k3, v3, causal=causal, schedule=sched,
+                                                 skip_masked_k=skip, **kw)
+                        want = fa.flash_attention_plain(q3, k3, v3, table, 2, sched, causal=causal,
+                                                        skip_masked_k=skip, **kw)
+                        n_bad, e = mismatch(got, want)
+                        rows.append((list(shape), str(dtype).replace("torch.", ""), causal, sched,
+                                     skip, n_bad))
+                        err["flash_attention_f32"] = max(err["flash_attention_f32"], e)
+    sync()
+    # The reference's gates (tests/test_consumer_conformance.py and
+    # tests/test_flash_attention.py), on the card.
+    q, k, v = qkv(7, (2, 64, 32))
+    vs_exact = {}
+    for mode, sched in (("taylor", "paper"), ("taylor", "factored"), ("taylor_pallas", "paper"),
+                        ("taylor_pallas", "factored"), ("goldschmidt", "factored"),
+                        ("goldschmidt_pallas", "factored")):
+        cfg = dm.DivisionConfig(mode=mode, schedule=sched)
+        vs_exact[f"{mode}/{sched}"] = max(
+            float((dm.attention(q, k, v, cfg, causal=c) - dm.attention(q, k, v, dm.EXACT, causal=c))
+                  .abs().max()) for c in (True, False))
+    qi = qkv(8, (1, 16, 8))[0]
+    ilm_out = dm.attention(qi, qi, qi, dm.DivisionConfig(mode="ilm"))
+    ilm_dev = float((ilm_out - dm.attention(qi, qi, qi, dm.EXACT)).abs().max())
+    qr, kr, vr = qkv(9, (2, 100, 32))
+    ragged = float((dm.attention(qr, kr, vr, dm.DivisionConfig(mode="taylor_pallas"))
+                    - dm.attention(qr, kr, vr, dm.EXACT)).abs().max())
+    oracle = {}
+    for j, (bh, sl, hd, bq, bk, causal, atol, rtol, dtype) in enumerate((
+            (2, 256, 64, 128, 128, True, 2e-6, 1e-5, torch.float32),
+            (3, 128, 32, 64, 32, True, 2e-6, 1e-5, torch.float32),
+            (2, 256, 64, 128, 64, False, 2e-6, 1e-5, torch.float32),
+            (1, 512, 128, 128, 128, True, 2e-6, 1e-5, torch.float32),
+            (2, 64, 16, 64, 64, True, 2e-6, 1e-5, torch.float32),
+            (2, 100, 32, 32, 32, True, 5e-6, 1e-4, torch.float32),
+            (3, 77, 32, 32, 16, False, 5e-6, 1e-4, torch.float32),
+            (1, 300, 16, 128, 64, True, 5e-6, 1e-4, torch.float32),
+            (2, 128, 64, 128, 128, True, 0.04, 0.0, torch.bfloat16))):
+        q, k, v = qkv(seed + 40 + j, (bh, sl, hd), dtype)
+        o = ops.flash_attention(q, k, v, causal, bq, bk).double()
+        e = attention_f64(q, k, v, causal)
+        excess = float(((o - e).abs() - (atol + rtol * e.abs())).max())
+        oracle[f"{bh}x{sl}x{hd}/bq{bq}/bk{bk}/causal{int(causal)}/{str(dtype)[6:]}"] = {
+            "max_abs_err": float((o - e).abs().max()), "atol": atol, "rtol": rtol, "ok": excess <= 0}
+    say("flash", cases=len(rows), mismatched_lanes=sum(r[-1] for r in rows),
+        corpus=[list(c) for c in FLASH_CORPUS], vs_exact_twin=vs_exact, vs_exact_gate=1e-5,
+        ragged_taylor_pallas=ragged, ragged_gate=5e-6, ilm_dev=ilm_dev, ilm_window=[1e-8, 1e-2],
+        f64_oracle=oracle)
+    check(all(r[-1] == 0 for r in rows),
+          f"the flash kernel differs from its plain version: {[r for r in rows if r[-1]]}")
+    check(all(d <= 1e-5 for d in vs_exact.values()), f"attention vs the exact twin: {vs_exact}")
+    check(ragged <= 5e-6, f"ragged attention {ragged} > 5e-6")
+    check(bool(torch.isfinite(ilm_out).all()) and 1e-8 < ilm_dev < 1e-2, f"ILM attention {ilm_dev}")
+    check(all(c["ok"] for c in oracle.values()), f"flash vs the f64 oracle: {oracle}")
+
+
+def flash_inputs(seed: int):
+    """paper_fpdiv's layer-0 q/k/v after RoPE on phase 9's served batch, made
+    by the port's own model functions: (b, s, h, hd) bf16, and the lengths."""
+    from repro_torch.models import attention as mattn
+    from repro_torch.models.layers import embed_tokens, rms_norm
+
+    cfg, params, prompts = serve_setup(seed)
+    toks, lengths = padded(prompts)
+    b, s = toks.shape
+    positions = torch.arange(s, dtype=torch.int32, device=DEVICE).expand(b, s)
+    bp = params["groups"][0]["layers"][0]
+    h = rms_norm(embed_tokens(params["embed"], toks, cfg), bp["mixer_norm"], cfg.division,
+                 cfg.norm_eps)
+    p = bp["attn"]
+    q = mattn.rope_apply(mattn._proj(h, p["wq"]), positions, cfg)
+    k = mattn._repeat_kv(mattn.rope_apply(mattn._proj(h, p["wk"]), positions, cfg), cfg.q_per_kv)
+    v = mattn._repeat_kv(mattn._proj(h, p["wv"]), cfg.q_per_kv)
+    return q, k, v, positions, lengths
+
+
+def phase_flash_serve(seed: int, err: dict, launches: dict):
+    """division_modes.attention at full width on the served model's own
+    q/k/v, in both kernel modes, and once at S = 1000. Returns the
+    (b, h, s, hd) q/k/v for the times."""
+    from repro_torch.core import division_modes as dm
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.models import attention as mattn
+
+    q, k, v, positions, lengths = flash_inputs(seed)
+    b, s, h, hd = q.shape
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))     # (b, h, s, hd)
+    sel = torch.tensor(FLASH_PLAIN_HEADS, device=DEVICE)
+    mask = positions[:, None, :, None] >= positions[:, None, None, :]
+    vmax = float(v.float().abs().max())
+    out = {}
+
+    def plain_slice(o, qs, ks, vs, div):
+        """The kernel's output on the selected heads against the plain version."""
+        n = qs.shape[-2]
+        flat = lambda t: t.reshape(b * h, n, hd)[sel]
+        want = ref.flash_attention_ref(flat(qs), flat(ks), flat(vs), causal=True,
+                                       n_iters=div.n_iters, precision_bits=div.precision_bits,
+                                       schedule=dm._kernel_schedule(div))
+        return mismatch(flat(o), want)
+
+    sync()
+    fa.reset_launches()
+    for mode in ("taylor_pallas", "goldschmidt_pallas"):
+        div = dm_config(mode)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        o = dm.attention(qh, kh, vh, div)
+        sync()
+        flash_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
+        n_bad, e = plain_slice(o, qh, kh, vh, div)
+        err["flash_attention_f32"] = max(err["flash_attention_f32"], e)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        want = mattn._sdpa(q, k, v, mask, div, 1.0 / math.sqrt(hd))        # (b, s, h, hd)
+        sync()
+        sdpa_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
+        dev = max(float((o[i, :, :n].transpose(0, 1).float() - want[i, :n].float()).abs().max())
+                  for i, n in enumerate(lengths.tolist()))
+        out[mode] = {"plain_heads": len(FLASH_PLAIN_HEADS), "mismatched_lanes": n_bad,
+                     "vs_sdpa_max_abs": dev, "vs_sdpa_over_max_abs_v": dev / vmax,
+                     "flash_peak_gib": flash_gib, "sdpa_peak_gib": sdpa_gib,
+                     "score_tensor_gib": b * h * s * s * 4 / 2**30, "finite": bool(torch.isfinite(o).all())}
+        del o, want
+    # S = 1000: the sk_real path (q and k/v padded to 1024) at full width.
+    div = dm_config("taylor_pallas")
+    q1, k1, v1 = (t[:, :, :1000].contiguous() for t in (qh, kh, vh))
+    o1 = dm.attention(q1, k1, v1, div)
+    sync()
+    n_bad, e = plain_slice(o1, q1, k1, v1, div)
+    err["flash_attention_f32"] = max(err["flash_attention_f32"], e)
+    out["taylor_pallas_s1000"] = {"mismatched_lanes": n_bad, "finite": bool(torch.isfinite(o1).all())}
+    counts = dict(fa.LAUNCHES)
+    launches["flash_attention_f32"] += counts["flash_attention_f32"]
+    say("flash_serve", arch="paper_fpdiv", layer=0, shape=[b * h, s, hd], dtype=str(q.dtype)[6:],
+        lengths=lengths.tolist(), division=dataclasses.asdict(div), launches=counts,
+        max_abs_v=vmax, vs_sdpa_gate_over_max_abs_v=0.04, runs=out)
+    check(counts == {"flash_attention_f32": 3}, f"flash launches {counts}, expected 3")
+    for key, r in out.items():
+        check(r["mismatched_lanes"] == 0 and r["finite"], f"flash at full width, {key}: {r}")
+        check(r.get("vs_sdpa_over_max_abs_v", 0.0) <= 0.04, f"flash vs _sdpa, {key}: {r}")
+    return qh, kh, vh
+
+
+def ilm_operands(seed: int):
+    """ILM_LANES seeded operand pairs in [1, 2^16), the edges 0, 1 and
+    2^16 - 1 in every pairing first, as uint32 on the card."""
+    rng = np.random.default_rng(seed + 30)
+    a = rng.integers(1, 2**16, ILM_LANES, dtype=np.int64).astype(np.uint32)
+    b = rng.integers(1, 2**16, ILM_LANES, dtype=np.int64).astype(np.uint32)
+    e = np.array([0, 1, 2**16 - 1], np.uint32)
+    a[:9], b[:9] = np.repeat(e, 3), np.tile(e, 3)
+    return torch.from_numpy(a).to(DEVICE), torch.from_numpy(b).to(DEVICE)
+
+
+def phase_ilm(seed: int, err: dict, launches: dict):
+    """ops.ilm_mul / ilm_square at each iteration count (the path of the
+    reference's bench_ilm_accuracy), then each output against the plain
+    version and the exact product. Returns the operands for the times."""
+    from repro_torch.core import ilm as ilm_core
+    from repro_torch.kernels import ilm, ops
+
+    a, b = ilm_operands(seed)
+    sync()
+    ilm.reset_launches()
+    outs = {it: (ops.ilm_mul(a, b, iters=it), ops.ilm_square(a, iters=it)) for it in ILM_ITERS}
+    sync()
+    counts = dict(ilm.LAUNCHES)
+    for key, n in counts.items():
+        launches[key] += n
+    a64, b64 = ilm_core.as_u32_lanes(a), ilm_core.as_u32_lanes(b)
+    exact_mul, exact_sq = a64 * b64, a64 * a64
+    nz = exact_mul > 0
+    rows, table = [], {}
+    for it, (pm, ps) in outs.items():
+        for name, got, want in (("ilm_mul_u32", pm, ilm.ilm_mul_plain(a, b, it)),
+                                ("ilm_square_u32", ps, ilm.ilm_square_plain(a, it))):
+            n_bad, e = u32_mismatch(got, want)
+            rows.append((name, it, n_bad))
+            err[name] = max(err[name], e)
+        p = ilm_core.as_u32_lanes(pm)
+        rel = (exact_mul - p)[nz].double() / exact_mul[nz].double()
+        table[it] = {"max_rel": float(rel.max()), "mean_rel": float(rel.mean()),
+                     "exact_frac": float((p == exact_mul).double().mean()),
+                     "square_exact_frac": float((ilm_core.as_u32_lanes(ps) == exact_sq).double().mean())}
+    bound = ilm_core.exact_iters_bound(16)
+    exact_at_bound = (bool((ilm_core.as_u32_lanes(outs[bound][0]) == exact_mul).all()),
+                      bool((ilm_core.as_u32_lanes(outs[bound][1]) == exact_sq).all()))
+    say("ilm", lanes=a.numel(), iters=list(ILM_ITERS), launches=counts, mismatched_lanes=rows,
+        exact_at_bound={"iters": bound, "mul": exact_at_bound[0], "square": exact_at_bound[1]},
+        accuracy=table)
+    check(counts == {"ilm_mul_u32": len(ILM_ITERS), "ilm_square_u32": len(ILM_ITERS)},
+          f"ILM launches {counts}")
+    check(all(r[2] == 0 for r in rows), f"an ILM kernel differs from its plain version: {rows}")
+    check(all(exact_at_bound), f"ILM at iters={bound} is not the exact product")
+    return a, b
+
+
+def phase_ilm_serve(seed: int):
+    """paper_fpdiv at full width served in mode="ilm", teacher-forced against
+    the exact twin with f32 params: reported, not gated (the ILM mode is
+    ~1e4 ulp by design)."""
+    agree, drift, _ = mode_agreement(*serve_setup(seed, "float32"), ILM_SERVE_NEW, mode="ilm")
+    say("ilm_serve", arch="paper_fpdiv", params_dtype="float32", prompt_lens=list(SERVE_LENS),
+        steps=ILM_SERVE_NEW, division=dataclasses.asdict(dm_config("ilm")),
+        f32_teacher_forced_agreement=agree, f32_logit_drift=drift)
+    check(math.isfinite(drift), f"ILM serving gave non-finite logits: drift {drift}")
+
+
+def phase_times_attention_ilm(err: dict, launches: dict, flash_in, ilm_in):
+    """Flash attention at (96, 2048, 64) bf16 causal in the served config's
+    schedule, and the ILM kernels on ILM_LANES lanes at iters 16."""
+    from repro_torch.core import ilm as ilm_core
+    from repro_torch.core.seeds import compute_segments
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ilm
+
+    div = dm_config("taylor_pallas")
+    qh, kh, vh = flash_in
+    b, h, s, hd = qh.shape
+    q3, k3, v3 = (t.reshape(b * h, s, hd) for t in flash_in)
+    sel = torch.tensor(FLASH_PLAIN_HEADS, device=DEVICE)
+    q8, k8, v8 = (t[sel].contiguous() for t in (q3, k3, v3))
+    table = compute_segments(div.n_iters, div.precision_bits)
+    kernel = lambda: fa.flash_attention(q3, k3, v3, causal=True, schedule=div.schedule)
+    plain = lambda: fa.flash_attention_plain(q8, k8, v8, table, div.n_iters, div.schedule,
+                                             causal=True, block_k=128, sk_real=s,
+                                             skip_masked_k=True)
+    library = lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+    rows = [kernel_row("flash_attention_f32", event_ms(kernel), event_ms(plain, 1),
+                       event_ms(library), 4 * q3.numel() * q3.element_size(),
+                       b * h * (s * (s + 1) // 2) * hd, launches, err, shape=[b * h, s, hd],
+                       dtype="bfloat16", causal=True, plain_heads=len(FLASH_PLAIN_HEADS))]
+    say("times", **rows[-1])
+    a, bb = ilm_in
+    a64, b64 = ilm_core.as_u32_lanes(a), ilm_core.as_u32_lanes(bb)
+    pa, pb = ilm_core._popcount32(a64), ilm_core._popcount32(b64)
+    it = 16
+    for name, kernel, plain, library, nbytes, stages in (
+            ("ilm_mul_u32", lambda: ilm.ilm_mul(a, bb, it), lambda: ilm.ilm_mul_plain(a, bb, it),
+             lambda: torch.mul(a64, b64), 12 * a.numel(),
+             torch.minimum(torch.minimum(pa, pb), torch.tensor(it, device=DEVICE))),
+            ("ilm_square_u32", lambda: ilm.ilm_square(a, it), lambda: ilm.ilm_square_plain(a, it),
+             lambda: torch.mul(a64, a64), 8 * a.numel(), torch.clamp(pa, max=it))):
+        rows.append(kernel_row(name, event_ms(kernel), event_ms(plain, 3), event_ms(library),
+                               nbytes, int(stages.sum()), launches, err,
+                               ops_per_s=INT32_OPS_PER_S, shape=[a.numel()], iters=it,
+                               stages_per_lane=float(stages.double().mean())))
+        say("times", **rows[-1])
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -766,7 +1102,8 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     smi = phase_device()
     err = phase_kernels(args.seed)
-    err.update(softmax_f32=0.0, rmsnorm_f32=0.0)
+    err.update(softmax_f32=0.0, rmsnorm_f32=0.0, flash_attention_f32=0.0, ilm_mul_u32=0.0,
+               ilm_square_u32=0.0)
     phase_golden()
     launches = {k: 0 for k in err}
     tsdiv.reset_launches()
@@ -778,9 +1115,14 @@ def main(argv=None) -> int:
     plane = phase_calls(args.seed, err)
     phase_consumers(args.seed, err)
     phase_serve(args.seed, launches)
+    flash_in = phase_flash_serve(args.seed, err, launches)
+    ilm_in = phase_ilm(args.seed, err, launches)
     check(all(launches.values()), f"a kernel was not launched on the main path: {launches}")
     consumer_inputs = phase_serve_calls(args.seed, err)
+    phase_flash(args.seed, err)
+    phase_ilm_serve(args.seed)
     rows = phase_times(plane, err, launches, consumer_inputs)
+    rows += phase_times_attention_ilm(err, launches, flash_in, ilm_in)
     result = {"kernels": rows}
     if args.json:
         args.json.parent.mkdir(parents=True, exist_ok=True)

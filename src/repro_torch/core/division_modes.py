@@ -1,8 +1,8 @@
 """Division dispatch: the paper's unit as one config knob.
 
-The PyTorch counterpart of ``src/repro/core/division_modes.py`` for the
-scalar ops :func:`recip`, :func:`div` and :func:`rsqrt` and their consumers
-:func:`softmax` and :func:`rmsnorm`. Modes:
+The PyTorch counterpart of ``src/repro/core/division_modes.py``: the scalar
+ops :func:`recip`, :func:`div` and :func:`rsqrt` and their consumers
+:func:`softmax`, :func:`rmsnorm` and :func:`attention`. Modes:
 
   * ``exact``              — torch's own divide / rsqrt (the baseline).
   * ``taylor``             — the paper's unit as torch ops (PWL seed + series).
@@ -11,21 +11,26 @@ scalar ops :func:`recip`, :func:`div` and :func:`rsqrt` and their consumers
                              tensor (the name is kept so configs round-trip).
   * ``goldschmidt``        — Goldschmidt N/D refinement on the same seed ROM.
   * ``goldschmidt_pallas`` — the same refinement in the fused kernel.
-  * ``ilm``                — not ported yet (ROADMAP Queue 1 item 7).
+  * ``ilm``                — every multiply of the reciprocal and rsqrt
+                             datapaths through the 16-bit Iterative
+                             Logarithmic Multiplier (``core/ilm.py``) on
+                             12-bit mantissas: the ~12-bit end of the dial.
 
-The consumers :func:`softmax` and :func:`rmsnorm` route every mode the same
-way, the kernel modes to the fused softmax and RMSNorm kernels. A CUDA
-tensor in a ``*_pallas`` mode launches the kernel or raises; nothing falls
-back to another path or to the CPU. ``attention`` is not ported yet and
-raises.
+The consumers route every mode the same way: the kernel modes to the fused
+softmax, RMSNorm and flash-attention kernels, every other mode to twins
+whose divisions call back into this module. A CUDA tensor in a ``*_pallas``
+mode launches the kernel or raises; nothing falls back to another path or
+to the CPU.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
+import numpy as np
 import torch
 
-from . import goldschmidt, taylor
+from . import fpparts, goldschmidt, ilm, powering, taylor
 from .fpparts import UNDERFLOW_POLICIES
 from .seeds import compute_segments, rsqrt_seed_table
 
@@ -35,7 +40,7 @@ __all__ = ["MODES", "DivisionConfig", "EXACT", "TAYLOR", "effective_underflow",
 MODES = ("exact", "taylor", "taylor_pallas", "goldschmidt",
          "goldschmidt_pallas", "ilm")
 _KERNEL_MODES = ("taylor_pallas", "goldschmidt_pallas")
-_ILM_TODO = "mode='ilm' is not ported yet (ROADMAP Queue 1 item 7)"
+_TINY = 2.0 ** -126
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,7 +129,7 @@ def recip(x: torch.Tensor, cfg: DivisionConfig = TAYLOR) -> torch.Tensor:
     if cfg.mode == "exact":
         return 1.0 / x
     if cfg.mode == "ilm":
-        raise NotImplementedError(_ILM_TODO)
+        return _recip_ilm(x, cfg)
     if cfg.mode in _KERNEL_MODES and _takes_kernel(x):
         from repro_torch.kernels import ops as kops
 
@@ -142,6 +147,10 @@ def div(a, b, cfg: DivisionConfig = TAYLOR) -> torch.Tensor:
 
     Operands broadcast; mixed dtypes promote. The kernel modes materialise
     the broadcast, since the kernel takes equal contiguous operands.
+    ``ilm`` keeps the bit-faithful ``a * recip(b)`` emulation, whose
+    under/overflow is part of what it emulates, with the IEEE edge contract
+    applied on top (FTZ: subnormal operands are zeros, subnormal quotients
+    flush).
     """
     if not torch.is_tensor(a):
         a = _as_tensor(a, b)
@@ -149,7 +158,7 @@ def div(a, b, cfg: DivisionConfig = TAYLOR) -> torch.Tensor:
     if cfg.mode == "exact":
         return a / b
     if cfg.mode == "ilm":
-        raise NotImplementedError(_ILM_TODO)
+        return _div_ilm(a, b, cfg)
     if cfg.mode in _KERNEL_MODES:
         ct = torch.promote_types(a.dtype, b.dtype)
         ab, bb = torch.broadcast_tensors(a.to(ct), b.to(ct))
@@ -174,7 +183,7 @@ def rsqrt(x: torch.Tensor, cfg: DivisionConfig = TAYLOR) -> torch.Tensor:
     if cfg.mode == "exact":
         return torch.rsqrt(x)
     if cfg.mode == "ilm":
-        raise NotImplementedError(_ILM_TODO)
+        return _rsqrt_ilm(x, cfg)
     if cfg.mode in _KERNEL_MODES and _takes_kernel(x):
         from repro_torch.kernels import ops as kops
 
@@ -201,8 +210,6 @@ def softmax(x: torch.Tensor, axis: int = -1, cfg: DivisionConfig = TAYLOR,
         return x                     # no logits: empty in, empty out
     if where is not None:
         where = torch.as_tensor(where, device=x.device)
-    if cfg.mode == "ilm":
-        raise NotImplementedError(_ILM_TODO)
     if cfg.mode in _KERNEL_MODES and _takes_kernel(x):
         from repro_torch.kernels import ops as kops
 
@@ -247,8 +254,6 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, cfg: DivisionConfig = TAYLOR, *,
     """
     if x.dim() == 0 or x.shape[-1] == 0:
         return x
-    if cfg.mode == "ilm":
-        raise NotImplementedError(_ILM_TODO)
     if cfg.mode in _KERNEL_MODES and _takes_kernel(x):
         from repro_torch.kernels import ops as kops
 
@@ -261,9 +266,171 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, cfg: DivisionConfig = TAYLOR, *,
     return (xf * r * w.to(torch.float32)).to(x.dtype)
 
 
-def attention(*args, **kwargs):
-    """Not ported yet: flash attention is the next slice (ROADMAP Queue 1
-    item 9, Queue 2 item 7)."""
-    raise NotImplementedError("attention and the flash-attention kernel are "
-                              "the next slice of the port (ROADMAP Queue 1 "
-                              "item 9)")
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              cfg: DivisionConfig = TAYLOR, *, causal: bool = True) -> torch.Tensor:
+    """Scaled dot-product attention with the softmax 1/l through the unit.
+
+    q/k/v: (..., S, hd). The kernel modes run the fused flash-attention
+    kernel (``kernels.ops.flash_attention``: online softmax with the final
+    1/l in the division unit, ``schedule="goldschmidt"`` for
+    ``goldschmidt_pallas``; ragged lengths by pad-and-mask) on f32/bf16
+    operands with at least one element. Every other mode runs the twin: f32
+    scores times f32(1/sqrt(hd)), the causal mask at the kernel's
+    ``NEG_INF``, :func:`softmax` under the same config, then ``p @ v``.
+    """
+    if cfg.mode in _KERNEL_MODES and _takes_kernel(q, k, v):
+        from repro_torch.kernels import ops as kops
+
+        return kops.flash_attention(q, k, v, causal, n_iters=cfg.n_iters,
+                                    precision_bits=cfg.precision_bits,
+                                    schedule=_kernel_schedule(cfg))
+    # One causal-mask sentinel for the twin and the fused kernel.
+    from repro_torch.kernels.flash_attention import NEG_INF, causal_mask
+
+    scale = torch.tensor(np.float32(1.0 / math.sqrt(q.shape[-1])), device=q.device)
+    s = torch.einsum("...qh,...kh->...qk", q.to(torch.float32),
+                     k.to(torch.float32)) * scale
+    if causal:
+        s = torch.where(causal_mask(*s.shape[-2:], q.device), s, NEG_INF)
+    p = softmax(s, -1, cfg)
+    return torch.einsum("...qk,...kh->...qh", p, v.to(torch.float32)).to(q.dtype)
+
+
+# ---------------------------------------------------------------- ILM modes
+#
+# The reference runs these datapaths eagerly on XLA's CPU backend, which
+# flushes subnormal results and reads subnormal operands as zeros (F4), and
+# builds them from jnp.frexp / jnp.ldexp. The helpers below give those
+# functions' values on the lanes the datapaths use, with the flush explicit:
+# torch keeps subnormals, and torch.ldexp computes x * 2**e, whose 2**e
+# overflows where the result is finite.
+
+def _frexp_ftz(x: torch.Tensor):
+    """jnp.frexp of f32 x under XLA's flush: (frac in [0.5, 1), e) with
+    x == frac * 2^e for normal x; (x, 0) for zeros, subnormals, infs, nans."""
+    bits = x.contiguous().view(torch.int32)
+    exp = (bits >> 23) & 0xFF
+    normal = (exp != 0) & (exp != 255)
+    frac = ((bits & ~fpparts.F32_EXP_MASK) | (126 << 23)).view(torch.float32)
+    return torch.where(normal, frac, x), torch.where(normal, exp - 126, 0)
+
+
+def _ldexp_ftz(x: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
+    """jnp.ldexp of f32 x under XLA's flush: x * 2^e rounded once (exact in
+    f64), subnormal results to signed zero, overflow to inf."""
+    p2 = ((e.to(torch.int64).clamp(-1022, 1023) + 1023) << 52).view(torch.float64)
+    r = (x.to(torch.float64) * p2).to(torch.float32)
+    return torch.where(r.abs() < _TINY, r * 0.0, r)
+
+
+def _sign(x: torch.Tensor) -> torch.Tensor:
+    """jnp.sign: +-1, signed zeros and nans kept (torch.sign gives +0 for -0)."""
+    return torch.where(x > 0, 1.0, torch.where(x < 0, -1.0, x))
+
+
+def _ilm_fpmul(mant_bits: int = 12, iters: int = 12):
+    """Float multiply with the mantissa product through the 16-bit ILM.
+
+    Mantissas are quantized to ``mant_bits`` (round half to even) so ILM
+    products fit uint32 lanes; the result carries ~12-bit precision.
+    """
+    scale = 1 << (mant_bits - 1)
+
+    def fpmul(a, b):
+        fa, ea = _frexp_ftz(a.abs())
+        fb, eb = _frexp_ftz(b.abs())
+        ma = torch.round(fa * 2 * scale).to(torch.int64)
+        mb = torch.round(fb * 2 * scale).to(torch.int64)
+        p = ilm.ilm_mul(ma, mb, iters).to(torch.float32)
+        r = _ldexp_ftz(p / (4.0 * scale * scale), (ea - 1) + (eb - 1) + 2)
+        return r * _sign(a) * _sign(b)
+
+    return fpmul
+
+
+class _IlmRecip(torch.autograd.Function):
+    """r = 1/x with the rule of the reference's ``taylor.attach_grad``:
+    dr = -r^2 dx, zero where -r^2 or x is not finite."""
+
+    @staticmethod
+    def forward(ctx, xf, impl):
+        r = impl(xf)
+        ctx.save_for_backward(xf, r)
+        return r
+
+    @staticmethod
+    def backward(ctx, g):
+        xf, r = ctx.saved_tensors
+        coef = torch.where(torch.isfinite(xf), fpparts.finite_or_zero(-(r * r)), 0.0)
+        return coef * g, None
+
+
+def _recip_ilm(x: torch.Tensor, cfg: DivisionConfig) -> torch.Tensor:
+    """Reciprocal with every multiply through the 16-bit ILM (FTZ)."""
+    table = compute_segments(min(cfg.n_iters, 5), min(cfg.precision_bits, 12))
+    fpmul = _ilm_fpmul()
+
+    def impl(xf):
+        frac, e = _frexp_ftz(xf.abs())
+        man = frac * 2.0
+        y0 = taylor.seed_eval(man, table)
+        m = 1.0 - fpmul(man, y0)
+        powers = powering.eval_powers(m, table.n_iters, mul=fpmul,
+                                      square=lambda a: fpmul(a, a))
+        acc = torch.ones_like(m) + m
+        for k in range(2, table.n_iters + 1):
+            acc = acc + powers[k]
+        r = _ldexp_ftz(fpmul(y0, acc), 1 - e) * _sign(xf)
+        # The edge contract of every mode, with subnormals in the zero class:
+        # +-0 -> +-inf, +-inf -> +-0, nan -> nan.
+        r = torch.where(xf.abs() < _TINY, torch.copysign(torch.full_like(xf, math.inf), xf), r)
+        r = torch.where(torch.isinf(xf), torch.copysign(torch.zeros_like(xf), xf), r)
+        return torch.where(torch.isnan(xf), math.nan, r)
+
+    return _IlmRecip.apply(x.to(torch.float32), impl).to(x.dtype)
+
+
+def _rsqrt_ilm(x: torch.Tensor, cfg: DivisionConfig) -> torch.Tensor:
+    """rsqrt with every Newton multiply through the 16-bit ILM: the PWL chord
+    seed of ``cfg.rtable`` on the parity-folded mantissa, then
+    ``cfg.rsqrt_newton`` steps whose y*y, u*y^2 and correction products all
+    run the ILM. FTZ (subnormal operands are the zero class); +-0 -> +-inf,
+    +inf -> +0, x < 0 and nan -> nan; gradients by the shared rsqrt rule."""
+    fpmul = _ilm_fpmul()
+
+    def impl(xf):
+        ax = xf.abs()
+        frac, e = _frexp_ftz(ax)
+        s = e >> 1
+        u = _ldexp_ftz(frac, e - 2 * s)           # in [0.5, 2)
+        y = taylor.seed_eval(u, cfg.rtable)
+        for _ in range(cfg.rsqrt_newton):
+            t = fpmul(u, fpmul(y, y))
+            y = fpmul(y, 1.5 - 0.5 * t)
+        r = _ldexp_ftz(y, -s)
+        tiny = ax < _TINY
+        r = torch.where(tiny, torch.copysign(torch.full_like(xf, math.inf), xf), r)
+        r = torch.where(torch.isinf(xf) & (xf > 0), 0.0, r)
+        neg = (xf < 0) & ~tiny
+        return torch.where(neg | torch.isnan(xf), math.nan, r)
+
+    return fpparts.jnp_rsqrt(x, impl)
+
+
+def _div_ilm(a: torch.Tensor, b: torch.Tensor, cfg: DivisionConfig) -> torch.Tensor:
+    """a * recip(b) in the ILM mode, then the IEEE special-value contract
+    (the composed multiply turns inf * 0 into nan where IEEE wants inf)."""
+    a, b = torch.broadcast_tensors(a, b)
+    a_zero, b_zero = a.abs() < _TINY, b.abs() < _TINY      # FTZ zero class
+    r = recip(b, cfg)
+    # The product in f32 (as XLA multiplies bf16), flushed before rounding
+    # to the result type.
+    q = torch.where(a_zero, a * 0.0, a).to(torch.float32) * r.to(torch.float32)
+    q = torch.where(q.abs() < _TINY, q * 0.0, q).to(torch.promote_types(a.dtype, r.dtype))
+    s = torch.copysign(torch.ones_like(q), a) * torch.copysign(torch.ones_like(q), b)
+    a_inf, b_inf = torch.isinf(a), torch.isinf(b)
+    q = torch.where(b_zero & ~a_zero, torch.copysign(torch.full_like(q, math.inf), s), q)
+    q = torch.where(a_inf & ~b_inf, torch.copysign(torch.full_like(q, math.inf), s), q)
+    q = torch.where(b_inf & ~a_inf, torch.copysign(torch.zeros_like(q), s), q)
+    q = torch.where((a_zero & b_zero) | (a_inf & b_inf), math.nan, q)
+    return torch.where(torch.isnan(a) | torch.isnan(b), math.nan, q)

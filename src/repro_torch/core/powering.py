@@ -1,14 +1,22 @@
-"""Powering unit schedule (paper §6), used by the ``paper`` series schedule.
+"""Powering unit schedule (paper §6), used by the ``paper`` series schedule
+and by the ILM mode, and the squaring unit's hardware model (paper §5).
 
 x^2 .. x^n by the "maximize squaring" heuristic: cycle 0 squares x; cycle c
 forms one odd power by a multiply, x^(2c+1) = x * x^(2c), and one even power
 by a square, x^(2c+2) = (x^(c+1))^2 — two new Taylor terms per cycle.
+
+``hw_cost`` is the reference's component-count model of the §5 claim (the
+squaring unit needs under half the ILM multiplier's hardware): the
+multiplier duplicates the priority encoder, LOD, shifter and adder and
+needs a decoder for 2^(k1+k2); the squarer needs one of each and writes 4^k
+as (100)_2 << k with no decoder.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Tuple
 
-__all__ = ["schedule", "eval_powers"]
+__all__ = ["schedule", "eval_powers", "HwCost", "hw_cost"]
 
 Op = Tuple[str, Any, int]  # (kind, operand(s), result power)
 
@@ -41,3 +49,34 @@ def eval_powers(x, n: int, *, mul: Callable, square: Callable) -> Dict[int, Any]
             a, b = src
             powers[dst] = mul(powers[a], powers[b])
     return powers
+
+
+@dataclass(frozen=True)
+class HwCost:
+    """Component counts, weighted in relative area units."""
+
+    priority_encoder: int
+    lod: int
+    barrel_shifter: int
+    adder: int
+    decoder: int
+    weights: Dict[str, float] = field(default_factory=lambda: {
+        "priority_encoder": 3.0, "lod": 3.0, "barrel_shifter": 2.0,
+        "adder": 1.5, "decoder": 1.0,
+    })
+
+    def units(self) -> int:
+        return (self.priority_encoder + self.lod + self.barrel_shifter
+                + self.adder + self.decoder)
+
+    def area(self) -> float:
+        return sum(getattr(self, k) * w for k, w in self.weights.items())
+
+
+def hw_cost() -> Dict[str, Any]:
+    """Paper §5: squaring unit vs iterative-log multiplier component counts."""
+    multiplier = HwCost(priority_encoder=2, lod=2, barrel_shifter=2, adder=2, decoder=1)
+    squarer = HwCost(priority_encoder=1, lod=1, barrel_shifter=1, adder=1, decoder=0)
+    return {"multiplier": multiplier, "squarer": squarer,
+            "area_ratio": squarer.area() / multiplier.area(),
+            "unit_ratio": squarer.units() / multiplier.units()}

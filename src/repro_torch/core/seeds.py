@@ -74,6 +74,12 @@ class SeedTable:
         """Thresholds for segment lookup: idx = sum(x >= inner_boundaries)."""
         return self.boundaries[1:-1]
 
+    def seed(self, x):
+        """Vectorized numpy seed evaluation (the f64 ILM oracle's seed)."""
+        x = np.asarray(x)
+        idx = np.sum(x[..., None] >= self.inner_boundaries, axis=-1)
+        return self.slopes[idx] * x + self.intercepts[idx]
+
 
 @lru_cache(maxsize=None)
 def compute_segments(n_iters: int, precision_bits: int, lo: float = 1.0,

@@ -8,8 +8,8 @@ diffs in integer ULPs (default tolerance 0):
     PYTHONPATH=src python -m repro_torch.eval.golden --device cpu
 
 The cell lists are the reference's (``golden_cells``, ``golden_div_cells``,
-``golden_rsqrt_cells``). ``recip/ilm/n2p24`` waits for the ILM port and the
-softmax store for the softmax kernel.
+``golden_rsqrt_cells``); every cell of the three stores is checked, the ILM
+cell included. The softmax store is not (F1).
 """
 from __future__ import annotations
 
@@ -31,10 +31,6 @@ GOLDEN_DIR = Path(__file__).resolve().parents[2] / "repro" / "eval" / "golden"
 GOLDEN_PATH = GOLDEN_DIR / "reciprocal_v1.npz"
 DIVIDE_PATH = GOLDEN_DIR / "divide_v1.npz"
 RSQRT_PATH = GOLDEN_DIR / "rsqrt_v1.npz"
-
-# Cells of the stores that wait for a later slice of the port.
-NOT_PORTED = ("recip/ilm/n2p24",)
-
 
 def golden_cells() -> List[Tuple[str, Dict]]:
     """(key, DivisionConfig kwargs) of the reciprocal store."""
@@ -108,8 +104,6 @@ def compute(key: str, kw: Dict, x: np.ndarray, a: np.ndarray,
 def _diff(cells, stored, x, a, tolerance_ulp, device, locate) -> List[Dict]:
     failures: List[Dict] = []
     for key, kw in cells:
-        if key in NOT_PORTED:
-            continue
         if key not in stored:
             failures.append({"cell": key, "error": "missing from store"})
             continue

@@ -22,7 +22,7 @@ __all__ = ["SeedTableC", "library", "build_all", "BUILD_DIR", "build_info"]
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-LIBRARIES = ("tsdiv", "softmax", "rmsnorm")      # csrc/<name>.cu each
+LIBRARIES = ("tsdiv", "softmax", "rmsnorm", "flash_attention", "ilm")  # csrc/<name>.cu
 HEADERS = ("tsdiv_body.cuh", "rows.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
@@ -53,6 +53,14 @@ _SIGNATURES = {
     "rmsnorm": {
         "rmsnorm_rows": [_vp, _vp, _vp, _i64, _i32, _i32, _f32, _f32, SeedTableC,
                          _i32, _vp],
+    },
+    "flash_attention": {
+        "flash_attention_f32": [_vp, _vp, _vp, _vp, _i64, _i32, _i32, _i32, _i32, _i32,
+                                _i32, _i32, _f32, _i32, SeedTableC, _i32, _i32, _vp],
+    },
+    "ilm": {
+        "ilm_mul_u32": [_vp, _vp, _vp, _i64, _i32, _vp],
+        "ilm_square_u32": [_vp, _vp, _i64, _i32, _vp],
     },
 }
 

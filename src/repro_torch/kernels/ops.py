@@ -12,21 +12,37 @@ consumer kernels (:func:`softmax`, :func:`rmsnorm`) take any ``(..., D)`` as
 padded -inf lane adds exactly 0 to a softmax sum, and the RMSNorm kernel
 divides by the real D, which is the row's length here.
 
+:func:`flash_attention` takes ``(..., S, hd)`` q/k/v with leading dims
+flattened onto the kernel's batch-heads axis, and pads ragged lengths as the
+reference's wrapper does: q up to a ``block_q`` multiple (the padded rows
+are sliced off), k/v up to a ``block_k`` multiple with the padded keys
+masked in the kernel (``sk_real``). Its backward recomputes the score
+matrix in plain torch, as the reference's does. :func:`ilm_mul` and
+:func:`ilm_square` take integer tensors of any shape as uint32 lanes and
+return ``torch.uint32``.
+
 Which device does the work follows the tensors: CPU tensors run the
 kernels' plain versions, CUDA tensors launch the kernels (see
 :mod:`.tsdiv`). The mesh-aware dispatch of the reference is not ported yet.
 """
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 
 from repro_torch.core.fpparts import finite_or_zero
+from repro_torch.core.ilm import as_u32_lanes
+from . import flash_attention as flash_k
+from . import ilm as ilm_k
 from . import rmsnorm as rmsnorm_k
 from . import softmax as softmax_k
 from . import tsdiv
 
 __all__ = ["kernel_applicable", "tsdiv_recip", "tsdiv_divide", "tsdiv_rsqrt",
-           "softmax", "rmsnorm"]
+           "softmax", "rmsnorm", "flash_padded", "flash_attention", "ilm_mul",
+           "ilm_square"]
 
 
 def kernel_applicable(x: torch.Tensor) -> bool:
@@ -191,3 +207,77 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6,
     """Fused RMSNorm over the last axis of any (..., D) f32/bf16 tensor,
     with its closed-form VJP for x and w."""
     return _RMSNorm.apply(x, w, eps, newton_iters, n_segments)
+
+
+def flash_padded(q, k, v, block_q: int = 128, block_k: int = 128):
+    """The reference wrapper's pad-and-mask: (..., S, hd) q/k/v flattened to
+    (BH, S, hd), q zero-padded to a ``min(block_q, Sq)`` multiple and k/v to
+    a ``min(block_k, Sk)`` multiple. Returns (q3, k3, v3, the kernel's
+    keywords ``block_k`` and ``sk_real``); slice ``[:, :Sq]`` off the output."""
+    s, hd = q.shape[-2:]
+    q3 = q.reshape(-1, s, hd)
+    k3 = k.reshape(-1, k.shape[-2], hd)
+    v3 = v.reshape(-1, v.shape[-2], hd)
+    sk = k3.shape[1]
+    bq, bk = min(block_q, s), min(block_k, sk)
+    pad = torch.nn.functional.pad
+    return (pad(q3, (0, 0, 0, -s % bq)).contiguous(), pad(k3, (0, 0, 0, -sk % bk)).contiguous(),
+            pad(v3, (0, 0, 0, -sk % bk)).contiguous(), dict(block_k=bk, sk_real=sk))
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, block_q, block_k, n_iters, precision_bits, schedule):
+        q3, k3, v3, kw = flash_padded(q, k, v, block_q, block_k)
+        o = flash_k.flash_attention(q3, k3, v3, causal=causal, n_iters=n_iters,
+                                    precision_bits=precision_bits, schedule=schedule, **kw)
+        ctx.save_for_backward(q, k, v)
+        ctx.causal = causal
+        return o[:, :q.shape[-2]].reshape(q.shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        # The standard attention gradient on the recomputed f32 scores with
+        # an exact softmax, as the reference's _flash_bwd (no kernel).
+        q, k, v = ctx.saved_tensors
+        qf, kf, vf, gf = (t.to(torch.float32) for t in (q, k, v, g))
+        scale = torch.tensor(np.float32(1.0 / math.sqrt(q.shape[-1])), device=q.device)
+        s = torch.einsum("...qh,...kh->...qk", qf, kf) * scale
+        if ctx.causal:
+            s = torch.where(flash_k.causal_mask(*s.shape[-2:], q.device), s, flash_k.NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        dv = torch.einsum("...qk,...qh->...kh", p, gf)
+        dp = torch.einsum("...qh,...kh->...qk", gf, vf)
+        ds = p * (dp - torch.sum(dp * p, dim=-1, keepdim=True))
+        dq = torch.einsum("...qk,...kh->...qh", ds, kf) * scale
+        dk = torch.einsum("...qk,...qh->...kh", ds, qf) * scale
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
+                None, None, None, None, None, None)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, block_q: int = 128, block_k: int = 128,
+                    n_iters: int = 2, precision_bits: int = 24,
+                    schedule: str = "factored") -> torch.Tensor:
+    """Flash attention with the division unit's 1/l over (..., S, hd)
+    f32/bf16 q/k/v of any lengths, with the recompute backward."""
+    return _FlashAttention.apply(q, k, v, causal, block_q, block_k, n_iters,
+                                 precision_bits, schedule)
+
+
+def _u32(x: torch.Tensor) -> torch.Tensor:
+    """Any integer tensor as contiguous uint32 lanes (x mod 2^32)."""
+    if x.dtype == torch.uint32:
+        return x.contiguous()
+    return ilm_k.to_u32(as_u32_lanes(x)).contiguous()
+
+
+def ilm_mul(a: torch.Tensor, b: torch.Tensor, *, iters: int = 16) -> torch.Tensor:
+    """ILM products through the kernel, any shape (operands broadcast)."""
+    a, b = torch.broadcast_tensors(a, b)
+    return ilm_k.ilm_mul(_u32(a), _u32(b), iters)
+
+
+def ilm_square(a: torch.Tensor, *, iters: int = 16) -> torch.Tensor:
+    """ILM squares through the kernel, any shape."""
+    return ilm_k.ilm_square(_u32(a), iters)

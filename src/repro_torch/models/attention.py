@@ -20,13 +20,11 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import division_modes as dm
+from repro_torch.kernels.flash_attention import NEG_INF
 from .layers import rope
 
 __all__ = ["NEG_INF", "rope_apply", "full_attention", "init_cache_attn",
            "decode_positions", "decode_attention"]
-
-# Masked scores. One constant with the twin and the flash kernel's -1e30.
-NEG_INF = -1e30
 
 
 def _proj(x, w):

@@ -307,19 +307,22 @@ def test_kernel_modes_dispatch_to_the_fused_kernels(monkeypatch):
                         or real_sm(x, n, p, s))
     monkeypatch.setattr(ops, "rmsnorm", lambda x, w, e, n, k: seen.append(("rmsnorm", n, k))
                         or real_rms(x, w, e, n, k))
+    real_fa = ops.flash_attention
+    monkeypatch.setattr(ops, "flash_attention", lambda q, k, v, c, **kw: seen.append(
+        ("flash", kw["schedule"])) or real_fa(q, k, v, c, **kw))
     x, w = torch.randn(4, 32), torch.ones(32)
     for mode in ("taylor_pallas", "goldschmidt_pallas"):
         dm.softmax(x, -1, dm.DivisionConfig(mode=mode, schedule="paper"))
         dm.rmsnorm(x, w, dm.DivisionConfig(mode=mode, rsqrt_newton=3))
-    assert seen == [("softmax", "paper"), ("rmsnorm", 3, 16),
-                    ("softmax", "goldschmidt"), ("rmsnorm", 3, 16)]
+        dm.attention(x, x, x, dm.DivisionConfig(mode=mode, schedule="paper"))
+    assert seen == [("softmax", "paper"), ("rmsnorm", 3, 16), ("flash", "paper"),
+                    ("softmax", "goldschmidt"), ("rmsnorm", 3, 16), ("flash", "goldschmidt")]
     seen.clear()
-    for mode in ("exact", "taylor", "goldschmidt"):
+    for mode in ("exact", "taylor", "goldschmidt", "ilm"):
         dm.softmax(x, -1, dm.DivisionConfig(mode=mode))
         dm.rmsnorm(x, w, dm.DivisionConfig(mode=mode))
+        dm.attention(x, x, x, dm.DivisionConfig(mode=mode))
     assert seen == []
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dm.attention(x, x, x)
 
 
 def test_ref_oracles_are_the_plain_versions():

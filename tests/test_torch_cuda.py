@@ -12,7 +12,8 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.core import division_modes as dm
 from repro_torch.core.seeds import compute_segments, rsqrt_seed_table
 from repro_torch.eval import consumers
-from repro_torch.kernels import common, ops, rmsnorm, softmax, tsdiv
+from repro_torch.core import ilm as ilm_core
+from repro_torch.kernels import common, flash_attention, ilm, ops, ref, rmsnorm, softmax, tsdiv
 from repro_torch.models import init_params
 from repro_torch.serving import ServingEngine
 from repro_torch.workloads import kmeans
@@ -124,3 +125,75 @@ def test_serving_smoke_model_on_the_card(cuda):
     forwards = 1 + 4
     assert softmax.LAUNCHES["softmax_f32"] == cfg.n_layers * forwards
     assert rmsnorm.LAUNCHES["rmsnorm_f32"] == (2 * cfg.n_layers + 1) * forwards
+
+
+def _qkv(seed, shape, dtype, device):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(device, dtype)
+            for _ in range(3)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,s,hd", [(2, 128, 16), (2, 256, 32), (3, 100, 64), (2, 160, 128)])
+def test_flash_kernel_matches_plain_version_bit_for_bit(cuda, dtype, bh, s, hd):
+    q, k, v = _qkv(s + hd, (bh, s, hd), dtype, cuda)
+    for causal, sched, skip in ((True, "paper", True), (True, "goldschmidt", False),
+                                (False, "factored", True)):
+        q3, k3, v3, kw = ops.flash_padded(q, k, v)
+        got = flash_attention.flash_attention(q3, k3, v3, causal=causal, schedule=sched,
+                                              skip_masked_k=skip, **kw)
+        want = flash_attention.flash_attention_plain(
+            q3, k3, v3, compute_segments(2, 24), 2, sched, causal=causal,
+            skip_masked_k=skip, **kw)
+        assert got.dtype == dtype and _same_any(got, want), (causal, sched, skip)
+
+
+def test_flash_wrapper_counts_pads_and_refuses(cuda):
+    flash_attention.reset_launches()
+    q, k, v = _qkv(0, (2, 3, 100, 32), torch.float32, cuda)
+    o = dm.attention(q, k, v, dm.DivisionConfig(mode="taylor_pallas"))
+    dm.attention(q, k, v, dm.EXACT)
+    assert o.shape == q.shape and flash_attention.LAUNCHES == {"flash_attention_f32": 1}
+    e = dm.attention(q, k, v, dm.EXACT)
+    assert float((o - e).abs().max()) <= 5e-6
+    with pytest.raises(ValueError):          # a head size the kernel lacks
+        dm.attention(q[..., :8], k[..., :8], v[..., :8], dm.DivisionConfig(mode="taylor_pallas"))
+    with pytest.raises(TypeError):
+        dm.attention(q.half(), k.half(), v.half(), dm.DivisionConfig(mode="taylor_pallas"))
+
+
+@pytest.mark.parametrize("mode", ["exact", "taylor", "taylor_pallas", "goldschmidt",
+                                  "goldschmidt_pallas", "ilm"])
+def test_attention_every_mode_on_the_card(cuda, mode):
+    q, k, v = _qkv(7, (2, 64, 32), torch.float32, cuda)
+    for causal in (True, False):
+        o = dm.attention(q, k, v, dm.DivisionConfig(mode=mode), causal=causal)
+        e = dm.attention(q, k, v, dm.EXACT, causal=causal)
+        dev = float((o - e).abs().max())
+        assert bool(torch.isfinite(o).all())
+        assert (1e-8 < dev < 1e-2) if mode == "ilm" else dev <= 1e-5, (mode, causal, dev)
+
+
+def test_ilm_kernels_match_plain_versions_bit_for_bit(cuda):
+    rng = np.random.default_rng(3)
+    a = rng.integers(0, 2**16, 1 << 16).astype(np.uint32)
+    b = rng.integers(0, 2**16, 1 << 16).astype(np.uint32)
+    a[:4], b[:4] = [0, 1, 65535, 65535], [7, 0, 65535, 1]
+    at, bt = torch.from_numpy(a).to(cuda), torch.from_numpy(b).to(cuda)
+    for iters in (1, 2, 3, 8, 16):
+        assert _same_any(ilm.ilm_mul(at, bt, iters), ilm.ilm_mul_plain(at, bt, iters)), iters
+        assert _same_any(ilm.ilm_square(at, iters), ilm.ilm_square_plain(at, iters)), iters
+    bound = ilm_core.exact_iters_bound(16)
+    assert _same_any(ilm.ilm_mul(at, bt, bound), ref.ilm_mul_exact(at, bt))
+    assert _same_any(ilm.ilm_square(at, bound), ref.ilm_square_exact(at))
+
+
+def test_ilm_wrappers_count_and_refuse(cuda):
+    ilm.reset_launches()
+    a = torch.arange(1000, device=cuda)
+    ops.ilm_mul(a, a, iters=4)
+    ops.ilm_square(a, iters=4)
+    dm.recip(torch.ones(10, device=cuda), dm.DivisionConfig(mode="ilm"))   # core ILM, no kernel
+    assert ilm.LAUNCHES == {"ilm_mul_u32": 1, "ilm_square_u32": 1}
+    with pytest.raises(TypeError):
+        ilm.ilm_mul(a, a, 4)                 # int64: the kernel takes uint32

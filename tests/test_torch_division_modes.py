@@ -2,8 +2,8 @@
 
 Configs round-trip from the reference's ``dataclasses.asdict``; every
 approximate mode gives the reference's bits on a seeded corpus with
-subnormal operands, under both underflow policies; the slice's limits
-(ILM and the consumers) raise.
+subnormal operands, under both underflow policies (the ILM mode's own
+checks are in ``test_torch_ilm.py``).
 """
 import dataclasses
 
@@ -130,13 +130,17 @@ def test_kernel_modes_without_a_kernel_dtype_run_the_ftz_twin_on_cpu(mode):
 
 
 def test_not_ported_parts_raise():
-    x = torch.ones(4)
+    """Every mode of every division-unit op and consumer runs now (the ILM
+    modes and attention included); what is still not ported is the model
+    families past dense attention, which raise naming their ROADMAP item."""
+    from repro_torch.configs import get_config
+
+    x = torch.ones(1, 4, 16)
     ilm = dm.DivisionConfig(mode="ilm")
     for call in (lambda: dm.recip(x, ilm), lambda: dm.div(x, x, ilm),
-                 lambda: dm.rsqrt(x, ilm)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
-    for call in (lambda: dm.softmax(x, -1, ilm), lambda: dm.rmsnorm(x, x, ilm),
+                 lambda: dm.rsqrt(x, ilm), lambda: dm.softmax(x, -1, ilm),
+                 lambda: dm.rmsnorm(x, x[0, 0], ilm), lambda: dm.attention(x, x, x, ilm),
                  lambda: dm.attention(x, x, x)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+        assert bool(torch.isfinite(call()).all())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        get_config("gemma3_12b")

@@ -1,8 +1,8 @@
 """The reference's committed golden stores, reproduced by the port.
 
-Every non-ILM cell of the reciprocal, divide and rsqrt stores must come out
-of the port at 0 int ulp. ``recip/ilm/n2p24`` waits for the ILM slice and
-the softmax store for the softmax kernel.
+Every cell of the reciprocal, divide and rsqrt stores, ``recip/ilm/n2p24``
+included, must come out of the port at 0 int ulp. The softmax store is not
+checked (ROADMAP F1).
 """
 import numpy as np
 import pytest
@@ -17,15 +17,14 @@ def _cells():
             (golden.DIVIDE_PATH, golden.golden_div_cells(), "b", "a"),
             (golden.RSQRT_PATH, golden.golden_rsqrt_cells(), "inputs", "inputs")):
         for key, kw in cells:
-            if key not in golden.NOT_PORTED:
-                yield pytest.param(path, key, kw, x_key, a_key, id=key)
+            yield pytest.param(path, key, kw, x_key, a_key, id=key)
 
 
 def test_cell_lists_are_the_reference_lists():
     assert golden.golden_cells() == ref_golden.golden_cells()
     assert golden.golden_div_cells() == ref_golden.golden_div_cells()
     assert golden.golden_rsqrt_cells() == ref_golden.golden_rsqrt_cells()
-    assert golden.NOT_PORTED == ("recip/ilm/n2p24",)
+    assert not hasattr(golden, "NOT_PORTED")        # every cell is checked
     for mine, ref in ((golden.GOLDEN_PATH, ref_golden.GOLDEN_PATH),
                       (golden.DIVIDE_PATH, ref_golden.DIVIDE_PATH),
                       (golden.RSQRT_PATH, ref_golden.RSQRT_PATH)):
