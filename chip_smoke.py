@@ -38,18 +38,24 @@ source, in parallel), then runs, each phase printing one line:
  10. serve calls — every softmax and RMSNorm call of one prefill and one
                  decode step, made again on its own inputs through the same
                  entry point, held bit for bit against the plain version;
- 11. flash     — the flash-attention kernel against its plain version on a
-                 corpus of (BH, S, hd) shapes (ragged S included), f32 and
-                 bf16, causal or not, three schedules, early skip on and
-                 off, bit for bit; then the reference's attention gates on
-                 the card (every mode against the exact twin, ragged S,
-                 the ILM window, the f64 oracle);
+ 11. flash     — the flash-attention kernels against their plain versions
+                 on a corpus of (BH, S, hd) shapes (ragged S included),
+                 causal or not, three schedules, early skip on and off: f32
+                 (CUDA cores) bit for bit, bf16 (tensor cores) under the
+                 gate of kernels/flash_attention.tc_gate (every lane within
+                 one bf16 ulp + 2^-16 max|v|, >= 99% of lanes identical;
+                 the identical share and the worst excess are printed);
+                 then the reference's attention gates on the card (every
+                 mode against the exact twin, ragged S, the ILM window, the
+                 f64 oracle);
  12. flash serve — division_modes.attention at full width on paper_fpdiv's
                  own layer-0 q/k/v (the served batch of phase 9, (96, 2048,
                  64) bf16) in taylor_pallas and goldschmidt_pallas, and once
-                 at S = 1000: kernel vs plain version on 8 of the 96 heads,
-                 vs the model's materialised-score attention at every
-                 request's valid positions, peak memory;
+                 at S = 1000, through the bf16 kernel: gated against the
+                 plain version on 8 of the 96 heads, vs the model's
+                 materialised-score attention at every request's valid
+                 positions, peak memory; then the same q/k/v in f32 through
+                 the f32 kernel, bit for bit on the 8 heads;
  13. ilm       — ops.ilm_mul / ilm_square on 2^24 seeded operand pairs below
                  2^16 (edges 0, 1, 2^16 - 1 included) at iters 1, 2, 3, 4,
                  6, 8, 16: kernel vs plain version bit for bit, a*b exactly
@@ -59,8 +65,8 @@ source, in parallel), then runs, each phase printing one line:
  15. times     — each kernel, its plain version and the torch yardstick: the
                  tsdiv kernels on the K-Means distance plane, softmax and
                  RMSNorm at the serving prefill and decode shapes, flash
-                 attention at (96, 2048, 64) bf16 causal, the ILM kernels on
-                 2^24 lanes at iters 16.
+                 attention at (96, 2048, 64) causal in bf16 and in f32, the
+                 ILM kernels on 2^24 lanes at iters 16.
 
 Phases 4-6, 9, 12 and 13 are the main path: launch counts are reset before
 each and read after it. Any failed check raises, and the script then exits non-zero
@@ -87,22 +93,26 @@ F32_OPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
 # No data-sheet figure: 132 SMs x 64 INT32 lanes (half the 128 FP32 lanes
 # behind the 67 TFLOP/s, which counts an fma as two) x 1.98 GHz boost.
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+BF16_TC_OPS_PER_S = 989e12    # H100 SXM dense bf16 on the tensor cores
 # f32 operations per element of each timed body (n_iters=2, factored;
 # newton_iters=2), an fma counting two: counted from csrc/tsdiv_body.cuh.
 # softmax: max, sub, exp (~10 in libdevice), add, mul; rmsnorm: x*x, add,
 # x*r, *w. Per-row work (the reciprocal, the rsqrt, the trees) is left out.
-# flash_attention_f32: per (query, key, d) triple of the causal pairs, one
-# fma in QK^T and one in PV. Per ILM stage, integer instructions counted from
-# csrc/ilm.cu: the loop tests, the leading-zero counts, the leading ones and
-# residues, the guarded shifts and the accumulate.
+# flash attention (both kernels): per (query, key, d) triple of the causal
+# pairs, one multiply-add in QK^T and one in PV (the bf16 kernel's second PV
+# mma, for p's low half, is its design's cost, not the work). Per ILM stage,
+# integer instructions counted from csrc/ilm.cu: the loop tests, the
+# leading-zero counts, the leading ones and residues, the guarded shifts and
+# the accumulate.
 OPS_PER_ELEMENT = {"tsdiv_divide": 52, "tsdiv_recip": 29, "tsdiv_rsqrt": 50,
                    "softmax_f32": 14, "rmsnorm_f32": 4, "flash_attention_f32": 4,
-                   "ilm_mul_u32": 22, "ilm_square_u32": 13}
+                   "flash_attention_bf16": 4, "ilm_mul_u32": 22, "ilm_square_u32": 13}
 CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {"tsdiv_divide": CSRC + "tsdiv.cu", "tsdiv_recip": CSRC + "tsdiv.cu",
            "tsdiv_rsqrt": CSRC + "tsdiv.cu", "softmax_f32": CSRC + "softmax.cu",
            "rmsnorm_f32": CSRC + "rmsnorm.cu",
            "flash_attention_f32": CSRC + "flash_attention.cu",
+           "flash_attention_bf16": CSRC + "flash_attention_tc.cu",
            "ilm_mul_u32": CSRC + "ilm.cu", "ilm_square_u32": CSRC + "ilm.cu"}
 REPLACES = {"tsdiv_divide": "src/repro/kernels/tsdiv.py:199",
             "tsdiv_recip": "src/repro/kernels/tsdiv.py:122",
@@ -110,6 +120,7 @@ REPLACES = {"tsdiv_divide": "src/repro/kernels/tsdiv.py:199",
             "softmax_f32": "src/repro/kernels/softmax.py:46",
             "rmsnorm_f32": "src/repro/kernels/rmsnorm.py:47",
             "flash_attention_f32": "src/repro/kernels/flash_attention.py:133",
+            "flash_attention_bf16": "src/repro/kernels/flash_attention.py:133",
             "ilm_mul_u32": "src/repro/kernels/ilm.py:66",
             "ilm_square_u32": "src/repro/kernels/ilm.py:77"}
 N_PLANE, D, K = 1_000_000, 128, 1024
@@ -820,30 +831,60 @@ def attention_f64(q, k, v, causal: bool):
     return torch.softmax(sc, -1) @ vd
 
 
+def tc_gated(gates: list, got, want, max_abs_v: float, err: dict) -> dict:
+    """The bf16 kernel against its plain version under its gate
+    (kernels/flash_attention.tc_gate); notes the gate and the largest
+    difference."""
+    from repro_torch.kernels import flash_attention as fa
+
+    g = fa.tc_gate(got, want, max_abs_v)
+    gates.append(g)
+    err["flash_attention_bf16"] = max(err["flash_attention_bf16"],
+                                      float((got.float() - want.float()).abs().max()))
+    return g
+
+
+def gate_summary(gates: list) -> dict:
+    """The worst of several tc_gate results: the least identical share, the
+    largest excess, the lanes over each bound."""
+    return {"identical_share_min": min(g["identical_share"] for g in gates),
+            "worst_excess": max(g["worst_excess"] for g in gates),
+            "lanes_over": sum(g["lanes_over"] for g in gates),
+            "lanes_over_2^-8": sum(g["lanes_over_2^-8"] for g in gates),
+            "ok": all(g["ok"] for g in gates)}
+
+
 def phase_flash(seed: int, err: dict):
-    """The flash kernel against its plain version on the corpus, bit for
-    bit, then the reference's attention gates on the card."""
+    """The flash kernels against their plain versions on the corpus (f32 bit
+    for bit, bf16 under its gate), then the reference's attention
+    gates on the card."""
     from repro_torch.core import division_modes as dm
     from repro_torch.core.seeds import compute_segments
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
 
     table = compute_segments(2, 24)
-    rows = []
+    rows, gates = [], []
     for i, shape in enumerate(FLASH_CORPUS):
         for dtype in (torch.float32, torch.bfloat16):
             q3, k3, v3, kw = ops.flash_padded(*qkv(seed + 20 + i, shape, dtype))
+            vmax = float(v3.float().abs().max())
+            plain = fa.PLAIN[fa.kernel_for(dtype)]
             for causal in (True, False):
                 for sched in SCHEDULES:
                     for skip in (True, False):
                         got = fa.flash_attention(q3, k3, v3, causal=causal, schedule=sched,
                                                  skip_masked_k=skip, **kw)
-                        want = fa.flash_attention_plain(q3, k3, v3, table, 2, sched, causal=causal,
-                                                        skip_masked_k=skip, **kw)
-                        n_bad, e = mismatch(got, want)
-                        rows.append((list(shape), str(dtype).replace("torch.", ""), causal, sched,
-                                     skip, n_bad))
-                        err["flash_attention_f32"] = max(err["flash_attention_f32"], e)
+                        want = plain(q3, k3, v3, table, 2, sched, causal=causal,
+                                     skip_masked_k=skip, **kw)
+                        case = [list(shape), str(dtype).replace("torch.", ""), causal, sched, skip]
+                        if dtype == torch.float32:
+                            n_bad, e = mismatch(got, want)
+                            rows.append((*case, n_bad))
+                            err["flash_attention_f32"] = max(err["flash_attention_f32"], e)
+                        else:
+                            g = tc_gated(gates, got, want, vmax, err)
+                            rows.append((*case, g["identical_share"], g["worst_excess"]))
     sync()
     # The reference's gates (tests/test_consumer_conformance.py and
     # tests/test_flash_attention.py), on the card.
@@ -879,12 +920,16 @@ def phase_flash(seed: int, err: dict):
         excess = float(((o - e).abs() - (atol + rtol * e.abs())).max())
         oracle[f"{bh}x{sl}x{hd}/bq{bq}/bk{bk}/causal{int(causal)}/{str(dtype)[6:]}"] = {
             "max_abs_err": float((o - e).abs().max()), "atol": atol, "rtol": rtol, "ok": excess <= 0}
-    say("flash", cases=len(rows), mismatched_lanes=sum(r[-1] for r in rows),
+    f32_rows = [r for r in rows if r[1] == "float32"]
+    bf16 = gate_summary(gates)
+    say("flash", cases=len(rows), f32_mismatched_lanes=sum(r[-1] for r in f32_rows),
+        bf16_gate=bf16, bf16_cases=[r for r in rows if r[1] == "bfloat16"],
         corpus=[list(c) for c in FLASH_CORPUS], vs_exact_twin=vs_exact, vs_exact_gate=1e-5,
         ragged_taylor_pallas=ragged, ragged_gate=5e-6, ilm_dev=ilm_dev, ilm_window=[1e-8, 1e-2],
         f64_oracle=oracle)
-    check(all(r[-1] == 0 for r in rows),
-          f"the flash kernel differs from its plain version: {[r for r in rows if r[-1]]}")
+    check(all(r[-1] == 0 for r in f32_rows),
+          f"the f32 flash kernel differs from its plain version: {[r for r in f32_rows if r[-1]]}")
+    check(bf16["ok"], f"the bf16 flash kernel misses the gate against its plain version: {bf16}")
     check(all(d <= 1e-5 for d in vs_exact.values()), f"attention vs the exact twin: {vs_exact}")
     check(ragged <= 5e-6, f"ragged attention {ragged} > 5e-6")
     check(bool(torch.isfinite(ilm_out).all()) and 1e-8 < ilm_dev < 1e-2, f"ILM attention {ilm_dev}")
@@ -913,8 +958,10 @@ def flash_inputs(seed: int):
 
 def phase_flash_serve(seed: int, err: dict, launches: dict):
     """division_modes.attention at full width on the served model's own
-    q/k/v, in both kernel modes, and once at S = 1000. Returns the
-    (b, h, s, hd) q/k/v for the times."""
+    q/k/v: bf16 in both kernel modes and once at S = 1000 (the tensor-core
+    kernel, under its gate against its plain version), then the same
+    q/k/v in f32 (the f32 kernel, bit for bit). Returns the (b, h, s, hd)
+    q/k/v for the times."""
     from repro_torch.core import division_modes as dm
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
@@ -926,16 +973,16 @@ def phase_flash_serve(seed: int, err: dict, launches: dict):
     sel = torch.tensor(FLASH_PLAIN_HEADS, device=DEVICE)
     mask = positions[:, None, :, None] >= positions[:, None, None, :]
     vmax = float(v.float().abs().max())
-    out = {}
+    out, gates = {}, []
 
     def plain_slice(o, qs, ks, vs, div):
-        """The kernel's output on the selected heads against the plain version."""
+        """The kernel's output on the selected heads and the plain version's."""
         n = qs.shape[-2]
         flat = lambda t: t.reshape(b * h, n, hd)[sel]
         want = ref.flash_attention_ref(flat(qs), flat(ks), flat(vs), causal=True,
                                        n_iters=div.n_iters, precision_bits=div.precision_bits,
                                        schedule=dm._kernel_schedule(div))
-        return mismatch(flat(o), want)
+        return flat(o), want
 
     sync()
     fa.reset_launches()
@@ -946,8 +993,7 @@ def phase_flash_serve(seed: int, err: dict, launches: dict):
         o = dm.attention(qh, kh, vh, div)
         sync()
         flash_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
-        n_bad, e = plain_slice(o, qh, kh, vh, div)
-        err["flash_attention_f32"] = max(err["flash_attention_f32"], e)
+        g = tc_gated(gates, *plain_slice(o, qh, kh, vh, div), vmax, err)
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
         want = mattn._sdpa(q, k, v, mask, div, 1.0 / math.sqrt(hd))        # (b, s, h, hd)
@@ -955,7 +1001,7 @@ def phase_flash_serve(seed: int, err: dict, launches: dict):
         sdpa_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
         dev = max(float((o[i, :, :n].transpose(0, 1).float() - want[i, :n].float()).abs().max())
                   for i, n in enumerate(lengths.tolist()))
-        out[mode] = {"plain_heads": len(FLASH_PLAIN_HEADS), "mismatched_lanes": n_bad,
+        out[mode] = {"plain_heads": len(FLASH_PLAIN_HEADS), "gate": g,
                      "vs_sdpa_max_abs": dev, "vs_sdpa_over_max_abs_v": dev / vmax,
                      "flash_peak_gib": flash_gib, "sdpa_peak_gib": sdpa_gib,
                      "score_tensor_gib": b * h * s * s * 4 / 2**30, "finite": bool(torch.isfinite(o).all())}
@@ -965,17 +1011,34 @@ def phase_flash_serve(seed: int, err: dict, launches: dict):
     q1, k1, v1 = (t[:, :, :1000].contiguous() for t in (qh, kh, vh))
     o1 = dm.attention(q1, k1, v1, div)
     sync()
-    n_bad, e = plain_slice(o1, q1, k1, v1, div)
+    g = tc_gated(gates, *plain_slice(o1, q1, k1, v1, div), vmax, err)
+    out["taylor_pallas_s1000"] = {"gate": g, "finite": bool(torch.isfinite(o1).all())}
+    counts_bf16 = dict(fa.LAUNCHES)
+    # The same q/k/v in f32 through the f32 kernel, held bit for bit.
+    fa.reset_launches()
+    qf, kf, vf = (t.float() for t in (qh, kh, vh))
+    of = dm.attention(qf, kf, vf, div)
+    sync()
+    counts_f32 = dict(fa.LAUNCHES)
+    n_bad, e = mismatch(*plain_slice(of, qf, kf, vf, div))
     err["flash_attention_f32"] = max(err["flash_attention_f32"], e)
-    out["taylor_pallas_s1000"] = {"mismatched_lanes": n_bad, "finite": bool(torch.isfinite(o1).all())}
-    counts = dict(fa.LAUNCHES)
-    launches["flash_attention_f32"] += counts["flash_attention_f32"]
+    out["taylor_pallas_f32"] = {"mismatched_lanes": n_bad, "finite": bool(torch.isfinite(of).all())}
+    del of
+    for key in launches:
+        if key.startswith("flash_attention"):
+            launches[key] += counts_bf16[key] + counts_f32[key]
+    summary = gate_summary(gates)
     say("flash_serve", arch="paper_fpdiv", layer=0, shape=[b * h, s, hd], dtype=str(q.dtype)[6:],
-        lengths=lengths.tolist(), division=dataclasses.asdict(div), launches=counts,
-        max_abs_v=vmax, vs_sdpa_gate_over_max_abs_v=0.04, runs=out)
-    check(counts == {"flash_attention_f32": 3}, f"flash launches {counts}, expected 3")
+        lengths=lengths.tolist(), division=dataclasses.asdict(div),
+        launches={"bfloat16": counts_bf16, "float32": counts_f32}, max_abs_v=vmax,
+        bf16_gate=summary, vs_sdpa_gate_over_max_abs_v=0.04, runs=out)
+    check(counts_bf16 == {"flash_attention_f32": 0, "flash_attention_bf16": 3},
+          f"bf16 flash launches {counts_bf16}, expected 3 of the bf16 kernel and 0 of the f32 one")
+    check(counts_f32 == {"flash_attention_f32": 1, "flash_attention_bf16": 0},
+          f"f32 flash launches {counts_f32}, expected 1 of the f32 kernel")
+    check(summary["ok"], f"the bf16 flash kernel at full width misses the gate: {summary}")
     for key, r in out.items():
-        check(r["mismatched_lanes"] == 0 and r["finite"], f"flash at full width, {key}: {r}")
+        check(r.get("mismatched_lanes", 0) == 0 and r["finite"], f"flash at full width, {key}: {r}")
         check(r.get("vs_sdpa_over_max_abs_v", 0.0) <= 0.04, f"flash vs _sdpa, {key}: {r}")
     return qh, kh, vh
 
@@ -1046,30 +1109,37 @@ def phase_ilm_serve(seed: int):
 
 
 def phase_times_attention_ilm(err: dict, launches: dict, flash_in, ilm_in):
-    """Flash attention at (96, 2048, 64) bf16 causal in the served config's
-    schedule, and the ILM kernels on ILM_LANES lanes at iters 16."""
+    """Flash attention at (96, 2048, 64) causal in the served config's
+    schedule, bf16 (tensor cores) and the same q/k/v in f32 (CUDA cores),
+    each against scaled_dot_product_attention on its own inputs; the ILM
+    kernels on ILM_LANES lanes at iters 16."""
     from repro_torch.core import ilm as ilm_core
     from repro_torch.core.seeds import compute_segments
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ilm
 
     div = dm_config("taylor_pallas")
-    qh, kh, vh = flash_in
-    b, h, s, hd = qh.shape
-    q3, k3, v3 = (t.reshape(b * h, s, hd) for t in flash_in)
+    b, h, s, hd = flash_in[0].shape
     sel = torch.tensor(FLASH_PLAIN_HEADS, device=DEVICE)
-    q8, k8, v8 = (t[sel].contiguous() for t in (q3, k3, v3))
     table = compute_segments(div.n_iters, div.precision_bits)
-    kernel = lambda: fa.flash_attention(q3, k3, v3, causal=True, schedule=div.schedule)
-    plain = lambda: fa.flash_attention_plain(q8, k8, v8, table, div.n_iters, div.schedule,
-                                             causal=True, block_k=128, sk_real=s,
-                                             skip_masked_k=True)
-    library = lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
-    rows = [kernel_row("flash_attention_f32", event_ms(kernel), event_ms(plain, 1),
-                       event_ms(library), 4 * q3.numel() * q3.element_size(),
-                       b * h * (s * (s + 1) // 2) * hd, launches, err, shape=[b * h, s, hd],
-                       dtype="bfloat16", causal=True, plain_heads=len(FLASH_PLAIN_HEADS))]
-    say("times", **rows[-1])
+    rows = []
+    for name, dtype, ops_per_s in (("flash_attention_bf16", torch.bfloat16, BF16_TC_OPS_PER_S),
+                                   ("flash_attention_f32", torch.float32, F32_OPS_PER_S)):
+        qh, kh, vh = (t.to(dtype) for t in flash_in)
+        q3, k3, v3 = (t.reshape(b * h, s, hd) for t in (qh, kh, vh))
+        q8, k8, v8 = (t[sel].contiguous() for t in (q3, k3, v3))
+        kernel = lambda: fa.flash_attention(q3, k3, v3, causal=True, schedule=div.schedule)
+        plain = lambda: fa.PLAIN[name](q8, k8, v8, table, div.n_iters, div.schedule, causal=True,
+                                       block_k=min(128, s), sk_real=s, skip_masked_k=True)
+        library = lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh,
+                                                                            is_causal=True)
+        rows.append(kernel_row(name, event_ms(kernel), event_ms(plain, 1), event_ms(library),
+                               4 * q3.numel() * q3.element_size(),
+                               b * h * (s * (s + 1) // 2) * hd, launches, err, ops_per_s=ops_per_s,
+                               shape=[b * h, s, hd], dtype=str(dtype).replace("torch.", ""),
+                               causal=True, plain_heads=len(FLASH_PLAIN_HEADS)))
+        say("times", **rows[-1])
+        del qh, kh, vh, q3, k3, v3
     a, bb = ilm_in
     a64, b64 = ilm_core.as_u32_lanes(a), ilm_core.as_u32_lanes(bb)
     pa, pb = ilm_core._popcount32(a64), ilm_core._popcount32(b64)
@@ -1102,8 +1172,8 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     smi = phase_device()
     err = phase_kernels(args.seed)
-    err.update(softmax_f32=0.0, rmsnorm_f32=0.0, flash_attention_f32=0.0, ilm_mul_u32=0.0,
-               ilm_square_u32=0.0)
+    err.update(softmax_f32=0.0, rmsnorm_f32=0.0, flash_attention_f32=0.0,
+               flash_attention_bf16=0.0, ilm_mul_u32=0.0, ilm_square_u32=0.0)
     phase_golden()
     launches = {k: 0 for k in err}
     tsdiv.reset_launches()

@@ -22,7 +22,8 @@ __all__ = ["SeedTableC", "library", "build_all", "BUILD_DIR", "build_info"]
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-LIBRARIES = ("tsdiv", "softmax", "rmsnorm", "flash_attention", "ilm")  # csrc/<name>.cu
+LIBRARIES = ("tsdiv", "softmax", "rmsnorm", "flash_attention", "flash_attention_tc",
+             "ilm")  # csrc/<name>.cu
 HEADERS = ("tsdiv_body.cuh", "rows.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
@@ -33,8 +34,7 @@ MAX_TERMS = 16      # TSDIV_MAX_TERMS
 class SeedTableC(ctypes.Structure):
     """ctypes mirror of ``struct TsdivSeedTable`` (passed by value)."""
 
-    _fields_ = [("n_inner", ctypes.c_int),
-                ("slopes", ctypes.c_float * MAX_SEGMENTS),
+    _fields_ = [("slopes", ctypes.c_float * MAX_SEGMENTS),
                 ("intercepts", ctypes.c_float * MAX_SEGMENTS),
                 ("inner", ctypes.c_float * (MAX_SEGMENTS - 1))]
 
@@ -56,7 +56,11 @@ _SIGNATURES = {
     },
     "flash_attention": {
         "flash_attention_f32": [_vp, _vp, _vp, _vp, _i64, _i32, _i32, _i32, _i32, _i32,
-                                _i32, _i32, _f32, _i32, SeedTableC, _i32, _i32, _vp],
+                                _i32, _i32, _f32, SeedTableC, _i32, _i32, _vp],
+    },
+    "flash_attention_tc": {
+        "flash_attention_bf16": [_vp, _vp, _vp, _vp, _i64, _i32, _i32, _i32, _i32, _i32,
+                                 _i32, _i32, _f32, SeedTableC, _i32, _i32, _vp],
     },
     "ilm": {
         "ilm_mul_u32": [_vp, _vp, _vp, _i64, _i32, _vp],

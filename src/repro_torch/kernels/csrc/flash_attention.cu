@@ -1,8 +1,9 @@
-// Hopper kernel of flash attention with the division unit's 1/l, with a plain
-// C interface for ctypes (built by kernels/_build.py with nvcc -fmad=false for
-// sm_90a).
+// Hopper kernel of flash attention on f32 q/k/v with the division unit's 1/l,
+// with a plain C interface for ctypes (built by kernels/_build.py with nvcc
+// -fmad=false for sm_90a). bf16 q/k/v take the tensor cores instead
+// (csrc/flash_attention_tc.cu): a bf16 tensor core cannot hold f32 q/k.
 //
-// Replaces the reference's Pallas TPU kernel
+// Replaces the f32 route of the reference's Pallas TPU kernel
 // src/repro/kernels/flash_attention.py flash_attention / _flash_kernel:
 // online-softmax attention over (BH, S, hd) with the running max m, sum l and
 // output acc updated once per key block, masked scores at NEG_INF = -1e30
@@ -54,7 +55,7 @@ template <typename T, int HD>
 __global__ void __launch_bounds__(kRows)
     flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  T* __restrict__ out, int sq, int sk, int sk_real, int block_k, int n_qt,
-                 int causal, int skip, float scale, const TsdivSeedTable table, int n_iters,
+                 int causal, int skip, float scale, const __grid_constant__ TsdivSeedTable table, int n_iters,
                  int schedule) {
   constexpr bool kQInRegs = HD <= 64;
   extern __shared__ float sh[];
@@ -195,20 +196,17 @@ int dispatch(int hd, const void* q, const void* k, const void* v, void* out, lon
 
 extern "C" {
 
-// q: (bh, sq, hd), k/v: (bh, sk, hd), out: (bh, sq, hd), contiguous; dtype 0 =
-// f32, 1 = bf16; sk a multiple of block_k <= kMaxBlockK; hd in {16, 32, 64,
-// 128}. Returns the launch's cudaGetLastError() (cudaErrorInvalidValue for
-// an hd or block_k the kernel lacks).
+// q: (bh, sq, hd), k/v: (bh, sk, hd), out: (bh, sq, hd), contiguous f32; sk
+// a multiple of block_k <= kMaxBlockK; hd in {16, 32, 64, 128}. Returns the
+// launch's cudaGetLastError() (cudaErrorInvalidValue for an hd or block_k
+// the kernel lacks). bf16 q/k/v go to csrc/flash_attention_tc.cu.
 int flash_attention_f32(const void* q, const void* k, const void* v, void* out, long long bh,
                         int sq, int sk, int sk_real, int hd, int block_k, int causal, int skip,
-                        float scale, int dtype, TsdivSeedTable table, int n_iters, int schedule,
+                        float scale, TsdivSeedTable table, int n_iters, int schedule,
                         cudaStream_t stream) {
   if (block_k < 1 || block_k > kMaxBlockK || sk % block_k != 0) return (int)cudaErrorInvalidValue;
-  return dtype == 0
-             ? dispatch<float>(hd, q, k, v, out, bh, sq, sk, sk_real, block_k, causal, skip, scale,
-                               table, n_iters, schedule, stream)
-             : dispatch<__nv_bfloat16>(hd, q, k, v, out, bh, sq, sk, sk_real, block_k, causal,
-                                       skip, scale, table, n_iters, schedule, stream);
+  return dispatch<float>(hd, q, k, v, out, bh, sq, sk, sk_real, block_k, causal, skip, scale,
+                         table, n_iters, schedule, stream);
 }
 
 }  // extern "C"

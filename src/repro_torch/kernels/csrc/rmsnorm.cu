@@ -29,7 +29,7 @@ namespace {
 template <typename T>
 __global__ void __launch_bounds__(rows::kThreads)
     rmsnorm_kernel(const T* __restrict__ x, const float* __restrict__ w, T* __restrict__ out,
-                   int d, float inv_d, float eps, const TsdivSeedTable table, int newton_iters) {
+                   int d, float inv_d, float eps, const __grid_constant__ TsdivSeedTable table, int newton_iters) {
   __shared__ float sh[rows::kThreads];
   const long long base = (long long)blockIdx.x * d;
   const T* xr = x + base;

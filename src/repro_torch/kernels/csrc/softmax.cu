@@ -28,7 +28,7 @@ namespace {
 template <typename T>
 __global__ void __launch_bounds__(rows::kThreads)
     softmax_kernel(const T* __restrict__ x, T* __restrict__ out, int d,
-                   const TsdivSeedTable table, int n_iters, int schedule) {
+                   const __grid_constant__ TsdivSeedTable table, int n_iters, int schedule) {
   __shared__ float sh[rows::kThreads];
   const long long base = (long long)blockIdx.x * d;
   const T* xr = x + base;

@@ -11,14 +11,21 @@
 //
 // Bound: each is elementwise and memory-bound on the card. Divide moves
 // 12 bytes per element (two f32 reads, one write); recip and rsqrt move 8.
-// The arithmetic is a few dozen f32 operations per element, far below the
-// card's f32 rate per byte, so the least time is bytes / HBM bandwidth.
+// The arithmetic is a few dozen f32 operations per element, below the
+// card's f32 rate per byte, so the least time is bytes / HBM bandwidth; the
+// bodies' instruction count is what keeps them above it.
 //
-// Design: one thread per element over a flat contiguous f32 buffer, with a
-// bounds check in place of the TPU kernels' ragged-tile masking (the body is
-// elementwise, so the layout cannot change the bits). The seed table rides in
-// the kernel's parameter space. Each launch function returns the
-// cudaGetLastError() of its launch.
+// Design: a flat contiguous f32 buffer, with bounds checks in place of the
+// TPU kernels' ragged-tile masking (the body is elementwise, so the layout
+// cannot change the bits). Divide and recip run one thread per element and
+// read the seed table in parameter space. Rsqrt runs a grid-stride loop over
+// four elements per thread with 16-byte loads and stores when both pointers
+// are 16-byte aligned, and a scalar loop for the tail and for misaligned
+// views; each of its blocks first copies the seed table into shared memory,
+// where the segment select indexes it without serialising on divergent
+// constant-cache addresses, and its usual Newton step counts (1-3) are
+// compiled in. Each launch function returns the cudaGetLastError() of its
+// launch.
 #include <cuda_runtime.h>
 
 #include "tsdiv_body.cuh"
@@ -26,27 +33,66 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kBlocksPerSm = 8;   // resident 256-thread blocks per SM for the grid-stride loop
 
 __global__ void recip_kernel(const float* __restrict__ x, float* __restrict__ out, long long n,
-                             const TsdivSeedTable table, int n_iters, int schedule) {
+                             const __grid_constant__ TsdivSeedTable table, int n_iters,
+                             int schedule) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i < n) out[i] = tsdiv::recip_f32_bits(x[i], table, n_iters, schedule);
 }
 
 __global__ void divide_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                              float* __restrict__ out, long long n, const TsdivSeedTable table,
-                              int n_iters, int schedule) {
+                              float* __restrict__ out, long long n,
+                              const __grid_constant__ TsdivSeedTable table, int n_iters,
+                              int schedule) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i < n) out[i] = tsdiv::divide_f32_bits(a[i], b[i], table, n_iters, schedule);
 }
 
-__global__ void rsqrt_kernel(const float* __restrict__ x, float* __restrict__ out, long long n,
-                             const TsdivSeedTable table, int newton_iters) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) out[i] = tsdiv::rsqrt_f32_bits(x[i], table, newton_iters);
+// kNewton >= 0 fixes the Newton steps at compile time (the loops unroll);
+// -1 takes them from newton_iters.
+template <int kNewton>
+__global__ void __launch_bounds__(kThreads)
+    rsqrt_kernel(const float* __restrict__ x, float* __restrict__ out, long long n,
+                 const __grid_constant__ TsdivSeedTable table, int newton_iters) {
+  const int it = kNewton >= 0 ? kNewton : newton_iters;
+  __shared__ TsdivSeedTable t;
+  tsdiv::stage_table(&t, table);
+  __syncthreads();
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const bool aligned = ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out)) & 15) == 0;
+  const long long n4 = aligned ? n / 4 : 0;
+  const float4* x4 = reinterpret_cast<const float4*>(x);
+  float4* o4 = reinterpret_cast<float4*>(out);
+  for (long long i = tid; i < n4; i += stride) {
+    const float4 v = x4[i];
+    float4 r;
+    r.x = tsdiv::rsqrt_f32_bits(v.x, t, it);
+    r.y = tsdiv::rsqrt_f32_bits(v.y, t, it);
+    r.z = tsdiv::rsqrt_f32_bits(v.z, t, it);
+    r.w = tsdiv::rsqrt_f32_bits(v.w, t, it);
+    o4[i] = r;
+  }
+  for (long long i = 4 * n4 + tid; i < n; i += stride)
+    out[i] = tsdiv::rsqrt_f32_bits(x[i], t, it);
 }
 
 unsigned int blocks_for(long long n) { return (unsigned int)((n + kThreads - 1) / kThreads); }
+
+// Blocks of the grid-stride loop: enough for four elements a thread, at
+// most kBlocksPerSm resident blocks on every SM.
+unsigned int stride_blocks(long long n) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) sms = 132;
+  }
+  const long long want = (n + 4LL * kThreads - 1) / (4LL * kThreads);
+  return (unsigned int)(want < 1 ? 1 : (want < (long long)sms * kBlocksPerSm ? want : (long long)sms * kBlocksPerSm));
+}
 
 }  // namespace
 
@@ -66,7 +112,13 @@ int tsdiv_divide_f32(const float* a, const float* b, float* out, long long n,
 
 int tsdiv_rsqrt_f32(const float* x, float* out, long long n, TsdivSeedTable table,
                     int newton_iters, cudaStream_t stream) {
-  rsqrt_kernel<<<blocks_for(n), kThreads, 0, stream>>>(x, out, n, table, newton_iters);
+  const unsigned int blocks = stride_blocks(n);
+  switch (newton_iters) {
+    case 1: rsqrt_kernel<1><<<blocks, kThreads, 0, stream>>>(x, out, n, table, 1); break;
+    case 2: rsqrt_kernel<2><<<blocks, kThreads, 0, stream>>>(x, out, n, table, 2); break;
+    case 3: rsqrt_kernel<3><<<blocks, kThreads, 0, stream>>>(x, out, n, table, 3); break;
+    default: rsqrt_kernel<-1><<<blocks, kThreads, 0, stream>>>(x, out, n, table, newton_iters);
+  }
   return (int)cudaGetLastError();
 }
 

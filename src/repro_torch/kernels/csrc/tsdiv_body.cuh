@@ -1,15 +1,20 @@
 // Device bodies of the fused division unit: reciprocal, divide and rsqrt on
-// raw f32 bits. Each function mirrors, operation for operation, its plain
-// PyTorch version in kernels/common.py, which in turn reproduces the
-// reference's Pallas kernel bodies (src/repro/kernels/common.py).
+// raw f32 bits. Each function gives the bits of its plain PyTorch version in
+// kernels/common.py, which in turn reproduces the reference's Pallas kernel
+// bodies (src/repro/kernels/common.py). It mirrors it operation for
+// operation but in two places, where another route reaches the same value:
+// the seed's segment select (pwl_seed) and the error-free product
+// (two_product).
 //
 // Rounding is pinned by construction: this file is compiled with
 // -fmad=false, so no multiply and add are fused unless written here as
 // __fmaf_rn. Those explicit sites are exactly where the compiled reference
-// contracts x + a*b (a product with no other use): the seed ladder, the
-// series updates, y0 + y0*s, the Goldschmidt n + n*r, the Markstein
-// q0 + res*rman and the three Newton sites. Subnormals are kept by the
-// hardware (no -ftz), so every flush below is explicit.
+// contracts x + a*b (a product with no other use): the seed's
+// slope*man + intercept, the series updates, y0 + y0*s, the Goldschmidt
+// n + n*r, the Markstein q0 + res*rman and the three Newton sites
+// (two_product's error term is an fma too: there it is exact, see below).
+// Subnormals are kept by the hardware (no -ftz), so every flush below is
+// explicit.
 #pragma once
 
 #include <stdint.h>
@@ -19,10 +24,10 @@
 
 enum TsdivSchedule { TSDIV_PAPER = 0, TSDIV_FACTORED = 1, TSDIV_GOLDSCHMIDT = 2 };
 
-// The seed "ROM": passed to the kernel by value (it lands in parameter
-// space). Segment i covers [inner[i-1], inner[i]).
+// The seed "ROM": passed to the kernel by value as a __grid_constant__
+// argument (it stays in parameter space). Segment i covers
+// [inner[i-1], inner[i]).
 struct TsdivSeedTable {
-  int n_inner;                           // n_segments - 1
   float slopes[TSDIV_MAX_SEGMENTS];
   float intercepts[TSDIV_MAX_SEGMENTS];
   float inner[TSDIV_MAX_SEGMENTS - 1];
@@ -44,36 +49,51 @@ __device__ __forceinline__ uint32_t f_bits(float f) { return __float_as_uint(f);
 // floor(v / 2) for any int, without relying on >> of a negative value.
 __device__ __forceinline__ int floor_half(int v) { return v >= 0 ? v / 2 : -((1 - v) / 2); }
 
-// Segment select by a compare ladder (no indexed loads), then one fused
-// slope*man + intercept. The ladder stops at the table's own length (a
-// uniform branch), so a 6-segment table costs 5 rungs, not 31: the rungs
-// dominate the body's instruction count.
-__device__ __forceinline__ float seed_ladder(float man, const TsdivSeedTable& t) {
-  float s = t.slopes[0], c = t.intercepts[0];
+// Segment select by binary search over the inner boundaries, then one fused
+// slope*man + intercept. Segment i covers [inner[i-1], inner[i]), so the
+// segment of man is the count of inner boundaries <= man. The boundaries are
+// non-decreasing and the slots past the table's own hold +inf (the host
+// fills them, kernels/tsdiv.py _table_c), so five halving steps over the 31
+// slots find that count, branch-free, where a ladder takes n_segments - 1
+// compares (15 for the rsqrt table). (Starting at the table's own largest power of two,
+// 4 steps for 16 segments, measured slower on the H100: the uniform guard
+// costs more than the steps it saves.) It selects the same segment as the
+// reference's sum(man >= inner) for every man (tests/test_torch_flash_tc.py
+// checks it exhaustively over the mantissas of the tables the port builds).
+// The table may sit in parameter space (a __grid_constant__ kernel argument:
+// indexed loads, no local copy) or in shared memory (stage_table).
+__device__ __forceinline__ int seed_segment(float man, const TsdivSeedTable& t) {
+  int pos = 0;
 #pragma unroll
-  for (int i = 0; i < TSDIV_MAX_SEGMENTS - 1; ++i) {
-    if (i >= t.n_inner) break;
-    if (man >= t.inner[i]) {
-      s = t.slopes[i + 1];
-      c = t.intercepts[i + 1];
-    }
+  for (int step = TSDIV_MAX_SEGMENTS / 2; step > 0; step >>= 1) {
+    if (man >= t.inner[pos + step - 1]) pos += step;
   }
-  return __fmaf_rn(s, man, c);
+  return pos;
 }
 
-// Dekker/Veltkamp error-free product: a*b == p + e. Its partial products
-// are exact, so the unfused adds here match any contraction of them.
+__device__ __forceinline__ float pwl_seed(float man, const TsdivSeedTable& t) {
+  const int i = seed_segment(man, t);
+  return __fmaf_rn(t.slopes[i], man, t.intercepts[i]);
+}
+
+// The block's copy of the seed table in shared memory, one word a thread;
+// the caller synchronises before use.
+__device__ __forceinline__ void stage_table(TsdivSeedTable* dst, const TsdivSeedTable& src) {
+  constexpr int kWords = sizeof(TsdivSeedTable) / sizeof(int);
+  const int* s = reinterpret_cast<const int*>(&src);
+  int* d = reinterpret_cast<int*>(dst);
+  for (int i = threadIdx.x; i < kWords; i += blockDim.x) d[i] = s[i];
+}
+
+// Error-free product: a*b == p + e, with e = fma(a, b, -p), the exact
+// a*b - p rounded once (it is representable). The plain versions compute e by
+// the Dekker/Veltkamp split (core/fpparts.py two_product), which is the same
+// exact value wherever neither form underflows or overflows. Every call site
+// here multiplies operands in [0.5, 2] (mantissas, seeds, their products and
+// the Newton iterates), so the two forms give the same bits on every call.
 __device__ __forceinline__ void two_product(float a, float b, float& p, float& e) {
   p = __fmul_rn(a, b);
-  const float ta = __fmul_rn(4097.0f, a);
-  const float ah = __fsub_rn(ta, __fsub_rn(ta, a));
-  const float al = __fsub_rn(a, ah);
-  const float tb = __fmul_rn(4097.0f, b);
-  const float bh = __fsub_rn(tb, __fsub_rn(tb, b));
-  const float bl = __fsub_rn(b, bh);
-  e = __fadd_rn(__fadd_rn(__fadd_rn(__fsub_rn(__fmul_rn(ah, bh), p), __fmul_rn(ah, bl)),
-                          __fmul_rn(al, bh)),
-                __fmul_rn(al, bl));
+  e = __fmaf_rn(a, b, -p);
 }
 
 __device__ __forceinline__ float exact_residual(float man, float y0) {
@@ -142,7 +162,7 @@ __device__ __forceinline__ float recip_f32_bits(float x, const TsdivSeedTable& t
   const int exp = (int)((bits >> 23) & 0xFFu);
   const uint32_t man_bits = bits & kManMask;
   const float man = bits_f(man_bits | kOneBits);
-  const float rman = series_refine(seed_ladder(man, t), man, n, schedule);
+  const float rman = series_refine(pwl_seed(man, t), man, n, schedule);
   // 2^-(exp-127) has biased exponent 254 - exp (clamped; the edge lanes
   // exp = 0 and exp = 255 are overwritten below).
   const int scale_exp = min(max(254 - exp, 0), 254);
@@ -168,7 +188,7 @@ __device__ __forceinline__ float divide_f32_bits(float a, float b, const TsdivSe
   const uint32_t amant = abits & kManMask, bmant = bbits & kManMask;
   const float man_a = bits_f(amant | kOneBits);
   const float man_b = bits_f(bmant | kOneBits);
-  const float y0 = seed_ladder(man_b, t);
+  const float y0 = pwl_seed(man_b, t);
   float q_man;
   if (schedule == TSDIV_GOLDSCHMIDT) {
     q_man = goldschmidt(__fmul_rn(man_a, y0), man_b, y0, log_depth(n));
@@ -226,7 +246,7 @@ __device__ __forceinline__ float rsqrt_f32_bits(float x, const TsdivSeedTable& t
   const int ef = exp - 127 + 1;                        // |x| = (man/2) * 2^ef
   const int s = floor_half(ef);
   const float u = (ef - 2 * s == 1) ? man : __fmul_rn(man, 0.5f);   // [0.5, 2)
-  const float y = newton_rsqrt(u, seed_ladder(u, t), newton_iters);
+  const float y = newton_rsqrt(u, pwl_seed(u, t), newton_iters);
   float r = __fmul_rn(y, bits_f((uint32_t)min(max(127 - s, 1), 254) << 23));
   if (x_zero) r = bits_f(kExpMask | sign);             // +-0/sub -> +-inf
   if (x_inf) r = 0.0f;                                 // +inf -> +0
@@ -244,7 +264,7 @@ __device__ __forceinline__ float rsqrt_f32(float x, const TsdivSeedTable& t, int
   const float man = bits_f((bits & kManMask) | kOneBits);
   const int s = floor_half(exp);
   const float u = __fmul_rn(exp - 2 * s == 1 ? __fmul_rn(man, 2.0f) : man, 0.5f);
-  const float y = newton_rsqrt(u, seed_ladder(u, t), newton_iters);
+  const float y = newton_rsqrt(u, pwl_seed(u, t), newton_iters);
   const float inv_sqrt2 = 0.70710678118654752f;
   return __fmul_rn(__fmul_rn(y, inv_sqrt2), bits_f((uint32_t)min(max(127 - s, 1), 254) << 23));
 }

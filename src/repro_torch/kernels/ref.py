@@ -15,7 +15,7 @@ import torch
 from repro_torch.core import ilm as ilm_core
 from repro_torch.core.seeds import compute_segments, rsqrt_seed_table
 from . import common
-from .flash_attention import NEG_INF, causal_mask, flash_attention_plain
+from .flash_attention import NEG_INF, PLAIN, causal_mask, kernel_for
 from .ilm import ilm_mul_plain, ilm_square_plain, to_u32
 from .ops import flash_padded
 from .rmsnorm import rmsnorm_plain
@@ -88,11 +88,13 @@ def softmax_exact(x):
 def flash_attention_ref(q, k, v, *, causal: bool = True, block_q: int = 128,
                         block_k: int = 128, n_iters: int = 2,
                         precision_bits: int = 24, schedule: str = "factored"):
-    """The kernel's plain version behind ``ops.flash_attention``, with its
-    pad-and-mask, on the tensors' own device."""
+    """The plain version of the kernel that q's dtype routes to (bf16: the
+    tensor-core kernel's; else the f32 kernel's) behind
+    ``ops.flash_attention``, with its pad-and-mask, on the tensors' own
+    device."""
     q3, k3, v3, kw = flash_padded(q, k, v, block_q, block_k)
-    o = flash_attention_plain(q3, k3, v3, compute_segments(n_iters, precision_bits),
-                              n_iters, schedule, causal=causal, skip_masked_k=True, **kw)
+    o = PLAIN[kernel_for(q.dtype)](q3, k3, v3, compute_segments(n_iters, precision_bits),
+                                   n_iters, schedule, causal=causal, skip_masked_k=True, **kw)
     return o[:, :q.shape[-2]].reshape(q.shape)
 
 

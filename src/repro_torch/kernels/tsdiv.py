@@ -13,6 +13,7 @@ the kernels (``chip_smoke.py`` resets and reads it).
 from __future__ import annotations
 
 import ctypes
+import math
 
 import numpy as np
 import torch
@@ -37,10 +38,12 @@ def _table_c(table: SeedTable) -> _build.SeedTableC:
         raise ValueError(f"seed table has {n_seg} segments; the kernel takes "
                          f"at most {_build.MAX_SEGMENTS}")
     t = _build.SeedTableC()
-    t.n_inner = n_seg - 1
     t.slopes[:n_seg] = table.slopes.astype(np.float32).tolist()
     t.intercepts[:n_seg] = table.intercepts.astype(np.float32).tolist()
-    t.inner[:n_seg - 1] = table.inner_boundaries.astype(np.float32).tolist()
+    # The slots past the table's own hold +inf: the kernels' binary search
+    # runs over all of them (csrc/tsdiv_body.cuh seed_segment).
+    t.inner[:] = (table.inner_boundaries.astype(np.float32).tolist()
+                  + [math.inf] * (_build.MAX_SEGMENTS - n_seg))
     return t
 
 

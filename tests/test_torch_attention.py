@@ -40,6 +40,16 @@ def _qkv(seed, shape, scale=1.0):
     return [(rng.normal(size=shape) * scale).astype(np.float32) for _ in range(3)]
 
 
+def _attention_f64(q, k, v, causal):
+    """Softmax attention in f64 on the same inputs."""
+    q, k, v = (a.astype(np.float64) for a in (q, k, v))
+    s = q @ np.swapaxes(k, -1, -2) / np.sqrt(q.shape[-1])
+    if causal:
+        s = np.where(np.tril(np.ones(s.shape[-2:], bool)), s, -np.inf)
+    p = np.exp(s - s.max(-1, keepdims=True))
+    return (p / p.sum(-1, keepdims=True)) @ v
+
+
 def _port(q, k, v, *args, **kw):
     return dm.attention(*(torch.from_numpy(a) for a in (q, k, v)), *args, **kw).numpy()
 
@@ -52,7 +62,13 @@ def test_attention_matches_reference(mode, sched, causal):
                                        ref_dm.DivisionConfig(mode=mode, schedule=sched),
                                        causal=causal))
     got = _port(q, k, v, dm.DivisionConfig(mode=mode, schedule=sched), causal=causal)
-    np.testing.assert_allclose(got, want, rtol=0, atol=1e-3 if mode == "ilm" else 2e-6)
+    # On a failure, each side's distance to an f64 oracle names the side that
+    # moved (ROADMAP F7).
+    oracle = _attention_f64(q, k, v, causal)
+    np.testing.assert_allclose(
+        got, want, rtol=0, atol=1e-3 if mode == "ilm" else 2e-6,
+        err_msg=f"max |port - f64 oracle| {np.abs(got - oracle).max():.3e}, "
+                f"max |reference - f64 oracle| {np.abs(want - oracle).max():.3e}")
 
 
 @pytest.mark.parametrize("mode,sched", NON_ILM)
@@ -238,7 +254,7 @@ def test_flash_wrapper_counts_nothing_on_the_cpu_and_checks_shapes():
     flash_attention.reset_launches()
     q = torch.randn(2, 64, 16)
     flash_attention.flash_attention(q, q, q)
-    assert flash_attention.LAUNCHES == {"flash_attention_f32": 0}
+    assert flash_attention.LAUNCHES == {"flash_attention_f32": 0, "flash_attention_bf16": 0}
     with pytest.raises(ValueError):
         flash_attention.flash_attention(q, q[:, :50], q[:, :50], block_k=32)
     with pytest.raises(ValueError):

@@ -51,6 +51,17 @@ def test_kernels_match_plain_versions_bit_for_bit(cuda, schedule):
                  common.rsqrt_f32_bits(x, rsqrt_seed_table(16), 2))
 
 
+@pytest.mark.parametrize("n", [1, 3, 4097, 1 << 16])
+def test_rsqrt_kernel_on_odd_lengths_and_misaligned_views(cuda, n):
+    """The rsqrt kernel's vector and scalar paths: 0 lanes against the plain
+    version on odd lengths and on a view off a 16-byte boundary."""
+    x = torch.from_numpy(_bits(n, n + 1)).to(cuda)
+    table = rsqrt_seed_table(16)
+    for t in (x[:n], x[1:]):
+        for it in (1, 2, 3):
+            assert _same(tsdiv.rsqrt(t, it, 16), common.rsqrt_f32_bits(t, table, it)), (n, it)
+
+
 def test_each_wrapper_counts_its_launches(cuda):
     tsdiv.reset_launches()
     x = torch.ones(1000, device=cuda)
@@ -133,33 +144,62 @@ def _qkv(seed, shape, dtype, device):
             for _ in range(3)]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("bh,s,hd", [(2, 128, 16), (2, 256, 32), (3, 100, 64), (2, 160, 128)])
-def test_flash_kernel_matches_plain_version_bit_for_bit(cuda, dtype, bh, s, hd):
-    q, k, v = _qkv(s + hd, (bh, s, hd), dtype, cuda)
-    for causal, sched, skip in ((True, "paper", True), (True, "goldschmidt", False),
-                                (False, "factored", True)):
+FLASH_SHAPES = [(2, 128, 16), (2, 256, 32), (3, 100, 64), (2, 160, 128)]
+FLASH_RUNS = ((True, "paper", True), (True, "goldschmidt", False), (False, "factored", True))
+
+
+@pytest.mark.parametrize("bh,s,hd", FLASH_SHAPES)
+def test_flash_kernel_matches_plain_version_bit_for_bit(cuda, bh, s, hd):
+    """The f32 kernel (CUDA cores) against its plain version: 0 lanes."""
+    q, k, v = _qkv(s + hd, (bh, s, hd), torch.float32, cuda)
+    for causal, sched, skip in FLASH_RUNS:
         q3, k3, v3, kw = ops.flash_padded(q, k, v)
         got = flash_attention.flash_attention(q3, k3, v3, causal=causal, schedule=sched,
                                               skip_masked_k=skip, **kw)
         want = flash_attention.flash_attention_plain(
             q3, k3, v3, compute_segments(2, 24), 2, sched, causal=causal,
             skip_masked_k=skip, **kw)
-        assert got.dtype == dtype and _same_any(got, want), (causal, sched, skip)
+        assert got.dtype == torch.float32 and _same_any(got, want), (causal, sched, skip)
 
 
-def test_flash_wrapper_counts_pads_and_refuses(cuda):
+@pytest.mark.parametrize("bh,s,hd", FLASH_SHAPES + [(2, 48, 64)])
+@pytest.mark.parametrize("block_k", [128, 32, 24])
+def test_flash_bf16_kernel_meets_the_gate_against_its_plain_version(cuda, bh, s, hd, block_k):
+    """The bf16 kernel (tensor cores) against its plain version: every lane
+    within one bf16 ulp + 2^-16 max|v|, >= 99% of lanes bit-identical
+    (block_k = 24 pads the key tile with masked zero keys)."""
+    q, k, v = _qkv(s + hd, (bh, s, hd), torch.bfloat16, cuda)
+    vmax = float(v.float().abs().max())
+    for causal, sched, skip in FLASH_RUNS:
+        q3, k3, v3, kw = ops.flash_padded(q, k, v, block_k=block_k)
+        got = flash_attention.flash_attention(q3, k3, v3, causal=causal, schedule=sched,
+                                              skip_masked_k=skip, **kw)
+        want = flash_attention.flash_attention_tc_plain(
+            q3, k3, v3, compute_segments(2, 24), 2, sched, causal=causal,
+            skip_masked_k=skip, **kw)
+        gate = flash_attention.tc_gate(got, want, vmax)
+        assert got.dtype == torch.bfloat16 and gate["ok"], (causal, sched, skip, gate)
+
+
+def test_flash_bf16_kernel_counts_and_refuses(cuda):
     flash_attention.reset_launches()
-    q, k, v = _qkv(0, (2, 3, 100, 32), torch.float32, cuda)
+    q, k, v = _qkv(1, (2, 3, 100, 64), torch.bfloat16, cuda)
     o = dm.attention(q, k, v, dm.DivisionConfig(mode="taylor_pallas"))
-    dm.attention(q, k, v, dm.EXACT)
-    assert o.shape == q.shape and flash_attention.LAUNCHES == {"flash_attention_f32": 1}
-    e = dm.attention(q, k, v, dm.EXACT)
-    assert float((o - e).abs().max()) <= 5e-6
+    assert flash_attention.LAUNCHES == {"flash_attention_f32": 0, "flash_attention_bf16": 1}
+    e = ref.flash_attention_exact(*(t.reshape(6, 100, 64) for t in (q, k, v)))
+    assert float((o.reshape(6, 100, 64).float() - e.float()).abs().max()) <= 0.04
+    q3, k3, v3, kw = ops.flash_padded(q, k, v)
     with pytest.raises(ValueError):          # a head size the kernel lacks
-        dm.attention(q[..., :8], k[..., :8], v[..., :8], dm.DivisionConfig(mode="taylor_pallas"))
-    with pytest.raises(TypeError):
-        dm.attention(q.half(), k.half(), v.half(), dm.DivisionConfig(mode="taylor_pallas"))
+        flash_attention.flash_attention(q3[..., :48].contiguous(), k3[..., :48].contiguous(),
+                                        v3[..., :48].contiguous())
+    with pytest.raises(ValueError):          # block_k above 128
+        flash_attention.flash_attention(*(t.repeat(1, 3, 1) for t in (q3, k3, v3)), block_k=300)
+    with pytest.raises(ValueError):          # mixed dtypes
+        flash_attention.flash_attention(q3, k3.float(), v3)
+    with pytest.raises(ValueError):          # k/v off a 16-byte boundary
+        kk = torch.empty(k3.numel() + 1, dtype=k3.dtype, device=cuda)[1:].view(k3.shape)
+        flash_attention.flash_attention(q3, kk.copy_(k3), v3)
+    assert flash_attention.LAUNCHES == {"flash_attention_f32": 0, "flash_attention_bf16": 1}
 
 
 @pytest.mark.parametrize("mode", ["exact", "taylor", "taylor_pallas", "goldschmidt",
