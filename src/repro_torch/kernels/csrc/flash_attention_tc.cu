@@ -58,9 +58,9 @@ constexpr int kMaxBlockK = 128;      // MAX_BLOCK_K in kernels/flash_attention.p
 constexpr int kMaxTiles = kMaxBlockK / 8;
 constexpr int kStages = 2;
 // Resident blocks per SM the register budget is cut for (at most 170
-// registers a thread). The kernel is latency-bound at 2 (203 registers at
-// hd = 64): 3 measured 21% faster at (96, 2048, 64) on the H100 although
-// ptxas then spills a few registers at hd = 64 and 128.
+// registers a thread). Uncapped, hd = 64 takes 203 registers (2 blocks);
+// 3 measured 21% faster at (96, 2048, 64) on the H100 although ptxas then
+// spills a few registers at hd = 64 and 128, and 4 measured slower.
 constexpr int kMinBlocks = 3;
 constexpr float kNegInf = -1e30f;
 
@@ -342,15 +342,32 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   }
 }
 
+// The K/V ring (and Q at hd = 128) in dynamic shared memory, and the
+// kernel's attribute set to allow it.
+template <int HD>
+cudaError_t prepare(int block_k, size_t* smem) {
+  const int bkp = (block_k + 15) & ~15;
+  *smem = ((size_t)kStages * 2 * bkp + (HD > 64 ? kRows : 0)) * (HD + 8) * sizeof(__nv_bfloat16);
+  return cudaFuncSetAttribute(flash_tc_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)*smem);
+}
+
+template <int HD>
+int blocks_per_sm(int block_k, int* blocks) {
+  size_t smem = 0;
+  cudaError_t err = prepare<HD>(block_k, &smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, flash_tc_kernel<HD>, kThreads,
+                                                        smem);
+  return (int)err;
+}
+
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* out, long long bh, int sq, int sk,
            int sk_real, int block_k, int causal, int skip, float scale, TsdivSeedTable table,
            int n_iters, int schedule, cudaStream_t stream) {
-  const int bkp = (block_k + 15) & ~15;
-  const size_t smem =
-      ((size_t)kStages * 2 * bkp + (HD > 64 ? kRows : 0)) * (HD + 8) * sizeof(__nv_bfloat16);
-  cudaError_t err = cudaFuncSetAttribute(flash_tc_kernel<HD>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  size_t smem = 0;
+  cudaError_t err = prepare<HD>(block_k, &smem);
   if (err != cudaSuccess) return (int)err;
   const int n_qt = (sq + kRows - 1) / kRows;
   flash_tc_kernel<HD><<<(unsigned int)(bh * n_qt), kThreads, smem, stream>>>(
@@ -381,6 +398,20 @@ int flash_attention_bf16(const void* q, const void* k, const void* v, void* out,
     case 32: return launch<32>(q, k, v, out, bh, sq, sk, sk_real, block_k, causal, skip, scale, table, n_iters, schedule, stream);
     case 64: return launch<64>(q, k, v, out, bh, sq, sk, sk_real, block_k, causal, skip, scale, table, n_iters, schedule, stream);
     case 128: return launch<128>(q, k, v, out, bh, sq, sk, sk_real, block_k, causal, skip, scale, table, n_iters, schedule, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The blocks of flash_attention_bf16 that one SM holds at once for head
+// size hd and block_k (occupancy from registers and shared memory), in
+// *blocks; returns the CUDA error of the query.
+int flash_attention_bf16_blocks_per_sm(int hd, int block_k, int* blocks) {
+  if (block_k < 1 || block_k > kMaxBlockK) return (int)cudaErrorInvalidValue;
+  switch (hd) {
+    case 16: return blocks_per_sm<16>(block_k, blocks);
+    case 32: return blocks_per_sm<32>(block_k, blocks);
+    case 64: return blocks_per_sm<64>(block_k, blocks);
+    case 128: return blocks_per_sm<128>(block_k, blocks);
     default: return (int)cudaErrorInvalidValue;
   }
 }

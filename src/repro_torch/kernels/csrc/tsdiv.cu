@@ -17,15 +17,15 @@
 //
 // Design: a flat contiguous f32 buffer, with bounds checks in place of the
 // TPU kernels' ragged-tile masking (the body is elementwise, so the layout
-// cannot change the bits). Divide and recip run one thread per element and
-// read the seed table in parameter space. Rsqrt runs a grid-stride loop over
-// four elements per thread with 16-byte loads and stores when both pointers
-// are 16-byte aligned, and a scalar loop for the tail and for misaligned
-// views; each of its blocks first copies the seed table into shared memory,
-// where the segment select indexes it without serialising on divergent
-// constant-cache addresses, and its usual Newton step counts (1-3) are
-// compiled in. Each launch function returns the cudaGetLastError() of its
-// launch.
+// cannot change the bits). All three run one grid-stride kernel: four
+// elements per thread with 16-byte loads and stores when every pointer is
+// 16-byte aligned, and a scalar loop for the tail and for misaligned views.
+// Each block first copies the seed table into shared memory, where the
+// segment select indexes it without serialising on divergent constant-cache
+// addresses (a warp's lanes fall in different segments); the grid holds no
+// more blocks than are resident at once, so the copy is paid once per
+// resident block. Rsqrt's usual Newton step count (2) is compiled in. Each
+// launch function returns the cudaGetLastError() of its launch.
 #include <cuda_runtime.h>
 
 #include "tsdiv_body.cuh"
@@ -33,65 +33,79 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kBlocksPerSm = 8;   // resident 256-thread blocks per SM for the grid-stride loop
 
-__global__ void recip_kernel(const float* __restrict__ x, float* __restrict__ out, long long n,
-                             const __grid_constant__ TsdivSeedTable table, int n_iters,
-                             int schedule) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) out[i] = tsdiv::recip_f32_bits(x[i], table, n_iters, schedule);
-}
+// The element operations: one output from one or two inputs and the block's
+// copy of the table.
+struct RecipOp {
+  int n_iters, schedule;
+  __device__ float operator()(float x, float, const TsdivSeedTable& t) const {
+    return tsdiv::recip_f32_bits(x, t, n_iters, schedule);
+  }
+};
 
-__global__ void divide_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                              float* __restrict__ out, long long n,
-                              const __grid_constant__ TsdivSeedTable table, int n_iters,
-                              int schedule) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) out[i] = tsdiv::divide_f32_bits(a[i], b[i], table, n_iters, schedule);
-}
+struct DivideOp {
+  int n_iters, schedule;
+  __device__ float operator()(float a, float b, const TsdivSeedTable& t) const {
+    return tsdiv::divide_f32_bits(a, b, t, n_iters, schedule);
+  }
+};
 
 // kNewton >= 0 fixes the Newton steps at compile time (the loops unroll);
 // -1 takes them from newton_iters.
 template <int kNewton>
+struct RsqrtOp {
+  int newton_iters;
+  __device__ float operator()(float x, float, const TsdivSeedTable& t) const {
+    return tsdiv::rsqrt_f32_bits(x, t, kNewton >= 0 ? kNewton : newton_iters);
+  }
+};
+
+// out[i] = op(a[i], b[i]) (b is read only when kBinary).
+template <bool kBinary, class Op>
 __global__ void __launch_bounds__(kThreads)
-    rsqrt_kernel(const float* __restrict__ x, float* __restrict__ out, long long n,
-                 const __grid_constant__ TsdivSeedTable table, int newton_iters) {
-  const int it = kNewton >= 0 ? kNewton : newton_iters;
+    elementwise_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                       float* __restrict__ out, long long n,
+                       const __grid_constant__ TsdivSeedTable table, Op op) {
   __shared__ TsdivSeedTable t;
   tsdiv::stage_table(&t, table);
   __syncthreads();
   const long long stride = (long long)gridDim.x * blockDim.x;
   const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const bool aligned = ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out)) & 15) == 0;
-  const long long n4 = aligned ? n / 4 : 0;
-  const float4* x4 = reinterpret_cast<const float4*>(x);
-  float4* o4 = reinterpret_cast<float4*>(out);
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(out) |
+                         (kBinary ? reinterpret_cast<uintptr_t>(b) : 0);
+  const long long n4 = (addr & 15) == 0 ? n / 4 : 0;
   for (long long i = tid; i < n4; i += stride) {
-    const float4 v = x4[i];
+    const float4 x = reinterpret_cast<const float4*>(a)[i];
+    const float4 y = kBinary ? reinterpret_cast<const float4*>(b)[i] : x;
     float4 r;
-    r.x = tsdiv::rsqrt_f32_bits(v.x, t, it);
-    r.y = tsdiv::rsqrt_f32_bits(v.y, t, it);
-    r.z = tsdiv::rsqrt_f32_bits(v.z, t, it);
-    r.w = tsdiv::rsqrt_f32_bits(v.w, t, it);
-    o4[i] = r;
+    r.x = op(x.x, y.x, t);
+    r.y = op(x.y, y.y, t);
+    r.z = op(x.z, y.z, t);
+    r.w = op(x.w, y.w, t);
+    reinterpret_cast<float4*>(out)[i] = r;
   }
   for (long long i = 4 * n4 + tid; i < n; i += stride)
-    out[i] = tsdiv::rsqrt_f32_bits(x[i], t, it);
+    out[i] = op(a[i], kBinary ? b[i] : 0.0f, t);
 }
 
-unsigned int blocks_for(long long n) { return (unsigned int)((n + kThreads - 1) / kThreads); }
-
-// Blocks of the grid-stride loop: enough for four elements a thread, at
-// most kBlocksPerSm resident blocks on every SM.
-unsigned int stride_blocks(long long n) {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) sms = 132;
-  }
+// Launches the grid-stride loop with enough blocks for four elements a
+// thread, at most as many as the current device holds resident at once.
+template <bool kBinary, class Op>
+int launch(const float* a, const float* b, float* out, long long n,
+           const TsdivSeedTable& table, Op op, cudaStream_t stream) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, elementwise_kernel<kBinary, Op>, kThreads, 0);
+  if (err != cudaSuccess) return (int)err;
   const long long want = (n + 4LL * kThreads - 1) / (4LL * kThreads);
-  return (unsigned int)(want < 1 ? 1 : (want < (long long)sms * kBlocksPerSm ? want : (long long)sms * kBlocksPerSm));
+  const long long most = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  const unsigned int blocks = (unsigned int)(want < 1 ? 1 : (want < most ? want : most));
+  elementwise_kernel<kBinary, Op><<<blocks, kThreads, 0, stream>>>(a, b, out, n, table, op);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -100,26 +114,18 @@ extern "C" {
 
 int tsdiv_recip_f32(const float* x, float* out, long long n, TsdivSeedTable table, int n_iters,
                     int schedule, cudaStream_t stream) {
-  recip_kernel<<<blocks_for(n), kThreads, 0, stream>>>(x, out, n, table, n_iters, schedule);
-  return (int)cudaGetLastError();
+  return launch<false>(x, nullptr, out, n, table, RecipOp{n_iters, schedule}, stream);
 }
 
 int tsdiv_divide_f32(const float* a, const float* b, float* out, long long n,
                      TsdivSeedTable table, int n_iters, int schedule, cudaStream_t stream) {
-  divide_kernel<<<blocks_for(n), kThreads, 0, stream>>>(a, b, out, n, table, n_iters, schedule);
-  return (int)cudaGetLastError();
+  return launch<true>(a, b, out, n, table, DivideOp{n_iters, schedule}, stream);
 }
 
 int tsdiv_rsqrt_f32(const float* x, float* out, long long n, TsdivSeedTable table,
                     int newton_iters, cudaStream_t stream) {
-  const unsigned int blocks = stride_blocks(n);
-  switch (newton_iters) {
-    case 1: rsqrt_kernel<1><<<blocks, kThreads, 0, stream>>>(x, out, n, table, 1); break;
-    case 2: rsqrt_kernel<2><<<blocks, kThreads, 0, stream>>>(x, out, n, table, 2); break;
-    case 3: rsqrt_kernel<3><<<blocks, kThreads, 0, stream>>>(x, out, n, table, 3); break;
-    default: rsqrt_kernel<-1><<<blocks, kThreads, 0, stream>>>(x, out, n, table, newton_iters);
-  }
-  return (int)cudaGetLastError();
+  if (newton_iters == 2) return launch<false>(x, nullptr, out, n, table, RsqrtOp<2>{2}, stream);
+  return launch<false>(x, nullptr, out, n, table, RsqrtOp<-1>{newton_iters}, stream);
 }
 
 }  // extern "C"

@@ -62,6 +62,21 @@ def test_rsqrt_kernel_on_odd_lengths_and_misaligned_views(cuda, n):
             assert _same(tsdiv.rsqrt(t, it, 16), common.rsqrt_f32_bits(t, table, it)), (n, it)
 
 
+@pytest.mark.parametrize("n", [1, 3, 4097, 1 << 16])
+def test_recip_and_divide_kernels_on_odd_lengths_and_misaligned_views(cuda, n):
+    """Recip and divide share rsqrt's grid-stride loop: 0 lanes on odd
+    lengths, on misaligned views, and with only one divide operand aligned."""
+    x = torch.from_numpy(_bits(n, n + 1)).to(cuda)
+    a = torch.from_numpy(_bits(n + 7, n + 1)).to(cuda)
+    table = compute_segments(2, 24)
+    for sched in ("paper", "factored", "goldschmidt"):
+        assert _same(tsdiv.recip(x[1:], 2, 24, sched),
+                     common.recip_f32_bits(x[1:], table, 2, sched)), (n, sched)
+        for num, den in ((a[:n], x[:n]), (a[1:], x[1:]), (a[:n], x[1:])):
+            assert _same(tsdiv.divide(num, den, 2, 24, sched),
+                         common.divide_f32_bits(num, den, table, 2, sched)), (n, sched)
+
+
 def test_each_wrapper_counts_its_launches(cuda):
     tsdiv.reset_launches()
     x = torch.ones(1000, device=cuda)
@@ -179,6 +194,24 @@ def test_flash_bf16_kernel_meets_the_gate_against_its_plain_version(cuda, bh, s,
             skip_masked_k=skip, **kw)
         gate = flash_attention.tc_gate(got, want, vmax)
         assert got.dtype == torch.bfloat16 and gate["ok"], (causal, sched, skip, gate)
+
+
+def test_flash_wrapper_counts_pads_and_refuses(cuda):
+    """The f32 route: dm.attention at a ragged S pads, launches the CUDA-core
+    kernel once and no tensor-core kernel; float16 has no kernel and raises."""
+    flash_attention.reset_launches()
+    q, k, v = _qkv(0, (2, 3, 100, 32), torch.float32, cuda)
+    o = dm.attention(q, k, v, dm.DivisionConfig(mode="taylor_pallas"))
+    dm.attention(q, k, v, dm.EXACT)
+    assert o.shape == q.shape and flash_attention.LAUNCHES == {
+        "flash_attention_f32": 1, "flash_attention_bf16": 0}
+    e = dm.attention(q, k, v, dm.EXACT)
+    assert float((o - e).abs().max()) <= 5e-6
+    with pytest.raises(ValueError):          # a head size the kernel lacks
+        dm.attention(q[..., :8], k[..., :8], v[..., :8], dm.DivisionConfig(mode="taylor_pallas"))
+    with pytest.raises(TypeError):
+        dm.attention(q.half(), k.half(), v.half(), dm.DivisionConfig(mode="taylor_pallas"))
+    assert flash_attention.LAUNCHES == {"flash_attention_f32": 1, "flash_attention_bf16": 0}
 
 
 def test_flash_bf16_kernel_counts_and_refuses(cuda):

@@ -111,6 +111,29 @@ def test_p_split_keeps_p_to_2_pow_minus_16():
     assert bool((err[~normal] <= 2.0 ** -134).all())
 
 
+FULL_WIDTH_HEAD = (1, 2048, 64, 128, 128, True)   # one head of the serving shape
+
+
+@pytest.mark.parametrize("bh,s,hd,bq,bk,causal", CASES + [FULL_WIDTH_HEAD])
+def test_tc_gate_rejects_a_kernel_that_drops_p_lo(monkeypatch, bh, s, hd, bq, bk, causal):
+    """The control for the gate: the plain version with the design fault the
+    split exists to avoid (PV from one bf16 p, no p_lo step) fails the gate
+    against the sound plain version on the corpus and at full width."""
+    (q, k, v), _ = _bf16(*_qkv(s + hd + 1, (bh, s, hd)))
+    q3, k3, v3, kw = ops.flash_padded(q, k, v, block_k=bk)
+
+    def run():
+        return flash_attention.flash_attention_tc_plain(
+            q3, k3, v3, compute_segments(2, 24), 2, "factored", causal=causal,
+            skip_masked_k=True, **kw)
+
+    sound = run()
+    monkeypatch.setattr(flash_attention, "split_bf16",
+                        lambda p: (p.bfloat16().float(), torch.zeros_like(p)))
+    gate = flash_attention.tc_gate(run(), sound, float(v.float().abs().max()))
+    assert not gate["ok"] and gate["identical_share"] < flash_attention.TC_IDENTICAL, gate
+
+
 def test_quad_row_sum_is_the_kernel_order():
     rng = np.random.default_rng(6)
     p = rng.uniform(0, 1, (3, 5, 48)).astype(np.float32)

@@ -9,7 +9,9 @@ this script lives in); its ``src/repro_torch`` is imported and its CUDA
 libraries are built from its own sources into its own ``build/``. Prints
 one JSON line: the card (name and power limit as nvidia-smi gives them),
 the time of ``tsdiv_rsqrt``, ``tsdiv_recip`` and ``tsdiv_divide`` at the
-K-Means plane's shape (10^6 x 1024 f32) and of ``kernels.flash_attention``
+K-Means plane's shape (10^6 x 1024 f32, uniform random x in [0.01, 100];
+divide by a constant 128 and, as ``tsdiv_divide_random_divisor``, 128 / x)
+and of ``kernels.flash_attention``
 on seeded bf16 q/k/v of (96, 2048, 64), causal (CUDA events over ``--reps``
 launches after a warm-up), and for every kernel function of every library
 its static SASS instruction count (``cuobjdump -sass``, NOPs left out), its
@@ -77,6 +79,8 @@ def main(argv=None) -> int:
         print("kernel_ab: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(args.root.resolve() / "src"))
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from chip_smoke import event_ms
     from repro_torch.kernels import _build, flash_attention, tsdiv
 
     _build.build_all()
@@ -86,25 +90,17 @@ def main(argv=None) -> int:
     x = torch.rand((N_PLANE, K), generator=gen, device="cuda") * 100.0 + 0.01
     d = torch.full_like(x, 128.0)
 
-    def event_ms(fn):
-        fn()
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(args.reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / args.reps
-
-    times = {"tsdiv_rsqrt": event_ms(lambda: tsdiv.rsqrt(x, 2, 16)),
-             "tsdiv_recip": event_ms(lambda: tsdiv.recip(x, 2, 24, "factored")),
-             "tsdiv_divide": event_ms(lambda: tsdiv.divide(x, d, 2, 24, "factored")),
-             "torch.rsqrt": event_ms(lambda: torch.rsqrt(x))}
+    times = {"tsdiv_rsqrt": event_ms(lambda: tsdiv.rsqrt(x, 2, 16), args.reps),
+             "tsdiv_recip": event_ms(lambda: tsdiv.recip(x, 2, 24, "factored"), args.reps),
+             "tsdiv_divide": event_ms(lambda: tsdiv.divide(x, d, 2, 24, "factored"), args.reps),
+             "tsdiv_divide_random_divisor": event_ms(
+                 lambda: tsdiv.divide(d, x, 2, 24, "factored"), args.reps),
+             "torch.rsqrt": event_ms(lambda: torch.rsqrt(x), args.reps)}
     del x, d
     q, k, v = (torch.randn((96, 2048, 64), generator=gen, device="cuda").to(torch.bfloat16)
                for _ in range(3))
-    times["flash_attention_bf16_input"] = event_ms(lambda: flash_attention.flash_attention(q, k, v))
+    times["flash_attention_bf16_input"] = event_ms(
+        lambda: flash_attention.flash_attention(q, k, v), args.reps)
     sass = {lib: sass_counts(_build._so_path(lib)) for lib in _build.LIBRARIES}
     print(json.dumps({"label": args.label, "root": str(args.root), "nvidia_smi": smi,
                       "shape": [N_PLANE, K], "ms": times, "sass": sass}), flush=True)

@@ -9,7 +9,10 @@ first in bf16 (the tensor-core kernel) and then in f32 (the CUDA-core
 kernel). For each, prints one JSON line: the device time per call of every
 kernel and copy on the card (``key_averages`` over ``--calls`` profiled
 calls), their total per call, the host wall time per call of as many calls
-run before the profiler starts, and the card's name and power limit.
+run before the profiler starts, and the card's name and power limit; for
+bf16 also the tensor-core kernel's resident blocks per SM at this shape
+(``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and the warps that
+gives out of the SM's 64.
 ``--device cpu`` runs the plain versions at a small shape, to check the
 script without a card; it reports CPU times only.
 """
@@ -23,6 +26,20 @@ import time
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
+
+
+def blocks_per_sm(hd: int, block_k: int) -> int:
+    """Resident blocks per SM of the bf16 flash kernel (4 warps each)."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    blocks = ctypes.c_int(0)
+    rc = _build.library("flash_attention_tc").flash_attention_bf16_blocks_per_sm(
+        hd, block_k, ctypes.byref(blocks))
+    if rc:
+        raise RuntimeError(f"occupancy query failed with CUDA error {rc}")
+    return blocks.value
 
 
 def main(argv=None) -> int:
@@ -77,12 +94,14 @@ def main(argv=None) -> int:
             if us > 0:
                 rows[e.key] = {"ms_per_call": us / 1e3 / args.calls, "count": e.count}
         total = sum(r["ms_per_call"] for r in rows.values())
-        print(json.dumps({"dtype": str(dtype).replace("torch.", ""), "shape": list(shape),
-                          "card": card, "calls": args.calls, "host_ms_per_call": wall * 1e3,
-                          "device_ms_per_call" if cuda else "cpu_ms_per_call": total,
-                          "kernels": dict(sorted(rows.items(),
-                                                 key=lambda kv: -kv[1]["ms_per_call"]))}),
-              flush=True)
+        line = {"dtype": str(dtype).replace("torch.", ""), "shape": list(shape),
+                "card": card, "calls": args.calls, "host_ms_per_call": wall * 1e3,
+                "device_ms_per_call" if cuda else "cpu_ms_per_call": total,
+                "kernels": dict(sorted(rows.items(), key=lambda kv: -kv[1]["ms_per_call"]))}
+        if cuda and dtype == torch.bfloat16:
+            line["blocks_per_sm"] = blocks_per_sm(shape[-1], min(128, shape[-2]))
+            line["warps_per_sm"] = 4 * line["blocks_per_sm"]
+        print(json.dumps(line), flush=True)
     return 0
 
 
