@@ -24,7 +24,8 @@ source, in parallel), then runs, each phase printing one line:
                  distance plane included, in chunks of 2^26 lanes);
   8. consumers — the softmax and RMSNorm kernels against their plain
                  versions on the consumer corpora (D = 128, 768, 2048, 2176,
-                 f32 and bf16, edge rows included), bit for bit, and the
+                 f32 and bf16, edge rows included; RMSNorm's weight in f32
+                 and in bf16), bit for bit, and the
                  consumer gates (row sums, distance from the exact twin,
                  masked rows);
   9. serve     — paper_fpdiv at full width (bf16 params from --seed) served
@@ -59,14 +60,21 @@ source, in parallel), then runs, each phase printing one line:
  13. ilm       — ops.ilm_mul / ilm_square on 2^24 seeded operand pairs below
                  2^16 (edges 0, 1, 2^16 - 1 included) at iters 1, 2, 3, 4,
                  6, 8, 16: kernel vs plain version bit for bit, a*b exactly
-                 at the exact bound, and the accuracy table;
+                 at the exact bound, and the accuracy table; then the
+                 squarer on 2^22 operands over all of uint32 at iters 1-32
+                 against its plain version's stage loop;
  14. ilm serve — paper_fpdiv at full width in mode="ilm", teacher-forced
                  against the exact twin in f32 (reported, not gated);
  15. times     — each kernel, its plain version and the torch yardstick: the
                  tsdiv kernels on the K-Means distance plane, softmax and
                  RMSNorm at the serving prefill and decode shapes, flash
                  attention at (96, 2048, 64) causal in bf16 and in f32, the
-                 ILM kernels on 2^24 lanes at iters 16.
+                 ILM multiplier on 2^24 lanes at iters 16 and the squarer at
+                 iters 16 and 4. Times are CUDA events over back-to-back
+                 wrapper calls (``ms``, which holds the wrapper's host time
+                 where a kernel is shorter); RMSNorm and the squarer also
+                 give ``device_ms``, their kernel's own device time from
+                 torch.profiler, and ``library_device_ms``.
 
 Phases 4-6, 9, 12 and 13 are the main path: launch counts are reset before
 each and read after it. Any failed check raises, and the script then exits non-zero
@@ -100,13 +108,20 @@ BF16_TC_OPS_PER_S = 989e12    # H100 SXM dense bf16 on the tensor cores
 # x*r, *w. Per-row work (the reciprocal, the rsqrt, the trees) is left out.
 # flash attention (both kernels): per (query, key, d) triple of the causal
 # pairs, one multiply-add in QK^T and one in PV (the bf16 kernel's second PV
-# mma, for p's low half, is its design's cost, not the work). Per ILM stage,
-# integer instructions counted from csrc/ilm.cu: the loop tests, the
-# leading-zero counts, the leading ones and residues, the guarded shifts and
-# the accumulate.
+# mma, for p's low half, is its design's cost, not the work). The ILM
+# multiplier per stage, integer instructions counted from csrc/ilm.cu: the
+# loop tests, the leading-zero counts, the leading ones and residues, the
+# guarded shifts and the accumulate. The ILM squarer (the closed form
+# x*x - r*r since PR 15) per lane: a popcount, a compare and x*x; on lanes
+# whose popcount exceeds iters also ILM_SQUARE_RESIDUE_OPS (the kept count,
+# the choice of loop, r*r, the subtract) and ILM_SQUARE_STEP_OPS per step of
+# the shorter loop (a step and its loop test), counted on this run's
+# operands (ilm_square_ops). The stage loop it replaced counted
+# ILM_SQUARE_STAGE_OPS per stage; the times rows give that bound too.
 OPS_PER_ELEMENT = {"tsdiv_divide": 52, "tsdiv_recip": 29, "tsdiv_rsqrt": 50,
                    "softmax_f32": 14, "rmsnorm_f32": 4, "flash_attention_f32": 4,
-                   "flash_attention_bf16": 4, "ilm_mul_u32": 22, "ilm_square_u32": 13}
+                   "flash_attention_bf16": 4, "ilm_mul_u32": 22, "ilm_square_u32": 3}
+ILM_SQUARE_RESIDUE_OPS, ILM_SQUARE_STEP_OPS, ILM_SQUARE_STAGE_OPS = 4, 3, 13
 CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {"tsdiv_divide": CSRC + "tsdiv.cu", "tsdiv_recip": CSRC + "tsdiv.cu",
            "tsdiv_rsqrt": CSRC + "tsdiv.cu", "softmax_f32": CSRC + "softmax.cu",
@@ -133,6 +148,8 @@ FLASH_CORPUS = ((4, 128, 64), (2, 256, 64), (3, 1000, 64), (2, 384, 128), (2, 25
 FLASH_PLAIN_HEADS = tuple(range(0, 96, 12))   # head 0 of each request at full width
 ILM_LANES = 1 << 24
 ILM_ITERS = (1, 2, 3, 4, 6, 8, 16)
+ILM_FULL_RANGE_LANES = 1 << 22    # squarer operands over all of uint32, iters 1-32
+ILM_TIMED_ITERS = (16, 4)
 ILM_SERVE_NEW = 32
 DEVICE = "cuda"     # the phases of the serving slice run here
 
@@ -220,6 +237,25 @@ def event_ms(fn, reps: int = 10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, kernel: str | None = None, reps: int = 10):
+    """Device time per call of ``fn`` from torch.profiler over ``reps``
+    calls after a warm-up: the kernels whose name holds ``kernel`` (every
+    kernel and copy on the card when None). None where the profiler shows
+    no device time for them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and (kernel is None or kernel in e.key))
+    return us / 1e3 / reps if us > 0 else None
 
 
 def phase_device():
@@ -450,11 +486,11 @@ def phase_calls(seed: int, err: dict) -> torch.Tensor:
 
 
 def kernel_row(name, ms, plain_ms, library_ms, nbytes, elements, launches, err,
-               ops_per_s=F32_OPS_PER_S, **extra):
-    """One entry of the kernels line; ``elements`` times OPS_PER_ELEMENT is
-    the operation count of the bound."""
+               ops_per_s=F32_OPS_PER_S, ops=None, **extra):
+    """One entry of the kernels line; the operation count of the bound is
+    ``ops``, or ``elements`` times OPS_PER_ELEMENT."""
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = OPS_PER_ELEMENT[name] * elements / ops_per_s * 1e3
+    ops_ms = (OPS_PER_ELEMENT[name] * elements if ops is None else ops) / ops_per_s * 1e3
     return {"name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
@@ -492,23 +528,30 @@ def phase_times(x: torch.Tensor, err: dict, launches: dict, consumer_inputs: dic
         say("times", **rows[-1])
     del x, d, xs, ds
     torch.cuda.empty_cache()
-    # The consumers at the serving path's own shapes and inputs (phase 10).
+    # The consumers at the serving path's own shapes and inputs (phase 10),
+    # the weight in its own dtype as the model passes it. RMSNorm (PR 15)
+    # also gets its kernel's device time apart from the wrapper's host time,
+    # and the library call's device time (all of its kernels).
     sched = dm_config("taylor_pallas").schedule
     for step in ("prefill", "decode"):
         sx = consumer_inputs[("softmax", step)]
         rx, w = consumer_inputs[("rmsnorm", step)]
-        wf = w.float()
         for name, kernel, plain, library, nbytes, t in (
                 ("softmax_f32", lambda: softmax.softmax(sx, 2, 24, sched),
                  lambda: softmax.softmax_plain(sx, table, 2, sched),
                  lambda: torch.softmax(sx, -1), 2 * sx.numel() * sx.element_size(), sx),
-                ("rmsnorm_f32", lambda: rmsnorm.rmsnorm(rx, wf, 1e-6, 2, 16),
-                 lambda: rmsnorm.rmsnorm_plain(rx, wf, 1e-6, rsqrt_seed_table(16), 2),
+                ("rmsnorm_f32", lambda: rmsnorm.rmsnorm(rx, w, 1e-6, 2, 16),
+                 lambda: rmsnorm.rmsnorm_plain(rx, w, 1e-6, rsqrt_seed_table(16), 2),
                  lambda: torch.nn.functional.rms_norm(rx, (rx.shape[-1],), w.to(rx.dtype), 1e-6),
-                 2 * rx.numel() * rx.element_size() + 4 * wf.numel(), rx)):
+                 2 * rx.numel() * rx.element_size() + w.numel() * w.element_size(), rx)):
+            extra = {}
+            if name == "rmsnorm_f32":
+                extra = {"device_ms": device_ms(kernel, "rmsnorm_kernel"),
+                         "library_device_ms": device_ms(library),
+                         "w_dtype": str(w.dtype).replace("torch.", "")}
             row = kernel_row(name, event_ms(kernel), event_ms(plain, 3), event_ms(library),
                              nbytes, t.numel(), launches, err, shape=list(t.shape),
-                             dtype=str(t.dtype).replace("torch.", ""), step=step)
+                             dtype=str(t.dtype).replace("torch.", ""), step=step, **extra)
             say("times", **row)
             if step == "prefill":
                 rows.append(row)
@@ -556,10 +599,11 @@ def phase_consumers(seed: int, err: dict):
                                     softmax.softmax_plain(xs, compute_segments(2, 24), 2, sched))
                 rows.append(("softmax_f32", d, str(dtype), sched, xs.numel(), n_bad))
                 err["softmax_f32"] = max(err["softmax_f32"], e)
-            n_bad, e = mismatch(rmsnorm.rmsnorm(xr, w, 1e-6, 2, 16),
-                                rmsnorm.rmsnorm_plain(xr, w, 1e-6, rsqrt_seed_table(16), 2))
-            rows.append(("rmsnorm_f32", d, str(dtype), "newton2", xr.numel(), n_bad))
-            err["rmsnorm_f32"] = max(err["rmsnorm_f32"], e)
+            for wd in (w, w.to(torch.bfloat16)):      # the weight in f32 and in bf16
+                n_bad, e = mismatch(rmsnorm.rmsnorm(xr, wd, 1e-6, 2, 16),
+                                    rmsnorm.rmsnorm_plain(xr, wd, 1e-6, rsqrt_seed_table(16), 2))
+                rows.append(("rmsnorm_f32", d, str(dtype), str(wd.dtype), xr.numel(), n_bad))
+                err["rmsnorm_f32"] = max(err["rmsnorm_f32"], e)
     sync()
     # The reference's gates (tests/test_consumer_conformance.py), on the card.
     gates = {}
@@ -1094,6 +1138,18 @@ def phase_ilm(seed: int, err: dict, launches: dict):
           f"ILM launches {counts}")
     check(all(r[2] == 0 for r in rows), f"an ILM kernel differs from its plain version: {rows}")
     check(all(exact_at_bound), f"ILM at iters={bound} is not the exact product")
+    # The squarer's closed form over all of uint32 (wrap included) against
+    # its plain version's stage loop, at every iters up to 32.
+    rng = np.random.default_rng(seed + 31)
+    full = rng.integers(0, 2**32, ILM_FULL_RANGE_LANES, dtype=np.uint64).astype(np.uint32)
+    full[:4] = [0, 1, 2**16 - 1, 2**32 - 1]
+    full = torch.from_numpy(full).to(DEVICE)
+    full_rows = [(it, u32_mismatch(ilm.ilm_square(full, it), ilm.ilm_square_plain(full, it))[0])
+                 for it in range(1, 33)]
+    say("ilm_full_range", lanes=full.numel(), kernel="ilm_square_u32",
+        mismatched_lanes=[r for r in full_rows if r[1]], iters_checked=len(full_rows))
+    check(all(r[1] == 0 for r in full_rows),
+          f"ilm_square differs from its plain version over all of uint32: {full_rows}")
     return a, b
 
 
@@ -1144,18 +1200,40 @@ def phase_times_attention_ilm(err: dict, launches: dict, flash_in, ilm_in):
     a64, b64 = ilm_core.as_u32_lanes(a), ilm_core.as_u32_lanes(bb)
     pa, pb = ilm_core._popcount32(a64), ilm_core._popcount32(b64)
     it = 16
-    for name, kernel, plain, library, nbytes, stages in (
-            ("ilm_mul_u32", lambda: ilm.ilm_mul(a, bb, it), lambda: ilm.ilm_mul_plain(a, bb, it),
-             lambda: torch.mul(a64, b64), 12 * a.numel(),
-             torch.minimum(torch.minimum(pa, pb), torch.tensor(it, device=DEVICE))),
-            ("ilm_square_u32", lambda: ilm.ilm_square(a, it), lambda: ilm.ilm_square_plain(a, it),
-             lambda: torch.mul(a64, a64), 8 * a.numel(), torch.clamp(pa, max=it))):
-        rows.append(kernel_row(name, event_ms(kernel), event_ms(plain, 3), event_ms(library),
-                               nbytes, int(stages.sum()), launches, err,
-                               ops_per_s=INT32_OPS_PER_S, shape=[a.numel()], iters=it,
-                               stages_per_lane=float(stages.double().mean())))
+    stages = torch.minimum(torch.minimum(pa, pb), torch.tensor(it, device=DEVICE))
+    rows.append(kernel_row("ilm_mul_u32", event_ms(lambda: ilm.ilm_mul(a, bb, it)),
+                           event_ms(lambda: ilm.ilm_mul_plain(a, bb, it), 3),
+                           event_ms(lambda: torch.mul(a64, b64)), 12 * a.numel(),
+                           int(stages.sum()), launches, err, ops_per_s=INT32_OPS_PER_S,
+                           shape=[a.numel()], iters=it,
+                           stages_per_lane=float(stages.double().mean())))
+    say("times", **rows[-1])
+    # The squarer at iters 16 (every 16-bit operand on the popcount route)
+    # and 4 (most lanes on a residue loop), with its kernel's device time.
+    library = lambda: torch.mul(a64, a64)
+    library_ms, library_dev = event_ms(library), device_ms(library)
+    for it in ILM_TIMED_ITERS:
+        kernel = lambda: ilm.ilm_square(a, it)
+        stages = torch.clamp(pa, max=it)
+        rows.append(kernel_row(
+            "ilm_square_u32", event_ms(kernel), event_ms(lambda: ilm.ilm_square_plain(a, it), 3),
+            library_ms, 8 * a.numel(), a.numel(), launches, err, ops_per_s=INT32_OPS_PER_S,
+            ops=ilm_square_ops(pa, it), shape=[a.numel()], iters=it,
+            device_ms=device_ms(kernel, "ilm_square_kernel"), library_device_ms=library_dev,
+            residue_lanes=float((pa > it).double().mean()),
+            stage_loop_bound_ms=ILM_SQUARE_STAGE_OPS * int(stages.sum()) / INT32_OPS_PER_S * 1e3))
         say("times", **rows[-1])
     return rows
+
+
+def ilm_square_ops(popcounts: torch.Tensor, iters: int) -> int:
+    """Integer operations the squarer kernel does on these operands
+    (OPS_PER_ELEMENT's count per lane, the residue's where popcount > iters)."""
+    keep = popcounts - iters
+    slow = keep > 0
+    steps = torch.minimum(keep, torch.full_like(keep, iters))[slow]
+    return int(OPS_PER_ELEMENT["ilm_square_u32"] * popcounts.numel()
+               + ILM_SQUARE_RESIDUE_OPS * steps.numel() + ILM_SQUARE_STEP_OPS * steps.sum())
 
 
 def main(argv=None) -> int:

@@ -24,7 +24,7 @@ CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 LIBRARIES = ("tsdiv", "softmax", "rmsnorm", "flash_attention", "flash_attention_tc",
              "ilm")  # csrc/<name>.cu
-HEADERS = ("tsdiv_body.cuh", "rows.cuh")
+HEADERS = ("tsdiv_body.cuh", "rows.cuh", "launch.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 MAX_SEGMENTS = 32   # TSDIV_MAX_SEGMENTS in csrc/tsdiv_body.cuh
@@ -51,7 +51,7 @@ _SIGNATURES = {
         "softmax_rows": [_vp, _vp, _i64, _i32, _i32, SeedTableC, _i32, _i32, _vp],
     },
     "rmsnorm": {
-        "rmsnorm_rows": [_vp, _vp, _vp, _i64, _i32, _i32, _f32, _f32, SeedTableC,
+        "rmsnorm_rows": [_vp, _vp, _vp, _i64, _i32, _i32, _i32, _f32, _f32, SeedTableC,
                          _i32, _vp],
     },
     "flash_attention": {

@@ -11,6 +11,7 @@
 namespace rows {
 
 constexpr int kThreads = 256;   // REDUCE_THREADS in kernels/common.py
+constexpr int kPerLane = kThreads / 32;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -30,6 +31,28 @@ __device__ __forceinline__ float tree_sum(float v, float* sh) {
   const float s = sh[0];
   __syncthreads();
   return s;
+}
+
+// The halving tree over one warp's kPerLane partials a lane (lane l, slot j
+// holding thread kPerLane*l + j's): h = kThreads/2 ... kPerLane pair
+// threads in different lanes, the same slot, kPerLane*l + j with
+// kPerLane*(l + h/kPerLane) + j, so they are shuffles down by h/kPerLane
+// lanes (16, 8, 4, 2, 1); h = kPerLane/2 ... 1 pair slots inside the lane.
+// The same additions in the same order as tree_sum; lane 0 gets the sum
+// (the other lanes hold parts of the tree). No shared memory, no barrier.
+__device__ __forceinline__ float warp_tree_sum(float (&p)[kPerLane]) {
+#pragma unroll
+  for (int lanes = 16; lanes > 0; lanes >>= 1) {
+#pragma unroll
+    for (int j = 0; j < kPerLane; ++j)
+      p[j] = __fadd_rn(p[j], __shfl_down_sync(0xFFFFFFFFu, p[j], lanes));
+  }
+#pragma unroll
+  for (int h = kPerLane / 2; h > 0; h >>= 1) {
+#pragma unroll
+    for (int j = 0; j < h; ++j) p[j] = __fadd_rn(p[j], p[j + h]);
+  }
+  return p[0];
 }
 
 // max that propagates nan, as a reduction's max does.

@@ -28,6 +28,7 @@
 // launch function returns the cudaGetLastError() of its launch.
 #include <cuda_runtime.h>
 
+#include "launch.cuh"
 #include "tsdiv_body.cuh"
 
 namespace {
@@ -93,17 +94,10 @@ __global__ void __launch_bounds__(kThreads)
 template <bool kBinary, class Op>
 int launch(const float* a, const float* b, float* out, long long n,
            const TsdivSeedTable& table, Op op, cudaStream_t stream) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, elementwise_kernel<kBinary, Op>, kThreads, 0);
+  unsigned int blocks = 0;
+  const cudaError_t err =
+      grid_stride_blocks(elementwise_kernel<kBinary, Op>, kThreads, 4, n, &blocks);
   if (err != cudaSuccess) return (int)err;
-  const long long want = (n + 4LL * kThreads - 1) / (4LL * kThreads);
-  const long long most = (long long)sms * (per_sm > 0 ? per_sm : 1);
-  const unsigned int blocks = (unsigned int)(want < 1 ? 1 : (want < most ? want : most));
   elementwise_kernel<kBinary, Op><<<blocks, kThreads, 0, stream>>>(a, b, out, n, table, op);
   return (int)cudaGetLastError();
 }

@@ -5,9 +5,12 @@ The kernels (``csrc/ilm.cu`` ``ilm_mul_u32`` and ``ilm_square_u32``) replace
 the reference's Pallas kernels ``src/repro/kernels/ilm.py`` ``ilm_mul_2d``
 and ``ilm_square_2d``: ``iters`` stages of the Iterative Logarithmic
 Multiplier (priority encoder, leading-one residues, partial product) on
-uint32 lanes, operands below 2^16. They take contiguous ``torch.uint32``
-tensors of one shape and return a new ``torch.uint32`` tensor (one flat
-launch over the lanes, any rank).
+uint32 lanes, exact for operands below 2^16 at 16 stages. The multiplier
+runs the stages; the squarer computes their closed form ``x*x - r*r`` (mod
+2^32; ``r`` is ``x`` with its top ``iters`` set bits cleared), which is
+the stages' result for every uint32 operand. They take contiguous
+``torch.uint32`` tensors of one shape and return a new ``torch.uint32``
+tensor (one flat launch over the lanes, any rank).
 
 On a CPU tensor the wrapper runs the plain version (:func:`ilm_mul_plain`,
 :func:`ilm_square_plain`: the torch twin of ``core/ilm.py`` on int64 lanes,
@@ -79,7 +82,7 @@ def ilm_mul(a: torch.Tensor, b: torch.Tensor, iters: int = 16) -> torch.Tensor:
 
 
 def ilm_square(a: torch.Tensor, iters: int = 16) -> torch.Tensor:
-    """ILM squares of uint32 lanes (operand < 2^16), ``iters`` stages."""
+    """ILM squares of uint32 lanes, ``iters`` stages (exact below 2^16 at 16)."""
     if not _on_card(a):
         return ilm_square_plain(a, iters)
     out = torch.empty_like(a)

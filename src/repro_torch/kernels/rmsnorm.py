@@ -7,8 +7,10 @@ compensated Newton), ``r = 0`` where ``ss + eps`` is inf and nan where it is
 nan, and ``(x * r) * w`` in x's type. Like the reference's kernel (and
 unlike its ``rmsnorm_ref``) it multiplies by the f32 constant ``1/d``, with
 ``ss*(1/d) + eps`` fused as the compiled reference fuses it. It takes
-contiguous ``(M, D)`` f32 or bf16 rows of any length and a ``(D,)`` f32
-weight; rows are not padded, so ``d`` is the row's own length.
+contiguous ``(M, D)`` f32 or bf16 rows of any length and a contiguous
+``(D,)`` f32 or bf16 weight, which the kernel reads in its own type (the
+upcast to f32 is exact, so nothing is cast on the host); rows are not
+padded, so ``d`` is the row's own length.
 
 On a CPU tensor the wrapper runs :func:`rmsnorm_plain`; on a CUDA tensor it
 launches the kernel or raises. ``LAUNCHES`` counts launches, as in
@@ -56,13 +58,15 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6,
                          f"{x.shape[-1]}")
     if not rows_on_card(x, w):
         return rmsnorm_plain(x, w, eps, table, newton_iters)
-    wf = w.to(torch.float32).contiguous()
+    if w.dtype not in DTYPES or not w.is_contiguous():
+        raise TypeError(f"the RMSNorm kernel takes a contiguous float32/bfloat16 "
+                        f"weight, got {w.dtype}")
     out = torch.empty_like(x)
     if x.numel():
         with torch.cuda.device(x.device):
             rc = _build.library("rmsnorm").rmsnorm_rows(
-                _ptr(x), _ptr(wf), _ptr(out), x.shape[0], x.shape[1],
-                DTYPES[x.dtype], ctypes.c_float(1.0 / x.shape[1]),
+                _ptr(x), _ptr(w), _ptr(out), x.shape[0], x.shape[1],
+                DTYPES[x.dtype], DTYPES[w.dtype], ctypes.c_float(1.0 / x.shape[1]),
                 ctypes.c_float(eps), _table_c(table), newton_iters, _stream(x))
         _check(rc, "rmsnorm_f32")
         LAUNCHES["rmsnorm_f32"] += 1

@@ -32,7 +32,16 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
+# id(table) -> (table, its ctypes copy): each table is converted once. The
+# entry keeps the table alive, so its id is not reused while it is cached.
+_TABLES_C: dict = {}
+
+
 def _table_c(table: SeedTable) -> _build.SeedTableC:
+    """The kernels' by-value seed table for ``table``, built on first use."""
+    hit = _TABLES_C.get(id(table))
+    if hit is not None:
+        return hit[1]
     n_seg = table.n_segments
     if n_seg > _build.MAX_SEGMENTS:
         raise ValueError(f"seed table has {n_seg} segments; the kernel takes "
@@ -44,6 +53,7 @@ def _table_c(table: SeedTable) -> _build.SeedTableC:
     # runs over all of them (csrc/tsdiv_body.cuh seed_segment).
     t.inner[:] = (table.inner_boundaries.astype(np.float32).tolist()
                   + [math.inf] * (_build.MAX_SEGMENTS - n_seg))
+    _TABLES_C[id(table)] = (table, t)
     return t
 
 

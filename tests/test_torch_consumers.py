@@ -120,6 +120,44 @@ def test_plain_rmsnorm_close_on_the_corpus(d):
                 RMSNORM_VS_REF_ULP)
 
 
+def _warp_row_sum(v: torch.Tensor) -> torch.Tensor:
+    """The RMSNorm kernel's sum (csrc/rmsnorm.cu, rows.cuh warp_tree_sum),
+    modelled lane by lane: lane l holds elements c*256 + 8l + j of chunk c
+    in slot j, added chunk by chunk onto +0 (past the row's end: 0); then
+    shuffles down by 16, 8, 4, 2, 1 lanes (a lane whose source is past the
+    warp reads its own value, as __shfl_down_sync gives), then slots j + 4,
+    j + 2, j + 1 onto j inside lane 0."""
+    lanes = 32
+    per = common.REDUCE_THREADS // lanes
+    d = v.shape[-1]
+    chunks = -(-d // common.REDUCE_THREADS)
+    g = torch.nn.functional.pad(v, (0, chunks * common.REDUCE_THREADS - d))
+    g = g.reshape(*v.shape[:-1], chunks, lanes, per)
+    p = torch.zeros(v.shape[:-1] + (lanes, per), dtype=v.dtype)
+    for c in range(chunks):
+        p = p + g[..., c, :, :]
+    for off in (16, 8, 4, 2, 1):
+        src = torch.arange(lanes) + off
+        p = p + p[..., torch.where(src < lanes, src, torch.arange(lanes)), :]
+    q = p[..., 0, :]
+    for h in (4, 2, 1):
+        q = q[..., :h] + q[..., h:2 * h]
+    return q
+
+
+@pytest.mark.parametrize("d", [1, 100, 768, 2176, 8192])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_warp_layout_sums_in_the_row_sum_order(d, dtype):
+    """One warp per row gives common.row_sum's bits: the squares of seeded
+    rows over six decades of scale, f32 or cast to bf16 first."""
+    rng = np.random.default_rng(d)
+    x = rng.normal(0, 1, (24, d)) * 10.0 ** rng.uniform(-3, 3, (24, 1))
+    xf = torch.from_numpy(x.astype(np.float32)).to(dtype).to(torch.float32)
+    want = common.row_sum(xf * xf)
+    got = _warp_row_sum(xf * xf)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
 def test_corpora_equal_the_reference():
     for d in (16, 128):
         for mine, theirs in ((consumers.softmax_rows("float32", 8, d, 3),

@@ -270,3 +270,79 @@ def test_ilm_wrappers_count_and_refuse(cuda):
     assert ilm.LAUNCHES == {"ilm_mul_u32": 1, "ilm_square_u32": 1}
     with pytest.raises(TypeError):
         ilm.ilm_mul(a, a, 4)                 # int64: the kernel takes uint32
+
+
+@pytest.mark.parametrize("n", [1, 3, 4097, 1 << 16])
+def test_ilm_square_kernel_over_all_of_uint32_every_iters(cuda, n):
+    """The squarer's closed form against the stage loop of its plain
+    version: 0 lanes at iters 1-32 on operands over all of uint32 (wrap
+    included), on odd lengths and on a view off a 16-byte boundary."""
+    rng = np.random.default_rng(n)
+    a = rng.integers(0, 2**32, n + 1, dtype=np.uint64).astype(np.uint32)
+    edges = [0, 1, 2**16 - 1, 2**32 - 1, 0xFFFF0000]
+    a[:len(edges)] = edges[:n + 1]
+    at = torch.from_numpy(a).to(cuda)
+    for t in (at[:n], at[1:]):
+        for iters in range(1, 33):
+            assert _same_any(ilm.ilm_square(t, iters), ilm.ilm_square_plain(t, iters)), (n, iters)
+
+
+RMS_DIMS = [1, 100, 128, 300, 768, 2048, 2176, 8192]
+
+
+def _rms_rows(m, d, seed):
+    """Seeded rows of unit scale, a row of inf and one of nan (m >= 3)."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(0, 1, (m, d)).astype(np.float32)
+    x[1, d // 2] = np.inf
+    x[2, 0] = np.nan
+    return x
+
+
+@pytest.mark.parametrize("d", RMS_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("w_dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_kernel_matches_plain_version_bit_for_bit(cuda, d, dtype, w_dtype):
+    """The warp-per-row kernel against its plain version: 0 lanes for every
+    row length (held in registers or read twice, vector or scalar path),
+    x and w in f32 and bf16, m = 1 and m = 13 (not a multiple of the rows a
+    block takes), rows of inf and nan, and a view at an odd storage offset."""
+    table = rsqrt_seed_table(16)
+    w = torch.from_numpy(consumers.rmsnorm_weight(d, 2)).to(cuda, w_dtype)
+    for m in (1, 13):
+        x = torch.from_numpy(_rms_rows(max(m, 3), d, d + m)[:m].copy()).to(cuda, dtype)
+        odd = torch.empty(m * d + 1, device=cuda, dtype=dtype)[1:].view(m, d)
+        odd.copy_(x)
+        for t in (x, odd):
+            got = rmsnorm.rmsnorm(t, w)
+            assert got.dtype == dtype and _same_any(got, rmsnorm.rmsnorm_plain(t, w, 1e-6, table, 2))
+    assert _same_any(rmsnorm.rmsnorm(x, w, 1e-5, 3, 8),
+                     rmsnorm.rmsnorm_plain(x, w, 1e-5, rsqrt_seed_table(8), 3))
+
+
+def test_rmsnorm_launches_once_and_casts_nothing(cuda):
+    """One rmsnorm_f32 launch per call and no other work on the card: the
+    bf16 weight is read as it is, not cast first."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.randn(64, 768, device=cuda).to(torch.bfloat16)
+    w = torch.randn(768, device=cuda).to(torch.bfloat16)
+    cfg = dm.DivisionConfig(mode="taylor_pallas")
+    dm.rmsnorm(x, w, cfg)
+    torch.cuda.synchronize()
+    rmsnorm.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        rmsnorm.rmsnorm(x, w)
+        dm.rmsnorm(x, w, cfg)
+        torch.cuda.synchronize()
+    assert rmsnorm.LAUNCHES == {"rmsnorm_f32": 2}
+    names = [e.key for e in prof.key_averages()]
+    assert not [k for k in names if k in ("aten::to", "aten::_to_copy", "aten::copy_")], names
+    device = [e.key for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    assert device and all("rmsnorm_kernel" in k for k in device), device
+    with pytest.raises(TypeError):
+        rmsnorm.rmsnorm(x, w.half())
+    with pytest.raises(TypeError):
+        rmsnorm.rmsnorm(x, torch.randn(2 * 768, device=cuda)[::2])   # not contiguous
+    assert rmsnorm.LAUNCHES == {"rmsnorm_f32": 2}

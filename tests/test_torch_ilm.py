@@ -19,6 +19,7 @@ from _hypothesis_compat import given, settings, st
 
 from repro.core import division_modes as ref_dm
 from repro.core import ilm as ref_ilm
+from repro.kernels import ilm as ref_ilm_k
 from repro.kernels import ops as ref_ops
 from repro_torch.core import division_modes as dm
 from repro_torch.core import ilm, powering
@@ -134,6 +135,60 @@ def test_kernel_wrappers_take_uint32_only_and_count_nothing_on_the_cpu():
         ilm_k.ilm_mul(a, a)
     ilm_k.ilm_square(ilm_k.to_u32(a))
     assert ilm_k.LAUNCHES == {"ilm_mul_u32": 0, "ilm_square_u32": 0}
+
+
+# ------------------------------------ the squarer kernel's closed form (ilm.cu)
+
+def _mul_mod32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a*b mod 2^32 on int64 lanes below 2^32, with no product past 2^48."""
+    return (a * (b & 0xFFFF) + (((a * (b >> 16)) & 0xFFFF) << 16)) & ilm.U32
+
+
+def _residue(x: torch.Tensor, iters: int) -> torch.Tensor:
+    """``residue()`` of csrc/ilm.cu: x with its top ``iters`` set bits
+    cleared, by the kernel's two loops (keep the lowest ``popcount - iters``
+    set bits, or clear the leading one ``iters`` times, whichever is fewer)."""
+    keep = ilm._popcount32(x) - iters
+    low = keep < iters
+    v = x
+    for s in range(iters):
+        clz = 31 - ilm.floor_log2(v).clamp(min=0)
+        top = torch.full_like(v, 0x7FFF_FFFF) >> clz
+        v = torch.where(low & (s < keep), v & (v - 1),
+                        torch.where(~low & (keep > 0), v & top, v))
+    return torch.where(keep <= 0, 0, torch.where(low, x ^ v, v))
+
+
+def _full_range_operands(seed: int, shape=(64, 256)) -> np.ndarray:
+    """Seeded uint32 words over the whole range, led by 0, 1, 2^16 - 1,
+    2^32 - 1 (popcount 32) and a few other popcount edges."""
+    rng = np.random.default_rng(seed)
+    a = rng.integers(0, 2**32, shape, dtype=np.uint64).astype(np.uint32)
+    a.flat[:8] = [0, 1, 2**16 - 1, 2**32 - 1, 0xFFFF_0000, 0x8000_0001, 0x7FFF_FFFF, 2**31]
+    return a
+
+
+@pytest.mark.parametrize("iters", [1, 2, 3, 4, 8, 15, 16, 17, 31, 32])
+@pytest.mark.parametrize("fn", ["square", "mul"])
+def test_residue_identity_equals_the_reference_kernel(fn, iters):
+    """The stages telescope: ilm_square(x) = x*x - r*r and ilm_mul(x, y) =
+    x*y - rx*ry (mod 2^32), r being the operand with its top ``iters`` set
+    bits cleared. The squarer kernel computes the first; written here in
+    torch on int64 lanes, both equal the reference's Pallas kernels
+    (interpret mode) bit for bit over all of uint32."""
+    a = _full_range_operands(iters)
+    x = ilm.as_u32_lanes(torch.from_numpy(a))
+    rx = _residue(x, iters)
+    if fn == "square":
+        got = (_mul_mod32(x, x) - _mul_mod32(rx, rx)) & ilm.U32
+        want = ref_ilm_k.ilm_square_2d(jnp.asarray(a), iters=iters, interpret=True)
+    else:
+        b = _full_range_operands(iters + 100)
+        y = ilm.as_u32_lanes(torch.from_numpy(b))
+        got = (_mul_mod32(x, y) - _mul_mod32(rx, _residue(y, iters))) & ilm.U32
+        want = ref_ilm_k.ilm_mul_2d(jnp.asarray(a), jnp.asarray(b), iters=iters,
+                                    interpret=True)
+    np.testing.assert_array_equal(_u32(got), np.asarray(want))
 
 
 # ---------------------------------------------------- the ILM mode, bit for bit

@@ -186,6 +186,23 @@ def test_plain_path_counts_no_launches():
     assert tsdiv.LAUNCHES == before
 
 
+def test_seed_table_is_converted_once_per_table():
+    """The kernels' by-value seed table is built on a table's first use and
+    reused, with the table's own values and +inf past its last boundary."""
+    from repro_torch.core.seeds import compute_segments, rsqrt_seed_table
+
+    for table in (compute_segments(2, 24), rsqrt_seed_table(16)):
+        c = tsdiv._table_c(table)
+        assert tsdiv._table_c(table) is c
+        n = table.n_segments
+        np.testing.assert_array_equal(np.array(c.slopes[:n], np.float32),
+                                      table.slopes.astype(np.float32))
+        np.testing.assert_array_equal(np.array(c.inner[:n - 1], np.float32),
+                                      table.inner_boundaries.astype(np.float32))
+        assert all(v == np.inf for v in c.inner[n - 1:])
+    assert tsdiv._table_c(compute_segments(2, 24)) is not tsdiv._table_c(rsqrt_seed_table(16))
+
+
 def test_wrappers_reject_what_the_kernel_does_not_take():
     with pytest.raises(TypeError):
         tsdiv.recip(torch.ones(4, dtype=torch.float64))

@@ -13,12 +13,18 @@ K-Means plane's shape (10^6 x 1024 f32, uniform random x in [0.01, 100];
 divide by a constant 128 and, as ``tsdiv_divide_random_divisor``, 128 / x)
 and of ``kernels.flash_attention``
 on seeded bf16 q/k/v of (96, 2048, 64), causal (CUDA events over ``--reps``
-launches after a warm-up), and for every kernel function of every library
+launches after a warm-up); ``rmsnorm`` at the serving prefill shape (16384,
+768) bf16 with a bf16 weight and ``ilm_square`` on 2^24 operands below 2^16
+at iters 16 and 4, each also as its kernel's device time from
+torch.profiler (``device_ms``); and for every kernel function of every library
 its static SASS instruction count (``cuobjdump -sass``, NOPs left out), its
 local-memory instructions (LDL/STL: a spilled or indexed local copy), and
 the instructions from its first global load to the next global store,
 divided by the elements one such pass handles (4 after a 128-bit load).
-Needs a CUDA card and ``cuobjdump``; imports nothing of JAX.
+``per_element`` gives the squarer's such count and the RMSNorm kernel's
+instructions (the bf16 instantiation that runs at d = 768) over the
+elements one thread handles there. Needs a CUDA card and ``cuobjdump``;
+imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -31,6 +37,8 @@ import sys
 from pathlib import Path
 
 N_PLANE, K = 1_000_000, 1024
+RMS_SHAPE = (16384, 768)
+ILM_LANES = 1 << 24
 _INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")
 
 
@@ -67,6 +75,20 @@ def sass_counts(so: Path) -> dict:
     return out
 
 
+def per_element(sass: dict) -> dict:
+    """SASS instructions per element of the squarer and of RMSNorm at d = 768
+    bf16: the held-in-registers instantiation (24 elements a thread) where the
+    checkout has it, else the block-per-row kernel (3 elements a thread)."""
+    sq = [v for k, v in sass["ilm"].items() if "ilm_square_kernel" in k]
+    rms = sass["rmsnorm"]
+    held = [v for k, v in rms.items() if "bfloat16" in k and "Lb1ELi3E" in k]
+    block = [v for k, v in rms.items() if "rmsnorm_kernelI13__nv_bfloat16EEv" in k]
+    return {"ilm_square": sq[0]["load_to_store_per_element"] if sq else None,
+            "rmsnorm_bf16_d768": (held[0]["instructions"] / (RMS_SHAPE[1] / 32) if held else
+                                  block[0]["instructions"] / (RMS_SHAPE[1] / 256) if block
+                                  else None)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", type=Path, default=Path(__file__).resolve().parents[1])
@@ -80,8 +102,8 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, str(args.root.resolve() / "src"))
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-    from chip_smoke import event_ms
-    from repro_torch.kernels import _build, flash_attention, tsdiv
+    from chip_smoke import device_ms, event_ms
+    from repro_torch.kernels import _build, flash_attention, ilm, rmsnorm, tsdiv
 
     _build.build_all()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -101,9 +123,23 @@ def main(argv=None) -> int:
                for _ in range(3))
     times["flash_attention_bf16_input"] = event_ms(
         lambda: flash_attention.flash_attention(q, k, v), args.reps)
+    del q, k, v
+    dev = {}
+    xr = torch.randn(RMS_SHAPE, generator=gen, device="cuda").to(torch.bfloat16)
+    w = torch.randn(RMS_SHAPE[1], generator=gen, device="cuda").to(torch.bfloat16)
+    norm = lambda: rmsnorm.rmsnorm(xr, w, 1e-6, 2, 16)
+    times["rmsnorm_bf16"] = event_ms(norm, args.reps)
+    dev["rmsnorm_bf16"] = device_ms(norm, "rmsnorm_kernel", args.reps)
+    a = torch.randint(1, 2**16, (ILM_LANES,), generator=gen, device="cuda").to(torch.int32)
+    a = a.view(torch.uint32)
+    for it in (16, 4):
+        sq = lambda: ilm.ilm_square(a, it)
+        times[f"ilm_square_iters{it}"] = event_ms(sq, args.reps)
+        dev[f"ilm_square_iters{it}"] = device_ms(sq, "ilm_square_kernel", args.reps)
     sass = {lib: sass_counts(_build._so_path(lib)) for lib in _build.LIBRARIES}
     print(json.dumps({"label": args.label, "root": str(args.root), "nvidia_smi": smi,
-                      "shape": [N_PLANE, K], "ms": times, "sass": sass}), flush=True)
+                      "shape": [N_PLANE, K], "ms": times, "device_ms": dev,
+                      "per_element": per_element(sass), "sass": sass}), flush=True)
     return 0
 
 
