@@ -60,21 +60,22 @@ source, in parallel), then runs, each phase printing one line:
  13. ilm       — ops.ilm_mul / ilm_square on 2^24 seeded operand pairs below
                  2^16 (edges 0, 1, 2^16 - 1 included) at iters 1, 2, 3, 4,
                  6, 8, 16: kernel vs plain version bit for bit, a*b exactly
-                 at the exact bound, and the accuracy table; then the
-                 squarer on 2^22 operands over all of uint32 at iters 1-32
-                 against its plain version's stage loop;
+                 at the exact bound, and the accuracy table; then both
+                 kernels on 2^22 operands (pairs) over all of uint32 at
+                 iters 1-32 against their plain versions' stage loop;
  14. ilm serve — paper_fpdiv at full width in mode="ilm", teacher-forced
                  against the exact twin in f32 (reported, not gated);
  15. times     — each kernel, its plain version and the torch yardstick: the
                  tsdiv kernels on the K-Means distance plane, softmax and
                  RMSNorm at the serving prefill and decode shapes, flash
                  attention at (96, 2048, 64) causal in bf16 and in f32, the
-                 ILM multiplier on 2^24 lanes at iters 16 and the squarer at
-                 iters 16 and 4. Times are CUDA events over back-to-back
-                 wrapper calls (``ms``, which holds the wrapper's host time
-                 where a kernel is shorter); RMSNorm and the squarer also
-                 give ``device_ms``, their kernel's own device time from
-                 torch.profiler, and ``library_device_ms``.
+                 ILM multiplier and squarer on 2^24 lanes at iters 16 and 4.
+                 Times are CUDA events over back-to-back wrapper calls
+                 (``ms``, which holds the wrapper's host time where a kernel
+                 is shorter); RMSNorm, flash attention and the ILM kernels
+                 also give ``device_ms``, their kernel's own device time
+                 from torch.profiler, and ``library_device_ms`` (flash: also
+                 ``library_kernels``, the device kernels of the SDPA call).
 
 Phases 4-6, 9, 12 and 13 are the main path: launch counts are reset before
 each and read after it. Any failed check raises, and the script then exits non-zero
@@ -109,19 +110,27 @@ BF16_TC_OPS_PER_S = 989e12    # H100 SXM dense bf16 on the tensor cores
 # flash attention (both kernels): per (query, key, d) triple of the causal
 # pairs, one multiply-add in QK^T and one in PV (the bf16 kernel's second PV
 # mma, for p's low half, is its design's cost, not the work). The ILM
-# multiplier per stage, integer instructions counted from csrc/ilm.cu: the
-# loop tests, the leading-zero counts, the leading ones and residues, the
-# guarded shifts and the accumulate. The ILM squarer (the closed form
-# x*x - r*r since PR 15) per lane: a popcount, a compare and x*x; on lanes
-# whose popcount exceeds iters also ILM_SQUARE_RESIDUE_OPS (the kept count,
-# the choice of loop, r*r, the subtract) and ILM_SQUARE_STEP_OPS per step of
-# the shorter loop (a step and its loop test), counted on this run's
-# operands (ilm_square_ops). The stage loop it replaced counted
-# ILM_SQUARE_STAGE_OPS per stage; the times rows give that bound too.
+# squarer (the closed form x*x - r*r since PR 15) per lane: a popcount, a
+# compare and x*x; on lanes whose popcount exceeds iters also
+# ILM_SQUARE_RESIDUE_OPS (the kept count, the choice of loop, r*r, the
+# subtract) and ILM_STEP_OPS per step of its residue loop (a step and its
+# loop test: iters steps up to ILM_LEADING_LOOP_ITERS, kLeadingLoopIters in
+# csrc/ilm.cu, else the shorter loop's), counted on this run's operands
+# (ilm_square_ops). The ILM
+# multiplier (the closed form x*y - rx*ry since PR 16) per lane: two
+# popcounts, two compares, x*y, rx*ry and the subtract; per operand whose
+# popcount exceeds iters also ILM_MUL_RESIDUE_OPS (the kept count, the
+# choice of loop) and ILM_STEP_OPS per step (ilm_mul_ops). The stage loops
+# they replaced counted ILM_SQUARE_STAGE_OPS / ILM_MUL_STAGE_OPS per stage
+# (csrc/ilm.cu before PR 15 / 16: the loop tests, the leading-zero counts,
+# the leading ones and residues, the guarded shifts and the accumulate); the
+# times rows give that bound too.
 OPS_PER_ELEMENT = {"tsdiv_divide": 52, "tsdiv_recip": 29, "tsdiv_rsqrt": 50,
                    "softmax_f32": 14, "rmsnorm_f32": 4, "flash_attention_f32": 4,
-                   "flash_attention_bf16": 4, "ilm_mul_u32": 22, "ilm_square_u32": 3}
-ILM_SQUARE_RESIDUE_OPS, ILM_SQUARE_STEP_OPS, ILM_SQUARE_STAGE_OPS = 4, 3, 13
+                   "flash_attention_bf16": 4, "ilm_mul_u32": 7, "ilm_square_u32": 3}
+ILM_SQUARE_RESIDUE_OPS, ILM_MUL_RESIDUE_OPS, ILM_STEP_OPS = 4, 2, 3
+ILM_SQUARE_STAGE_OPS, ILM_MUL_STAGE_OPS = 13, 22
+ILM_LEADING_LOOP_ITERS = 8
 CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {"tsdiv_divide": CSRC + "tsdiv.cu", "tsdiv_recip": CSRC + "tsdiv.cu",
            "tsdiv_rsqrt": CSRC + "tsdiv.cu", "softmax_f32": CSRC + "softmax.cu",
@@ -148,7 +157,7 @@ FLASH_CORPUS = ((4, 128, 64), (2, 256, 64), (3, 1000, 64), (2, 384, 128), (2, 25
 FLASH_PLAIN_HEADS = tuple(range(0, 96, 12))   # head 0 of each request at full width
 ILM_LANES = 1 << 24
 ILM_ITERS = (1, 2, 3, 4, 6, 8, 16)
-ILM_FULL_RANGE_LANES = 1 << 22    # squarer operands over all of uint32, iters 1-32
+ILM_FULL_RANGE_LANES = 1 << 22    # ILM operands over all of uint32, iters 1-32
 ILM_TIMED_ITERS = (16, 4)
 ILM_SERVE_NEW = 32
 DEVICE = "cuda"     # the phases of the serving slice run here
@@ -239,11 +248,9 @@ def event_ms(fn, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, kernel: str | None = None, reps: int = 10):
-    """Device time per call of ``fn`` from torch.profiler over ``reps``
-    calls after a warm-up: the kernels whose name holds ``kernel`` (every
-    kernel and copy on the card when None). None where the profiler shows
-    no device time for them."""
+def device_times(fn, reps: int = 10) -> dict:
+    """{kernel or copy name: device ms per call} of ``fn`` from
+    torch.profiler over ``reps`` calls after a warm-up."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -253,9 +260,16 @@ def device_ms(fn, kernel: str | None = None, reps: int = 10):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and (kernel is None or kernel in e.key))
-    return us / 1e3 / reps if us > 0 else None
+    return {e.key: e.self_device_time_total / 1e3 / reps for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+
+
+def device_ms(fn, kernel: str | None = None, reps: int = 10):
+    """Device time per call of ``fn``: the kernels whose name holds
+    ``kernel`` (every kernel and copy on the card when None). None where the
+    profiler shows no device time for them."""
+    ms = sum(t for name, t in device_times(fn, reps).items() if kernel is None or kernel in name)
+    return ms if ms > 0 else None
 
 
 def phase_device():
@@ -1138,18 +1152,28 @@ def phase_ilm(seed: int, err: dict, launches: dict):
           f"ILM launches {counts}")
     check(all(r[2] == 0 for r in rows), f"an ILM kernel differs from its plain version: {rows}")
     check(all(exact_at_bound), f"ILM at iters={bound} is not the exact product")
-    # The squarer's closed form over all of uint32 (wrap included) against
-    # its plain version's stage loop, at every iters up to 32.
+    # Both closed forms over all of uint32 (wrap included) against their
+    # plain versions' stage loop, at every iters up to 32; the multiplier's
+    # operands start with the edges in every pairing.
     rng = np.random.default_rng(seed + 31)
-    full = rng.integers(0, 2**32, ILM_FULL_RANGE_LANES, dtype=np.uint64).astype(np.uint32)
-    full[:4] = [0, 1, 2**16 - 1, 2**32 - 1]
-    full = torch.from_numpy(full).to(DEVICE)
-    full_rows = [(it, u32_mismatch(ilm.ilm_square(full, it), ilm.ilm_square_plain(full, it))[0])
-                 for it in range(1, 33)]
-    say("ilm_full_range", lanes=full.numel(), kernel="ilm_square_u32",
-        mismatched_lanes=[r for r in full_rows if r[1]], iters_checked=len(full_rows))
-    check(all(r[1] == 0 for r in full_rows),
-          f"ilm_square differs from its plain version over all of uint32: {full_rows}")
+    fa, fb = (rng.integers(0, 2**32, ILM_FULL_RANGE_LANES, dtype=np.uint64).astype(np.uint32)
+              for _ in range(2))
+    edges = np.array([0, 1, 2**16 - 1, 2**32 - 1, 0xFFFF0000], np.uint32)
+    fa[:4] = edges[:4]
+    fa[4:4 + edges.size**2], fb[4:4 + edges.size**2] = np.repeat(edges, 5), np.tile(edges, 5)
+    fa, fb = torch.from_numpy(fa).to(DEVICE), torch.from_numpy(fb).to(DEVICE)
+    full_rows = []
+    for it in range(1, 33):
+        full_rows.append(("ilm_square_u32", it, u32_mismatch(ilm.ilm_square(fa, it),
+                                                              ilm.ilm_square_plain(fa, it))[0]))
+        full_rows.append(("ilm_mul_u32", it, u32_mismatch(ilm.ilm_mul(fa, fb, it),
+                                                           ilm.ilm_mul_plain(fa, fb, it))[0]))
+    say("ilm_full_range", lanes=fa.numel(), kernels=["ilm_square_u32", "ilm_mul_u32"],
+        mismatched_lanes=[r for r in full_rows if r[2]], iters_checked=32,
+        edge_pairs=int(edges.size**2))
+    check(all(r[2] == 0 for r in full_rows),
+          f"an ILM kernel differs from its plain version over all of uint32: "
+          f"{[r for r in full_rows if r[2]]}")
     return a, b
 
 
@@ -1167,8 +1191,9 @@ def phase_ilm_serve(seed: int):
 def phase_times_attention_ilm(err: dict, launches: dict, flash_in, ilm_in):
     """Flash attention at (96, 2048, 64) causal in the served config's
     schedule, bf16 (tensor cores) and the same q/k/v in f32 (CUDA cores),
-    each against scaled_dot_product_attention on its own inputs; the ILM
-    kernels on ILM_LANES lanes at iters 16."""
+    each against scaled_dot_product_attention on its own inputs (and the
+    SDPA call's device kernels by name); the ILM kernels on ILM_LANES lanes
+    at iters 16 and 4."""
     from repro_torch.core import ilm as ilm_core
     from repro_torch.core.seeds import compute_segments
     from repro_torch.kernels import flash_attention as fa
@@ -1179,8 +1204,9 @@ def phase_times_attention_ilm(err: dict, launches: dict, flash_in, ilm_in):
     sel = torch.tensor(FLASH_PLAIN_HEADS, device=DEVICE)
     table = compute_segments(div.n_iters, div.precision_bits)
     rows = []
-    for name, dtype, ops_per_s in (("flash_attention_bf16", torch.bfloat16, BF16_TC_OPS_PER_S),
-                                   ("flash_attention_f32", torch.float32, F32_OPS_PER_S)):
+    for name, dtype, ops_per_s, device_name in (
+            ("flash_attention_bf16", torch.bfloat16, BF16_TC_OPS_PER_S, "flash_tc_kernel"),
+            ("flash_attention_f32", torch.float32, F32_OPS_PER_S, "flash_kernel")):
         qh, kh, vh = (t.to(dtype) for t in flash_in)
         q3, k3, v3 = (t.reshape(b * h, s, hd) for t in (qh, kh, vh))
         q8, k8, v8 = (t[sel].contiguous() for t in (q3, k3, v3))
@@ -1189,51 +1215,75 @@ def phase_times_attention_ilm(err: dict, launches: dict, flash_in, ilm_in):
                                        block_k=min(128, s), sk_real=s, skip_masked_k=True)
         library = lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh,
                                                                             is_causal=True)
+        library_kernels = device_times(library)
         rows.append(kernel_row(name, event_ms(kernel), event_ms(plain, 1), event_ms(library),
                                4 * q3.numel() * q3.element_size(),
                                b * h * (s * (s + 1) // 2) * hd, launches, err, ops_per_s=ops_per_s,
                                shape=[b * h, s, hd], dtype=str(dtype).replace("torch.", ""),
-                               causal=True, plain_heads=len(FLASH_PLAIN_HEADS)))
+                               causal=True, plain_heads=len(FLASH_PLAIN_HEADS),
+                               device_ms=device_ms(kernel, device_name),
+                               library_device_ms=sum(library_kernels.values()) or None,
+                               library_kernels=library_kernels))
         say("times", **rows[-1])
         del qh, kh, vh, q3, k3, v3
     a, bb = ilm_in
     a64, b64 = ilm_core.as_u32_lanes(a), ilm_core.as_u32_lanes(bb)
     pa, pb = ilm_core._popcount32(a64), ilm_core._popcount32(b64)
-    it = 16
-    stages = torch.minimum(torch.minimum(pa, pb), torch.tensor(it, device=DEVICE))
-    rows.append(kernel_row("ilm_mul_u32", event_ms(lambda: ilm.ilm_mul(a, bb, it)),
-                           event_ms(lambda: ilm.ilm_mul_plain(a, bb, it), 3),
-                           event_ms(lambda: torch.mul(a64, b64)), 12 * a.numel(),
-                           int(stages.sum()), launches, err, ops_per_s=INT32_OPS_PER_S,
-                           shape=[a.numel()], iters=it,
-                           stages_per_lane=float(stages.double().mean())))
-    say("times", **rows[-1])
-    # The squarer at iters 16 (every 16-bit operand on the popcount route)
-    # and 4 (most lanes on a residue loop), with its kernel's device time.
-    library = lambda: torch.mul(a64, a64)
-    library_ms, library_dev = event_ms(library), device_ms(library)
-    for it in ILM_TIMED_ITERS:
-        kernel = lambda: ilm.ilm_square(a, it)
-        stages = torch.clamp(pa, max=it)
-        rows.append(kernel_row(
-            "ilm_square_u32", event_ms(kernel), event_ms(lambda: ilm.ilm_square_plain(a, it), 3),
-            library_ms, 8 * a.numel(), a.numel(), launches, err, ops_per_s=INT32_OPS_PER_S,
-            ops=ilm_square_ops(pa, it), shape=[a.numel()], iters=it,
-            device_ms=device_ms(kernel, "ilm_square_kernel"), library_device_ms=library_dev,
-            residue_lanes=float((pa > it).double().mean()),
-            stage_loop_bound_ms=ILM_SQUARE_STAGE_OPS * int(stages.sum()) / INT32_OPS_PER_S * 1e3))
-        say("times", **rows[-1])
+    # Both kernels at iters 16 (every 16-bit operand on the popcount route)
+    # and 4 (most lanes on a residue loop), with their kernels' device time.
+    for name, kernel_name, nbytes, library, kernel, plain, ops, stages in (
+            ("ilm_mul_u32", "ilm_mul_kernel", 12, lambda: torch.mul(a64, b64),
+             lambda it: lambda: ilm.ilm_mul(a, bb, it),
+             lambda it: lambda: ilm.ilm_mul_plain(a, bb, it),
+             lambda it: ilm_mul_ops(pa, pb, it),
+             lambda it: ILM_MUL_STAGE_OPS * torch.minimum(torch.clamp(pa, max=it), pb)),
+            ("ilm_square_u32", "ilm_square_kernel", 8, lambda: torch.mul(a64, a64),
+             lambda it: lambda: ilm.ilm_square(a, it),
+             lambda it: lambda: ilm.ilm_square_plain(a, it),
+             lambda it: ilm_square_ops(pa, it),
+             lambda it: ILM_SQUARE_STAGE_OPS * torch.clamp(pa, max=it))):
+        library_ms, library_dev = event_ms(library), device_ms(library)
+        for it in ILM_TIMED_ITERS:
+            slow = (pa > it) | (pb > it) if name == "ilm_mul_u32" else pa > it
+            rows.append(kernel_row(
+                name, event_ms(kernel(it)), event_ms(plain(it), 3), library_ms,
+                nbytes * a.numel(), a.numel(), launches, err, ops_per_s=INT32_OPS_PER_S,
+                ops=ops(it), shape=[a.numel()], iters=it,
+                device_ms=device_ms(kernel(it), kernel_name), library_device_ms=library_dev,
+                residue_lanes=float(slow.double().mean()),
+                stage_loop_bound_ms=int(stages(it).sum()) / INT32_OPS_PER_S * 1e3))
+            say("times", **rows[-1])
     return rows
+
+
+def residue_steps(popcounts: torch.Tensor, iters: int):
+    """(operands whose popcount exceeds iters, the steps of their residue
+    loops summed), as csrc/ilm.cu residue() runs them."""
+    keep = popcounts - iters
+    slow = keep > 0
+    if iters <= ILM_LEADING_LOOP_ITERS:
+        return int(slow.sum()), iters * int(slow.sum())
+    steps = torch.minimum(keep, torch.full_like(keep, iters))[slow]
+    return steps.numel(), int(steps.sum())
 
 
 def ilm_square_ops(popcounts: torch.Tensor, iters: int) -> int:
     """Integer operations the squarer kernel does on these operands
     (OPS_PER_ELEMENT's count per lane, the residue's where popcount > iters)."""
-    keep = popcounts - iters
-    slow = keep > 0
-    steps = torch.minimum(keep, torch.full_like(keep, iters))[slow]
-    return int(OPS_PER_ELEMENT["ilm_square_u32"] * popcounts.numel()
-               + ILM_SQUARE_RESIDUE_OPS * steps.numel() + ILM_SQUARE_STEP_OPS * steps.sum())
+    slow, steps = residue_steps(popcounts, iters)
+    return (OPS_PER_ELEMENT["ilm_square_u32"] * popcounts.numel()
+            + ILM_SQUARE_RESIDUE_OPS * slow + ILM_STEP_OPS * steps)
+
+
+def ilm_mul_ops(pa: torch.Tensor, pb: torch.Tensor, iters: int) -> int:
+    """Integer operations the multiplier kernel does on these operand pairs
+    (OPS_PER_ELEMENT's count per lane, each operand's residue where its
+    popcount > iters)."""
+    total = OPS_PER_ELEMENT["ilm_mul_u32"] * pa.numel()
+    for p in (pa, pb):
+        slow, steps = residue_steps(p, iters)
+        total += ILM_MUL_RESIDUE_OPS * slow + ILM_STEP_OPS * steps
+    return total
 
 
 def main(argv=None) -> int:

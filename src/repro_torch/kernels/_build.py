@@ -57,6 +57,7 @@ _SIGNATURES = {
     "flash_attention": {
         "flash_attention_f32": [_vp, _vp, _vp, _vp, _i64, _i32, _i32, _i32, _i32, _i32,
                                 _i32, _i32, _f32, SeedTableC, _i32, _i32, _vp],
+        "flash_attention_f32_blocks_per_sm": [_i32, ctypes.POINTER(ctypes.c_int)],
     },
     "flash_attention_tc": {
         "flash_attention_bf16": [_vp, _vp, _vp, _vp, _i64, _i32, _i32, _i32, _i32, _i32,

@@ -5,10 +5,11 @@ The kernels (``csrc/ilm.cu`` ``ilm_mul_u32`` and ``ilm_square_u32``) replace
 the reference's Pallas kernels ``src/repro/kernels/ilm.py`` ``ilm_mul_2d``
 and ``ilm_square_2d``: ``iters`` stages of the Iterative Logarithmic
 Multiplier (priority encoder, leading-one residues, partial product) on
-uint32 lanes, exact for operands below 2^16 at 16 stages. The multiplier
-runs the stages; the squarer computes their closed form ``x*x - r*r`` (mod
-2^32; ``r`` is ``x`` with its top ``iters`` set bits cleared), which is
-the stages' result for every uint32 operand. They take contiguous
+uint32 lanes, exact for operands below 2^16 at 16 stages. Neither runs
+the stages: the multiplier computes their closed form ``x*y - rx*ry`` and
+the squarer ``x*x - r*r`` (mod 2^32; ``rx``, ``ry``, ``r`` are the operands
+with their top ``iters`` set bits cleared), which is the stages' result for
+every uint32 operand. The plain versions run the stages. They take contiguous
 ``torch.uint32`` tensors of one shape and return a new ``torch.uint32``
 tensor (one flat launch over the lanes, any rank).
 

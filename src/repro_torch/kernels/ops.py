@@ -175,7 +175,11 @@ class _Softmax(torch.autograd.Function):
 class _RMSNorm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, eps, newton_iters, n_segments):
-        y = rmsnorm_k.rmsnorm(_rows(x), w, eps, newton_iters, n_segments)
+        # The kernel reads an f32 or bf16 weight as it is; any other weight
+        # is cast to f32 first, as the reference's kernel casts it.
+        wk = w if w.dtype in (torch.float32, torch.bfloat16) and w.is_contiguous() \
+            else w.to(torch.float32).contiguous()
+        y = rmsnorm_k.rmsnorm(_rows(x), wk, eps, newton_iters, n_segments)
         ctx.save_for_backward(x, w)
         ctx.eps = eps
         return y.reshape(x.shape)
@@ -212,17 +216,26 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6,
 def flash_padded(q, k, v, block_q: int = 128, block_k: int = 128):
     """The reference wrapper's pad-and-mask: (..., S, hd) q/k/v flattened to
     (BH, S, hd), q zero-padded to a ``min(block_q, Sq)`` multiple and k/v to
-    a ``min(block_k, Sk)`` multiple. Returns (q3, k3, v3, the kernel's
-    keywords ``block_k`` and ``sk_real``); slice ``[:, :Sq]`` off the output."""
+    a ``min(block_k, Sk)`` multiple; a tensor that needs no padding and is
+    contiguous and 16-byte aligned is passed on as it is (a view, no copy).
+    Returns (q3, k3, v3, the kernel's keywords ``block_k`` and ``sk_real``);
+    slice ``[:, :Sq]`` off the output."""
     s, hd = q.shape[-2:]
     q3 = q.reshape(-1, s, hd)
     k3 = k.reshape(-1, k.shape[-2], hd)
     v3 = v.reshape(-1, v.shape[-2], hd)
     sk = k3.shape[1]
     bq, bk = min(block_q, s), min(block_k, sk)
-    pad = torch.nn.functional.pad
-    return (pad(q3, (0, 0, 0, -s % bq)).contiguous(), pad(k3, (0, 0, 0, -sk % bk)).contiguous(),
-            pad(v3, (0, 0, 0, -sk % bk)).contiguous(), dict(block_k=bk, sk_real=sk))
+
+    def padded(t, n, to):
+        # Whole blocks, contiguous and on a 16-byte boundary (which the bf16
+        # kernel wants): the tensor itself, not a copy.
+        if n % to == 0 and t.is_contiguous() and t.data_ptr() % 16 == 0:
+            return t
+        return torch.nn.functional.pad(t, (0, 0, 0, -n % to)).contiguous()
+
+    return (padded(q3, s, bq), padded(k3, sk, bk), padded(v3, sk, bk),
+            dict(block_k=bk, sk_real=sk))
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -259,3 +259,36 @@ def test_flash_wrapper_counts_nothing_on_the_cpu_and_checks_shapes():
         flash_attention.flash_attention(q, q[:, :50], q[:, :50], block_k=32)
     with pytest.raises(ValueError):
         flash_attention.flash_attention(q, q, q[:, :32])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_padded_passes_whole_blocks_through_without_a_copy(dtype):
+    """Lengths that are whole blocks, contiguous and 16-byte aligned: q3,
+    k3, v3 are views of q, k, v (same storage), and attention through them
+    gives the bits of attention through padded copies. Ragged lengths and
+    views off a 16-byte boundary are still copied, ragged ones padded."""
+    q, k, v = (torch.from_numpy(a).to(dtype) for a in _qkv(11, (2, 3, 256, 32)))
+    q3, k3, v3, kw = ops.flash_padded(q, k, v, 128, 64)
+    assert kw == dict(block_k=64, sk_real=256)
+    for t, t3 in ((q, q3), (k, k3), (v, v3)):
+        assert t3.data_ptr() == t.data_ptr() and t3.shape == (6, 256, 32)
+    table = compute_segments(2, 24)
+    plain = flash_attention.PLAIN[flash_attention.kernel_for(dtype)]
+    got = plain(q3, k3, v3, table, 2, "factored", causal=True, skip_masked_k=True, **kw)
+    copies = [t.reshape(6, 256, 32).clone() for t in (q, k, v)]
+    want = plain(*copies, table, 2, "factored", causal=True, skip_masked_k=True, **kw)
+    assert torch.equal(got.float().view(torch.int32), want.float().view(torch.int32))
+    assert torch.equal(ops.flash_attention(q, k, v, True, 128, 64).reshape(6, 256, 32), got)
+
+    qr, kr, vr = (t[:, :, :200] for t in (q, k, v))          # ragged and strided
+    q3, k3, v3, kw = ops.flash_padded(qr, kr, vr, 128, 64)
+    assert kw == dict(block_k=64, sk_real=200)
+    assert q3.shape == (6, 256, 32) and k3.shape == v3.shape == (6, 256, 32)
+    assert all(t.is_contiguous() for t in (q3, k3, v3))
+    assert all(t3.data_ptr() != t.data_ptr() for t, t3 in ((qr, q3), (kr, k3), (vr, v3)))
+    assert not bool(q3[:, 200:].any()) and not bool(k3[:, 200:].any())
+
+    odd = torch.empty(q.numel() + 1, dtype=dtype)[1:].view(q.shape)   # 2 or 4 bytes off
+    odd.copy_(q)
+    q3, _, _, _ = ops.flash_padded(odd, k, v, 128, 64)
+    assert q3.data_ptr() % 16 == 0 and torch.equal(q3, q.reshape(6, 256, 32))

@@ -407,3 +407,30 @@ def test_twin_gradients_are_finite_on_masked_rows():
             dm.softmax(x, -1, dm.DivisionConfig(mode=mode, schedule=sched),
                        where=where)[1].sum(), x)
         assert torch.isfinite(g).all(), mode
+
+
+@pytest.mark.parametrize("mode", ["taylor_pallas", "goldschmidt_pallas"])
+@pytest.mark.parametrize("weight", ["float16", "strided"])
+def test_rmsnorm_kernel_modes_take_any_weight(mode, weight):
+    """A weight that the kernel does not read as it is (float16, or f32 not
+    contiguous) is cast to a contiguous f32 weight first, as the reference's
+    kernel casts it: the result equals the call with that f32 weight bit for
+    bit, and the reference within the row-sum order's tolerance (F5)."""
+    cfg, rcfg = _pair(mode, "factored" if mode == "taylor_pallas" else "goldschmidt")
+    d = 768
+    w32 = consumers.rmsnorm_weight(d, 3)
+    if weight == "float16":
+        w_np = w32.astype(np.float16)
+        w = torch.from_numpy(w_np)
+    else:
+        w_np = w32
+        w = torch.from_numpy(np.repeat(w32, 2))[::2]
+        assert not w.is_contiguous()
+    for x in consumers.rmsnorm_rows("float32", 8, d, seed=3).values():
+        xt = torch.from_numpy(x)
+        got = dm.rmsnorm(xt, w, cfg)
+        assert_bits_equal(got.numpy(),
+                          dm.rmsnorm(xt, w.to(torch.float32).contiguous(), cfg).numpy())
+        want = ref_dm.rmsnorm(jnp.asarray(x), jnp.asarray(w_np), rcfg)
+        _within(got.numpy(), want, consumers.rmsnorm_oracle(
+            x.astype(np.float64), w_np.astype(np.float64)), RMSNORM_VS_REF_ULP)

@@ -163,18 +163,30 @@ FLASH_SHAPES = [(2, 128, 16), (2, 256, 32), (3, 100, 64), (2, 160, 128)]
 FLASH_RUNS = ((True, "paper", True), (True, "goldschmidt", False), (False, "factored", True))
 
 
-@pytest.mark.parametrize("bh,s,hd", FLASH_SHAPES)
-def test_flash_kernel_matches_plain_version_bit_for_bit(cuda, bh, s, hd):
-    """The f32 kernel (CUDA cores) against its plain version: 0 lanes."""
+FLASH_F32_RUNS = FLASH_RUNS + ((False, "paper", False),)
+
+
+@pytest.mark.parametrize("bh,s,hd", FLASH_SHAPES + [(2, 72, 32), (1, 1024, 64)])
+@pytest.mark.parametrize("block_k", [128, 32, 24])
+def test_flash_kernel_matches_plain_version_bit_for_bit(cuda, bh, s, hd, block_k):
+    """The f32 kernel (CUDA cores) against its plain version: 0 lanes,
+    causal and full, skip on and off, query lengths that are not a multiple
+    of the kernel's 64-row tile (100, 72), key blocks of 128, 32 and 24
+    keys (24 leaves part of the 16-key slices empty), and k/v off a 16-byte
+    boundary (the kernel's 4-byte copies)."""
     q, k, v = _qkv(s + hd, (bh, s, hd), torch.float32, cuda)
-    for causal, sched, skip in FLASH_RUNS:
-        q3, k3, v3, kw = ops.flash_padded(q, k, v)
+    table = compute_segments(2, 24)
+    for causal, sched, skip in FLASH_F32_RUNS:
+        q3, k3, v3, kw = ops.flash_padded(q, k, v, block_k=block_k)
         got = flash_attention.flash_attention(q3, k3, v3, causal=causal, schedule=sched,
                                               skip_masked_k=skip, **kw)
         want = flash_attention.flash_attention_plain(
-            q3, k3, v3, compute_segments(2, 24), 2, sched, causal=causal,
-            skip_masked_k=skip, **kw)
+            q3, k3, v3, table, 2, sched, causal=causal, skip_masked_k=skip, **kw)
         assert got.dtype == torch.float32 and _same_any(got, want), (causal, sched, skip)
+    odd = [torch.empty(t.numel() + 1, device=cuda)[1:].view(t.shape).copy_(t) for t in (k3, v3)]
+    got = flash_attention.flash_attention(q3, *odd, causal=causal, schedule=sched,
+                                          skip_masked_k=skip, **kw)
+    assert _same_any(got, want)
 
 
 @pytest.mark.parametrize("bh,s,hd", FLASH_SHAPES + [(2, 48, 64)])
@@ -287,6 +299,24 @@ def test_ilm_square_kernel_over_all_of_uint32_every_iters(cuda, n):
             assert _same_any(ilm.ilm_square(t, iters), ilm.ilm_square_plain(t, iters)), (n, iters)
 
 
+@pytest.mark.parametrize("n", [1, 3, 4097, 1 << 16])
+def test_ilm_mul_kernel_over_all_of_uint32_every_iters(cuda, n):
+    """The multiplier's closed form against the stage loop of its plain
+    version: 0 lanes at iters 1-32 on operand pairs over all of uint32
+    (wrap included; the edges 0, 1, 2^16 - 1, 2^32 - 1 and 0xFFFF0000 in
+    every pairing), on odd lengths and on views off a 16-byte boundary."""
+    rng = np.random.default_rng(n + 7)
+    a, b = (rng.integers(0, 2**32, n + 26, dtype=np.uint64).astype(np.uint32) for _ in range(2))
+    edges = np.array([0, 1, 2**16 - 1, 2**32 - 1, 0xFFFF0000], np.uint32)
+    a[:25], b[:25] = np.repeat(edges, 5), np.tile(edges, 5)
+    at, bt = torch.from_numpy(a).to(cuda), torch.from_numpy(b).to(cuda)
+    for x, y in ((at[:n], bt[:n]), (at[1:n + 1], bt[1:n + 1]), (at[:n], bt[1:n + 1])):
+        for iters in range(1, 33):
+            assert _same_any(ilm.ilm_mul(x, y, iters), ilm.ilm_mul_plain(x, y, iters)), (n, iters)
+    lanes = ilm_core.as_u32_lanes       # at iters 32 every pair is x*y mod 2^32
+    assert torch.equal(lanes(ilm.ilm_mul(at, bt, 32)), lanes(at) * lanes(bt) & ilm_core.U32)
+
+
 RMS_DIMS = [1, 100, 128, 300, 768, 2048, 2176, 8192]
 
 
@@ -346,3 +376,19 @@ def test_rmsnorm_launches_once_and_casts_nothing(cuda):
     with pytest.raises(TypeError):
         rmsnorm.rmsnorm(x, torch.randn(2 * 768, device=cuda)[::2])   # not contiguous
     assert rmsnorm.LAUNCHES == {"rmsnorm_f32": 2}
+
+
+@pytest.mark.parametrize("mode", ["taylor_pallas", "goldschmidt_pallas"])
+def test_rmsnorm_modes_cast_a_weight_the_kernel_does_not_take(cuda, mode):
+    """dm.rmsnorm with a float16 or a strided f32 weight: one launch each,
+    the plain version's bits (which read the weight as f32), as the
+    reference's kernel casts its weight."""
+    table = rsqrt_seed_table(16)
+    cfg = dm.DivisionConfig(mode=mode)
+    x = torch.from_numpy(_rms_rows(13, 768, 5)).to(cuda)
+    w32 = torch.from_numpy(consumers.rmsnorm_weight(768, 2)).to(cuda)
+    for w in (w32.half(), w32.repeat_interleave(2)[::2]):
+        rmsnorm.reset_launches()
+        got = dm.rmsnorm(x, w, cfg)
+        assert rmsnorm.LAUNCHES == {"rmsnorm_f32": 1}
+        assert _same_any(got, rmsnorm.rmsnorm_plain(x, w, 1e-6, table, cfg.rsqrt_newton))

@@ -12,16 +12,17 @@ the time of ``tsdiv_rsqrt``, ``tsdiv_recip`` and ``tsdiv_divide`` at the
 K-Means plane's shape (10^6 x 1024 f32, uniform random x in [0.01, 100];
 divide by a constant 128 and, as ``tsdiv_divide_random_divisor``, 128 / x)
 and of ``kernels.flash_attention``
-on seeded bf16 q/k/v of (96, 2048, 64), causal (CUDA events over ``--reps``
-launches after a warm-up); ``rmsnorm`` at the serving prefill shape (16384,
-768) bf16 with a bf16 weight and ``ilm_square`` on 2^24 operands below 2^16
-at iters 16 and 4, each also as its kernel's device time from
+on seeded q/k/v of (96, 2048, 64), causal, in bf16 and in f32 (CUDA events
+over ``--reps`` launches after a warm-up; f32 also as its kernel's device
+time); ``rmsnorm`` at the serving prefill shape (16384, 768) bf16 with a
+bf16 weight, and ``ilm_mul`` and ``ilm_square`` on 2^24 operands (pairs)
+below 2^16 at iters 16 and 4, each also as its kernel's device time from
 torch.profiler (``device_ms``); and for every kernel function of every library
 its static SASS instruction count (``cuobjdump -sass``, NOPs left out), its
 local-memory instructions (LDL/STL: a spilled or indexed local copy), and
 the instructions from its first global load to the next global store,
 divided by the elements one such pass handles (4 after a 128-bit load).
-``per_element`` gives the squarer's such count and the RMSNorm kernel's
+``per_element`` gives the ILM kernels' such counts and the RMSNorm kernel's
 instructions (the bf16 instantiation that runs at d = 768) over the
 elements one thread handles there. Needs a CUDA card and ``cuobjdump``;
 imports nothing of JAX.
@@ -76,14 +77,17 @@ def sass_counts(so: Path) -> dict:
 
 
 def per_element(sass: dict) -> dict:
-    """SASS instructions per element of the squarer and of RMSNorm at d = 768
-    bf16: the held-in-registers instantiation (24 elements a thread) where the
-    checkout has it, else the block-per-row kernel (3 elements a thread)."""
+    """SASS instructions per element of the ILM kernels and of RMSNorm at
+    d = 768 bf16: the held-in-registers instantiation (24 elements a thread)
+    where the checkout has it, else the block-per-row kernel (3 elements a
+    thread)."""
     sq = [v for k, v in sass["ilm"].items() if "ilm_square_kernel" in k]
+    mul = [v for k, v in sass["ilm"].items() if "ilm_mul_kernel" in k]
     rms = sass["rmsnorm"]
     held = [v for k, v in rms.items() if "bfloat16" in k and "Lb1ELi3E" in k]
     block = [v for k, v in rms.items() if "rmsnorm_kernelI13__nv_bfloat16EEv" in k]
     return {"ilm_square": sq[0]["load_to_store_per_element"] if sq else None,
+            "ilm_mul": mul[0]["load_to_store_per_element"] if mul else None,
             "rmsnorm_bf16_d768": (held[0]["instructions"] / (RMS_SHAPE[1] / 32) if held else
                                   block[0]["instructions"] / (RMS_SHAPE[1] / 256) if block
                                   else None)}
@@ -119,23 +123,29 @@ def main(argv=None) -> int:
                  lambda: tsdiv.divide(d, x, 2, 24, "factored"), args.reps),
              "torch.rsqrt": event_ms(lambda: torch.rsqrt(x), args.reps)}
     del x, d
-    q, k, v = (torch.randn((96, 2048, 64), generator=gen, device="cuda").to(torch.bfloat16)
-               for _ in range(3))
-    times["flash_attention_bf16_input"] = event_ms(
-        lambda: flash_attention.flash_attention(q, k, v), args.reps)
-    del q, k, v
     dev = {}
+    q, k, v = (torch.randn((96, 2048, 64), generator=gen, device="cuda") for _ in range(3))
+    for name, dtype in (("flash_attention_bf16_input", torch.bfloat16),
+                        ("flash_attention_f32_input", torch.float32)):
+        qd, kd, vd = (t.to(dtype) for t in (q, k, v))
+        attn = lambda: flash_attention.flash_attention(qd, kd, vd)
+        times[name] = event_ms(attn, args.reps)
+        if dtype == torch.float32:
+            dev[name] = device_ms(attn, "flash_kernel", args.reps)
+        del qd, kd, vd
+    del q, k, v
     xr = torch.randn(RMS_SHAPE, generator=gen, device="cuda").to(torch.bfloat16)
     w = torch.randn(RMS_SHAPE[1], generator=gen, device="cuda").to(torch.bfloat16)
     norm = lambda: rmsnorm.rmsnorm(xr, w, 1e-6, 2, 16)
     times["rmsnorm_bf16"] = event_ms(norm, args.reps)
     dev["rmsnorm_bf16"] = device_ms(norm, "rmsnorm_kernel", args.reps)
-    a = torch.randint(1, 2**16, (ILM_LANES,), generator=gen, device="cuda").to(torch.int32)
-    a = a.view(torch.uint32)
+    a, b = (torch.randint(1, 2**16, (ILM_LANES,), generator=gen, device="cuda").to(torch.int32)
+            .view(torch.uint32) for _ in range(2))
     for it in (16, 4):
-        sq = lambda: ilm.ilm_square(a, it)
-        times[f"ilm_square_iters{it}"] = event_ms(sq, args.reps)
-        dev[f"ilm_square_iters{it}"] = device_ms(sq, "ilm_square_kernel", args.reps)
+        for name, fn in (("ilm_square", lambda: ilm.ilm_square(a, it)),
+                         ("ilm_mul", lambda: ilm.ilm_mul(a, b, it))):
+            times[f"{name}_iters{it}"] = event_ms(fn, args.reps)
+            dev[f"{name}_iters{it}"] = device_ms(fn, f"{name}_kernel", args.reps)
     sass = {lib: sass_counts(_build._so_path(lib)) for lib in _build.LIBRARIES}
     print(json.dumps({"label": args.label, "root": str(args.root), "nvidia_smi": smi,
                       "shape": [N_PLANE, K], "ms": times, "device_ms": dev,

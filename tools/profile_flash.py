@@ -9,8 +9,8 @@ first in bf16 (the tensor-core kernel) and then in f32 (the CUDA-core
 kernel). For each, prints one JSON line: the device time per call of every
 kernel and copy on the card (``key_averages`` over ``--calls`` profiled
 calls), their total per call, the host wall time per call of as many calls
-run before the profiler starts, and the card's name and power limit; for
-bf16 also the tensor-core kernel's resident blocks per SM at this shape
+run before the profiler starts, and the card's name and power limit; and
+the kernel's resident blocks per SM at this shape
 (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and the warps that
 gives out of the SM's 64.
 ``--device cpu`` runs the plain versions at a small shape, to check the
@@ -28,15 +28,20 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 
 
-def blocks_per_sm(hd: int, block_k: int) -> int:
-    """Resident blocks per SM of the bf16 flash kernel (4 warps each)."""
+def blocks_per_sm(bf16: bool, hd: int, block_k: int) -> int:
+    """Resident blocks per SM of the bf16 or the f32 flash kernel (4 warps
+    each; the f32 kernel's shared memory does not depend on block_k)."""
     import ctypes
 
     from repro_torch.kernels import _build
 
     blocks = ctypes.c_int(0)
-    rc = _build.library("flash_attention_tc").flash_attention_bf16_blocks_per_sm(
-        hd, block_k, ctypes.byref(blocks))
+    if bf16:
+        rc = _build.library("flash_attention_tc").flash_attention_bf16_blocks_per_sm(
+            hd, block_k, ctypes.byref(blocks))
+    else:
+        rc = _build.library("flash_attention").flash_attention_f32_blocks_per_sm(
+            hd, ctypes.byref(blocks))
     if rc:
         raise RuntimeError(f"occupancy query failed with CUDA error {rc}")
     return blocks.value
@@ -98,8 +103,9 @@ def main(argv=None) -> int:
                 "card": card, "calls": args.calls, "host_ms_per_call": wall * 1e3,
                 "device_ms_per_call" if cuda else "cpu_ms_per_call": total,
                 "kernels": dict(sorted(rows.items(), key=lambda kv: -kv[1]["ms_per_call"]))}
-        if cuda and dtype == torch.bfloat16:
-            line["blocks_per_sm"] = blocks_per_sm(shape[-1], min(128, shape[-2]))
+        if cuda:
+            line["blocks_per_sm"] = blocks_per_sm(dtype == torch.bfloat16, shape[-1],
+                                                  min(128, shape[-2]))
             line["warps_per_sm"] = 4 * line["blocks_per_sm"]
         print(json.dumps(line), flush=True)
     return 0
