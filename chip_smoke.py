@@ -110,27 +110,23 @@ BF16_TC_OPS_PER_S = 989e12    # H100 SXM dense bf16 on the tensor cores
 # flash attention (both kernels): per (query, key, d) triple of the causal
 # pairs, one multiply-add in QK^T and one in PV (the bf16 kernel's second PV
 # mma, for p's low half, is its design's cost, not the work). The ILM
-# squarer (the closed form x*x - r*r since PR 15) per lane: a popcount, a
-# compare and x*x; on lanes whose popcount exceeds iters also
-# ILM_SQUARE_RESIDUE_OPS (the kept count, the choice of loop, r*r, the
-# subtract) and ILM_STEP_OPS per step of its residue loop (a step and its
-# loop test: iters steps up to ILM_LEADING_LOOP_ITERS, kLeadingLoopIters in
-# csrc/ilm.cu, else the shorter loop's), counted on this run's operands
-# (ilm_square_ops). The ILM
-# multiplier (the closed form x*y - rx*ry since PR 16) per lane: two
+# squarer (the closed form x*x - r*r) per lane: a popcount, a compare and
+# x*x; on lanes whose popcount exceeds iters also ILM_SQUARE_RESIDUE_OPS
+# (r*r, the subtract) and ILM_STEP_OPS per step of its residue loop (a step
+# and its loop test; iters steps, as csrc/ilm.cu residue() runs them),
+# counted on this run's operands (ilm_square_ops).
+# The ILM multiplier (the closed form x*y - rx*ry) per lane: two
 # popcounts, two compares, x*y, rx*ry and the subtract; per operand whose
-# popcount exceeds iters also ILM_MUL_RESIDUE_OPS (the kept count, the
-# choice of loop) and ILM_STEP_OPS per step (ilm_mul_ops). The stage loops
-# they replaced counted ILM_SQUARE_STAGE_OPS / ILM_MUL_STAGE_OPS per stage
-# (csrc/ilm.cu before PR 15 / 16: the loop tests, the leading-zero counts,
-# the leading ones and residues, the guarded shifts and the accumulate); the
-# times rows give that bound too.
+# popcount exceeds iters also ILM_STEP_OPS per step (ilm_mul_ops). The
+# stage loops they replaced counted ILM_SQUARE_STAGE_OPS / ILM_MUL_STAGE_OPS
+# per stage (csrc/ilm.cu's earlier kernels: the loop tests, the leading-zero
+# counts, the leading ones and residues, the guarded shifts and the
+# accumulate); the times rows give that bound too.
 OPS_PER_ELEMENT = {"tsdiv_divide": 52, "tsdiv_recip": 29, "tsdiv_rsqrt": 50,
                    "softmax_f32": 14, "rmsnorm_f32": 4, "flash_attention_f32": 4,
                    "flash_attention_bf16": 4, "ilm_mul_u32": 7, "ilm_square_u32": 3}
-ILM_SQUARE_RESIDUE_OPS, ILM_MUL_RESIDUE_OPS, ILM_STEP_OPS = 4, 2, 3
+ILM_SQUARE_RESIDUE_OPS, ILM_STEP_OPS = 2, 3
 ILM_SQUARE_STAGE_OPS, ILM_MUL_STAGE_OPS = 13, 22
-ILM_LEADING_LOOP_ITERS = 8
 CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {"tsdiv_divide": CSRC + "tsdiv.cu", "tsdiv_recip": CSRC + "tsdiv.cu",
            "tsdiv_rsqrt": CSRC + "tsdiv.cu", "softmax_f32": CSRC + "softmax.cu",
@@ -1256,34 +1252,20 @@ def phase_times_attention_ilm(err: dict, launches: dict, flash_in, ilm_in):
     return rows
 
 
-def residue_steps(popcounts: torch.Tensor, iters: int):
-    """(operands whose popcount exceeds iters, the steps of their residue
-    loops summed), as csrc/ilm.cu residue() runs them."""
-    keep = popcounts - iters
-    slow = keep > 0
-    if iters <= ILM_LEADING_LOOP_ITERS:
-        return int(slow.sum()), iters * int(slow.sum())
-    steps = torch.minimum(keep, torch.full_like(keep, iters))[slow]
-    return steps.numel(), int(steps.sum())
-
-
 def ilm_square_ops(popcounts: torch.Tensor, iters: int) -> int:
     """Integer operations the squarer kernel does on these operands
     (OPS_PER_ELEMENT's count per lane, the residue's where popcount > iters)."""
-    slow, steps = residue_steps(popcounts, iters)
+    slow = int((popcounts > iters).sum())
     return (OPS_PER_ELEMENT["ilm_square_u32"] * popcounts.numel()
-            + ILM_SQUARE_RESIDUE_OPS * slow + ILM_STEP_OPS * steps)
+            + (ILM_SQUARE_RESIDUE_OPS + ILM_STEP_OPS * iters) * slow)
 
 
 def ilm_mul_ops(pa: torch.Tensor, pb: torch.Tensor, iters: int) -> int:
     """Integer operations the multiplier kernel does on these operand pairs
-    (OPS_PER_ELEMENT's count per lane, each operand's residue where its
+    (OPS_PER_ELEMENT's count per lane, each operand's residue loop where its
     popcount > iters)."""
-    total = OPS_PER_ELEMENT["ilm_mul_u32"] * pa.numel()
-    for p in (pa, pb):
-        slow, steps = residue_steps(p, iters)
-        total += ILM_MUL_RESIDUE_OPS * slow + ILM_STEP_OPS * steps
-    return total
+    slow = int((pa > iters).sum()) + int((pb > iters).sum())
+    return OPS_PER_ELEMENT["ilm_mul_u32"] * pa.numel() + ILM_STEP_OPS * iters * slow
 
 
 def main(argv=None) -> int:

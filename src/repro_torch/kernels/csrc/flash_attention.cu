@@ -24,8 +24,9 @@
 // rows padded by 4 floats so that the reads below meet no bank conflict.
 //   * QK^T: each thread owns 8 rows (rg + 8i) x 8 keys (kg + 16j) of the
 //     64 x 128 score tile and reads q and k as float4 along d: 16 shared
-//     loads per 256 fma. Key slices that the causal or sk_real mask wholly
-//     covers are not multiplied (their scores are NEG_INF either way).
+//     loads per 256 fma. Every slot of the tile is multiplied, masked or
+//     not, past block_k too: the masks set their scores (a guard around
+//     wholly masked slices was slower on the H100, tools/flash_fold_ab.py).
 //   * The block max: per thread, then across the 16 threads of a row by
 //     xor shuffles (the max is exact in any order); corr = expf(m - m_new)
 //     and p = expf(s - m_new) with libdevice expf. p goes to shared memory,
@@ -134,11 +135,10 @@ __device__ __forceinline__ float max_nan(float a, float b) {
 }
 
 // The 8 x 8 scores of one thread from +0, the dot over d in order: rows
-// rg + 8i against keys kg + 16j, q and k as float4 along d. kSome: only the
-// first nj 16-key slices (the rest are wholly masked).
-template <int HD, bool kSome>
+// rg + 8i against keys kg + 16j, q and k as float4 along d.
+template <int HD>
 __device__ __forceinline__ void qk(float (&s)[8][8], const float* q_sh, const float* k_sh, int rg,
-                                   int kg, int nj) {
+                                   int kg) {
   constexpr int kLd = HD + 4;
 #pragma unroll
   for (int i = 0; i < 8; ++i)
@@ -151,28 +151,26 @@ __device__ __forceinline__ void qk(float (&s)[8][8], const float* q_sh, const fl
     for (int i = 0; i < 8; ++i) load_sh<4>(qv[i], q_sh + (rg + 8 * i) * kLd + d);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      if (!kSome || j < nj) {
-        float kv[4];
-        load_sh<4>(kv, k_sh + (kg + 16 * j) * kLd + d);
+      float kv[4];
+      load_sh<4>(kv, k_sh + (kg + 16 * j) * kLd + d);
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          s[i][j] = __fmaf_rn(qv[i][0], kv[0], s[i][j]);
-          s[i][j] = __fmaf_rn(qv[i][1], kv[1], s[i][j]);
-          s[i][j] = __fmaf_rn(qv[i][2], kv[2], s[i][j]);
-          s[i][j] = __fmaf_rn(qv[i][3], kv[3], s[i][j]);
-        }
+      for (int i = 0; i < 8; ++i) {
+        s[i][j] = __fmaf_rn(qv[i][0], kv[0], s[i][j]);
+        s[i][j] = __fmaf_rn(qv[i][1], kv[1], s[i][j]);
+        s[i][j] = __fmaf_rn(qv[i][2], kv[2], s[i][j]);
+        s[i][j] = __fmaf_rn(qv[i][3], kv[3], s[i][j]);
       }
     }
   }
 }
 
 // s = s * scale, then (kMasked) the masks: NEG_INF for keys past a row's
-// diagonal, at or past sk_real or in a wholly masked slice (j >= nj), -inf
-// (out of the max) for slots past block_k, which are not keys of the block;
-// mx = each row's max over the block, across the row's 16 threads.
+// diagonal or at or past sk_real, -inf (out of the max) for slots past
+// block_k, which are not keys of the block; mx = each row's max over the
+// block, across the row's 16 threads.
 template <bool kMasked>
 __device__ __forceinline__ void scale_and_max(float (&s)[8][8], float (&mx)[8], float scale,
-                                              int row0, int kpos0, int kg, int nj, int block_k,
+                                              int row0, int kpos0, int kg, int block_k,
                                               int sk_real, int causal) {
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
@@ -182,7 +180,7 @@ __device__ __forceinline__ void scale_and_max(float (&s)[8][8], float (&mx)[8], 
       float x = __fmul_rn(s[i][j], scale);
       if constexpr (kMasked) {
         const int kpos = kpos0 + 16 * j;
-        if (j >= nj || (causal && kpos > row0 + 8 * i) || kpos >= sk_real) x = kNegInf;
+        if ((causal && kpos > row0 + 8 * i) || kpos >= sk_real) x = kNegInf;
         if (kg + 16 * j >= block_k) x = -INFINITY;
       }
       s[i][j] = x;
@@ -292,26 +290,17 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     stage<HD>(v_sh, HD, vh + (long long)k0 * HD, block_k, vec);
     cp_async_commit();
 
-    // The keys from k0 on that any row of the tile may see: slices of 16
-    // keys past them are wholly masked, and not multiplied.
-    int kend = min(block_k, sk_real - k0);
-    if (causal) kend = min(kend, q0 + kRows - k0);
-    const int nj = (max(kend, 0) + 15) / 16;
     float s[8][8];
-    if (nj >= 8)
-      qk<HD, false>(s, q_sh, k_sh, rg, kg, nj);
-    else
-      qk<HD, true>(s, q_sh, k_sh, rg, kg, nj);
+    qk<HD>(s, q_sh, k_sh, rg, kg);
     // Scale, the masks where the block needs them (keys past block_k are
     // not in the block: -inf, out of the max), the block max across the
     // row's 16 threads.
     float mx[8];
     if (block_k < kMaxBlockK || k0 + block_k > sk_real || (causal && k0 + block_k - 1 > q0))
-      scale_and_max<true>(s, mx, scale, q0 + rg, k0 + kg, kg, nj, block_k, sk_real, causal);
+      scale_and_max<true>(s, mx, scale, q0 + rg, k0 + kg, kg, block_k, sk_real, causal);
     else
-      scale_and_max<false>(s, mx, scale, q0 + rg, k0 + kg, kg, nj, block_k, sk_real, causal);
-    // m_new, corr (to the PV threads through row_sh) and p, in registers (a
-    // wholly masked slice's p is exp(NEG_INF - m_new), as for any masked key).
+      scale_and_max<false>(s, mx, scale, q0 + rg, k0 + kg, kg, block_k, sk_real, causal);
+    // m_new, corr (to the PV threads through row_sh) and p, in registers.
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const int row = q0 + rg + 8 * i;

@@ -25,10 +25,7 @@
 // of them. So a lane costs a population count and one multiply per operand
 // when popcount <= iters (every 16-bit operand at the main path's iters
 // 16); otherwise the residue is found by clearing the leading one `iters`
-// times: for iters <= 8 always (one trip count for the whole warp), above
-// that only where it is the shorter loop; else by keeping the lowest
-// popcount - iters set bits (clear the lowest one that many times and take
-// what was cleared).
+// times (one trip count for every such lane of a warp).
 // Bound: the 12 (multiplier) or 8 (squarer) bytes a lane moves, at 16-bit
 // operands and iters >= 4 (chip_smoke.py counts the operations; the stage
 // loop these kernels replaced ran ~15 integer instructions a stage).
@@ -44,17 +41,10 @@ namespace {
 
 constexpr int kThreads = 256;
 
-constexpr int kLeadingLoopIters = 8;   // iters up to which residue() always clears from the top
-
 // x with its top `iters` set bits cleared (0 when popcount(x) <= iters).
 __device__ __forceinline__ uint32_t residue(uint32_t x, int iters) {
-  const int keep = __popc(x) - iters;   // the low set bits that stay
-  if (keep <= 0) return 0u;
+  if (__popc(x) <= iters) return 0u;
   uint32_t v = x;
-  if (iters > kLeadingLoopIters && keep < iters) {
-    for (int s = 0; s < keep; ++s) v &= v - 1u;   // clear the lowest one
-    return x ^ v;
-  }
   for (int s = 0; s < iters; ++s) v ^= 1u << (31 - __clz(v));   // clear the leading one
   return v;
 }

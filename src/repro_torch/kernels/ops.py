@@ -177,8 +177,7 @@ class _RMSNorm(torch.autograd.Function):
     def forward(ctx, x, w, eps, newton_iters, n_segments):
         # The kernel reads an f32 or bf16 weight as it is; any other weight
         # is cast to f32 first, as the reference's kernel casts it.
-        wk = w if w.dtype in (torch.float32, torch.bfloat16) and w.is_contiguous() \
-            else w.to(torch.float32).contiguous()
+        wk = w if rmsnorm_k.takes_weight(w) else w.to(torch.float32).contiguous()
         y = rmsnorm_k.rmsnorm(_rows(x), wk, eps, newton_iters, n_segments)
         ctx.save_for_backward(x, w)
         ctx.eps = eps

@@ -28,7 +28,7 @@ from . import _build, common
 from .softmax import DTYPES, rows_on_card
 from .tsdiv import _check, _ptr, _stream, _table_c
 
-__all__ = ["LAUNCHES", "reset_launches", "rmsnorm_plain", "rmsnorm"]
+__all__ = ["LAUNCHES", "reset_launches", "rmsnorm_plain", "takes_weight", "rmsnorm"]
 
 LAUNCHES = {"rmsnorm_f32": 0}
 
@@ -49,6 +49,11 @@ def rmsnorm_plain(x: torch.Tensor, w: torch.Tensor, eps: float,
     return ((xf * r) * w.to(torch.float32)).to(x.dtype)
 
 
+def takes_weight(w: torch.Tensor) -> bool:
+    """Whether the kernel reads ``w`` as it is: a contiguous f32/bf16 tensor."""
+    return w.dtype in DTYPES and w.is_contiguous()
+
+
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6,
             newton_iters: int = 2, n_segments: int = 16) -> torch.Tensor:
     """RMSNorm over the last axis of contiguous (M, D) f32/bf16 rows."""
@@ -58,7 +63,7 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6,
                          f"{x.shape[-1]}")
     if not rows_on_card(x, w):
         return rmsnorm_plain(x, w, eps, table, newton_iters)
-    if w.dtype not in DTYPES or not w.is_contiguous():
+    if not takes_weight(w):
         raise TypeError(f"the RMSNorm kernel takes a contiguous float32/bfloat16 "
                         f"weight, got {w.dtype}")
     out = torch.empty_like(x)
