@@ -72,8 +72,8 @@ source, in parallel), then runs, each phase printing one line:
                  ILM multiplier and squarer on 2^24 lanes at iters 16 and 4.
                  Times are CUDA events over back-to-back wrapper calls
                  (``ms``, which holds the wrapper's host time where a kernel
-                 is shorter); RMSNorm, flash attention and the ILM kernels
-                 also give ``device_ms``, their kernel's own device time
+                 is shorter); softmax, RMSNorm, flash attention and the ILM
+                 kernels also give ``device_ms``, their kernel's own device time
                  from torch.profiler, and ``library_device_ms`` (flash: also
                  ``library_kernels``, the device kernels of the SDPA call).
 
@@ -539,26 +539,25 @@ def phase_times(x: torch.Tensor, err: dict, launches: dict, consumer_inputs: dic
     del x, d, xs, ds
     torch.cuda.empty_cache()
     # The consumers at the serving path's own shapes and inputs (phase 10),
-    # the weight in its own dtype as the model passes it. RMSNorm (PR 15)
-    # also gets its kernel's device time apart from the wrapper's host time,
-    # and the library call's device time (all of its kernels).
+    # the weight in its own dtype as the model passes it. Each also gets its
+    # kernel's device time apart from the wrapper's host time, and the
+    # library call's device time (all of its kernels).
     sched = dm_config("taylor_pallas").schedule
     for step in ("prefill", "decode"):
         sx = consumer_inputs[("softmax", step)]
         rx, w = consumer_inputs[("rmsnorm", step)]
-        for name, kernel, plain, library, nbytes, t in (
-                ("softmax_f32", lambda: softmax.softmax(sx, 2, 24, sched),
+        for name, kernel_name, kernel, plain, library, nbytes, t in (
+                ("softmax_f32", "softmax_kernel", lambda: softmax.softmax(sx, 2, 24, sched),
                  lambda: softmax.softmax_plain(sx, table, 2, sched),
                  lambda: torch.softmax(sx, -1), 2 * sx.numel() * sx.element_size(), sx),
-                ("rmsnorm_f32", lambda: rmsnorm.rmsnorm(rx, w, 1e-6, 2, 16),
+                ("rmsnorm_f32", "rmsnorm_kernel", lambda: rmsnorm.rmsnorm(rx, w, 1e-6, 2, 16),
                  lambda: rmsnorm.rmsnorm_plain(rx, w, 1e-6, rsqrt_seed_table(16), 2),
                  lambda: torch.nn.functional.rms_norm(rx, (rx.shape[-1],), w.to(rx.dtype), 1e-6),
                  2 * rx.numel() * rx.element_size() + w.numel() * w.element_size(), rx)):
-            extra = {}
+            extra = {"device_ms": device_ms(kernel, kernel_name),
+                     "library_device_ms": device_ms(library)}
             if name == "rmsnorm_f32":
-                extra = {"device_ms": device_ms(kernel, "rmsnorm_kernel"),
-                         "library_device_ms": device_ms(library),
-                         "w_dtype": str(w.dtype).replace("torch.", "")}
+                extra["w_dtype"] = str(w.dtype).replace("torch.", "")
             row = kernel_row(name, event_ms(kernel), event_ms(plain, 3), event_ms(library),
                              nbytes, t.numel(), launches, err, shape=list(t.shape),
                              dtype=str(t.dtype).replace("torch.", ""), step=step, **extra)

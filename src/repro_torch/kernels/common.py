@@ -204,8 +204,10 @@ def rsqrt_f32(x: torch.Tensor, table: SeedTable,
     return (y * inv_sqrt2) * _f32(torch.clamp(127 - s, 1, 254) << 23)
 
 
-# Threads per row in the consumer kernels (kThreads in csrc/rows.cuh). The
-# row sums below follow their reduction order, which is part of the result.
+# The threads of the consumer kernels' row-sum order (kThreads in
+# csrc/rows.cuh; the kernels run it on one warp per row, each lane holding
+# the partials of 8 of these threads). The row sums below follow that
+# order, which is part of the result.
 REDUCE_THREADS = 256
 
 

@@ -20,7 +20,8 @@
 // 256-element chunk c: the partials of threads 8l ... 8l + 7 of rows.cuh's
 // order, so the sum of squares is that order's additions
 // (rows::warp_tree_sum) and equals the plain version's common.row_sum bit
-// for bit. A lane's 8 elements are one 16-byte load in bf16 (two in f32).
+// for bit. A lane's 8 elements (a rows::Group, 0 past the row's end) are
+// one 16-byte load in bf16 (two in f32).
 // Rows of up to kMaxHeld chunks stay in registers between the sum and the
 // scale; longer rows are read again. Lane 0 computes the rsqrt and
 // shuffles it to the warp. w is read in its own type (f32 or bf16; the
@@ -41,111 +42,31 @@ constexpr int kChunk = rows::kThreads;       // elements per chunk of the order
 constexpr int kPer = rows::kPerLane;         // elements a lane holds per chunk (8)
 constexpr int kMaxHeld = 8;                  // chunks kept in registers: d <= 2048
 
-// A lane's kPer elements of one chunk, as stored: f32 as floats, bf16 as
-// packed pairs. load() reads the n of them inside the row (lanes past the
-// end read 0, which leaves the sum's partials unchanged) and put() and store()
-// write them; kVec is one or two 16-byte accesses (n is then >= kPer or <= 0).
 template <typename T>
-struct Group;
-
-template <>
-struct Group<float> {
-  float v[kPer];
-  template <bool kVec>
-  __device__ __forceinline__ void load(const float* p, int n) {
-    if (kVec) {
-      const float4 z = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      const float4 a = n > 0 ? reinterpret_cast<const float4*>(p)[0] : z;
-      const float4 b = n > 0 ? reinterpret_cast<const float4*>(p)[1] : z;
-      v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
-      v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
-    } else {
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) v[j] = j < n ? p[j] : 0.0f;
-    }
-  }
-  __device__ __forceinline__ float get(int j) const { return v[j]; }
-  __device__ __forceinline__ void put(const float (&f)[kPer]) {
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) v[j] = f[j];
-  }
-  template <bool kVec>
-  __device__ __forceinline__ void store(float* p, int n) const {
-    if (kVec) {
-      reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
-      reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
-    } else {
-#pragma unroll
-      for (int j = 0; j < kPer; ++j)
-        if (j < n) p[j] = v[j];
-    }
-  }
-};
-
-template <>
-struct Group<__nv_bfloat16> {
-  uint32_t u[kPer / 2];   // element 2i in the low half of u[i], 2i + 1 in the high
-  template <bool kVec>
-  __device__ __forceinline__ void load(const __nv_bfloat16* p, int n) {
-    if (kVec) {
-      const uint4 q = n > 0 ? *reinterpret_cast<const uint4*>(p) : make_uint4(0u, 0u, 0u, 0u);
-      u[0] = q.x, u[1] = q.y, u[2] = q.z, u[3] = q.w;
-    } else {
-      const unsigned short* h = reinterpret_cast<const unsigned short*>(p);
-#pragma unroll
-      for (int i = 0; i < kPer / 2; ++i)
-        u[i] = (2 * i < n ? (uint32_t)h[2 * i] : 0u) |
-               (2 * i + 1 < n ? (uint32_t)h[2 * i + 1] << 16 : 0u);
-    }
-  }
-  // bf16 -> f32 is the bits shifted up: exact, nan payloads included.
-  __device__ __forceinline__ float get(int j) const {
-    return __uint_as_float(j & 1 ? u[j / 2] & 0xFFFF0000u : u[j / 2] << 16);
-  }
-  __device__ __forceinline__ void put(const float (&f)[kPer]) {
-#pragma unroll
-    for (int i = 0; i < kPer / 2; ++i)
-      u[i] = (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(f[2 * i])) |
-             (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(f[2 * i + 1])) << 16;
-  }
-  template <bool kVec>
-  __device__ __forceinline__ void store(__nv_bfloat16* p, int n) const {
-    if (kVec) {
-      *reinterpret_cast<uint4*>(p) = make_uint4(u[0], u[1], u[2], u[3]);
-    } else {
-      unsigned short* h = reinterpret_cast<unsigned short*>(p);
-#pragma unroll
-      for (int j = 0; j < kPer; ++j)
-        if (j < n) h[j] = (unsigned short)(j & 1 ? u[j / 2] >> 16 : u[j / 2] & 0xFFFFu);
-    }
-  }
-};
-
-template <typename T>
-__device__ __forceinline__ void add_squares(float (&p)[kPer], const Group<T>& g) {
+__device__ __forceinline__ void add_squares(float (&p)[kPer], const rows::Group<T>& g) {
 #pragma unroll
   for (int j = 0; j < kPer; ++j) p[j] = __fadd_rn(p[j], __fmul_rn(g.get(j), g.get(j)));
 }
 
 // out = (x * r) * w for one lane's group at row offset e (n = d - e > 0).
 template <typename T, bool kVec>
-__device__ __forceinline__ void scale(const Group<T>& x, float r, const void* w, bool w_bf16,
+__device__ __forceinline__ void scale(const rows::Group<T>& x, float r, const void* w, bool w_bf16,
                                       T* out, int e, int n) {
   float wv[kPer];
   if (w_bf16) {
-    Group<__nv_bfloat16> g;
-    g.load<kVec>(static_cast<const __nv_bfloat16*>(w) + e, n);
+    rows::Group<__nv_bfloat16> g;
+    g.load<kVec>(static_cast<const __nv_bfloat16*>(w) + e, n, 0.0f);
 #pragma unroll
     for (int j = 0; j < kPer; ++j) wv[j] = g.get(j);
   } else {
-    Group<float> g;
-    g.load<kVec>(static_cast<const float*>(w) + e, n);
+    rows::Group<float> g;
+    g.load<kVec>(static_cast<const float*>(w) + e, n, 0.0f);
 #pragma unroll
     for (int j = 0; j < kPer; ++j) wv[j] = g.get(j);
   }
 #pragma unroll
   for (int j = 0; j < kPer; ++j) wv[j] = __fmul_rn(__fmul_rn(x.get(j), r), wv[j]);
-  Group<T> o;
+  rows::Group<T> o;
   o.put(wv);
   o.template store<kVec>(out + e, n);
 }
@@ -166,19 +87,19 @@ __global__ void __launch_bounds__(kWarps * 32)
   float p[kPer];
 #pragma unroll
   for (int j = 0; j < kPer; ++j) p[j] = 0.0f;
-  Group<T> held[kHeld > 0 ? kHeld : 1];
+  rows::Group<T> held[kHeld > 0 ? kHeld : 1];
   if (kHeld > 0) {
 #pragma unroll
     for (int c = 0; c < kHeld; ++c)
       if (c < chunks) held[c].template load<kVec>(xr + c * kChunk + kPer * lane,
-                                                  d - c * kChunk - kPer * lane);
+                                                  d - c * kChunk - kPer * lane, 0.0f);
 #pragma unroll
     for (int c = 0; c < kHeld; ++c)
       if (c < chunks) add_squares(p, held[c]);
   } else {
     for (int c = 0; c < chunks; ++c) {
-      Group<T> g;
-      g.template load<kVec>(xr + c * kChunk + kPer * lane, d - c * kChunk - kPer * lane);
+      rows::Group<T> g;
+      g.template load<kVec>(xr + c * kChunk + kPer * lane, d - c * kChunk - kPer * lane, 0.0f);
       add_squares(p, g);
     }
   }
@@ -201,8 +122,8 @@ __global__ void __launch_bounds__(kWarps * 32)
     for (int c = 0; c < chunks; ++c) {
       const int e = c * kChunk + kPer * lane;
       if (e >= d) break;
-      Group<T> g;
-      g.template load<kVec>(xr + e, d - e);
+      rows::Group<T> g;
+      g.template load<kVec>(xr + e, d - e, 0.0f);
       scale<T, kVec>(g, r, w, w_bf16, orow, e, d - e);
     }
   }

@@ -5,7 +5,10 @@ Pallas kernel ``src/repro/kernels/softmax.py`` ``softmax_2d``: row max,
 ``exp(x - max)``, the row sum, and ``1/sum`` through the division unit's
 ``recip_f32_bits``; rows whose max is not finite shift by 0, and a row whose
 sum is 0 (every logit -inf) comes out as zeros. It takes contiguous
-``(M, D)`` f32 or bf16 rows of any length and returns the same type.
+``(M, D)`` f32 or bf16 rows of any length and returns the same type. A row
+runs on one warp (on eight where rows are few, as in a decode step), and
+its sum follows ``common.row_sum``'s order, which :func:`softmax_plain`
+repeats.
 
 On a CPU tensor the wrapper runs :func:`softmax_plain`; on a CUDA tensor it
 launches the kernel or raises. ``LAUNCHES`` counts launches, as in

@@ -158,6 +158,56 @@ def test_warp_layout_sums_in_the_row_sum_order(d, dtype):
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
+def _warp_softmax(x: torch.Tensor, table, n_iters: int, schedule: str) -> torch.Tensor:
+    """The softmax kernel (csrc/softmax.cu) modelled lane by lane: lane l
+    holds elements c*256 + 8l + j of chunk c in slot j, -inf past the row's
+    end; each lane's max over its slots, then shuffles (xor 16, 8, 4, 2, 1)
+    that give every lane the warp's max, nan propagating; ex = exp(x - mfin)
+    in the layout (exp(-inf) = +0 past the end); _warp_row_sum's additions
+    of ex; one recip_f32_bits a row (lane 0's); ex * (1/s), 0 where s is 0."""
+    lanes, t = 32, common.REDUCE_THREADS
+    per = t // lanes
+    d = x.shape[-1]
+    chunks = -(-d // t)
+    g = torch.nn.functional.pad(x.to(torch.float32), (0, chunks * t - d), value=-torch.inf)
+    g = g.reshape(-1, chunks, lanes, per)
+    mx = g.amax(dim=(1, 3))
+    for off in (16, 8, 4, 2, 1):
+        mx = torch.maximum(mx, mx[:, torch.arange(lanes) ^ off])
+    assert torch.equal(mx.isnan(), mx[:, :1].isnan().expand_as(mx))
+    m = mx[:, :1, None, None]
+    ex = torch.exp(g - torch.where(torch.isfinite(m), m, 0.0))
+    s = _warp_row_sum(ex.reshape(-1, chunks * t))[..., None, None]
+    rs = common.recip_f32_bits(s, table, n_iters, schedule)
+    out = torch.where(s == 0.0, 0.0, ex * rs).reshape(-1, chunks * t)[:, :d]
+    return out.to(x.dtype)
+
+
+@pytest.mark.parametrize("schedule", SCHEDULES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [1, 100, 768, 2048, 2112, 2176, 8192])
+def test_warp_softmax_model_gives_the_plain_versions_bits(d, dtype, schedule):
+    """The warp-per-row kernel's arithmetic (_warp_softmax) gives
+    softmax_plain's bits: the corpus, the edge rows, a row holding a +inf
+    logit and an all-negative row (whose max a past-end fill of 0 would
+    replace)."""
+    rng = np.random.default_rng(d)
+    extra = rng.normal(0, 4, (2, d))
+    extra[0, d // 3] = np.inf
+    extra[1] = -np.abs(extra[1]) - 200.0
+    x = np.concatenate([*consumers.softmax_rows("float32", 4, d, seed=d).values(),
+                        consumers.softmax_edge_rows("float32", d), extra]).astype(np.float32)
+    xt = torch.from_numpy(x).to(dtype)
+    table = compute_segments(2, 24)
+    want = softmax.softmax_plain(xt, table, 2, schedule)
+    got = _warp_softmax(xt, table, 2, schedule)
+    assert got.dtype == want.dtype == dtype
+    ints = torch.int32 if dtype == torch.float32 else torch.int16
+    same = (got.view(ints) == want.view(ints)) | (got.isnan() & want.isnan())
+    assert bool(same.all()), f"{int((~same).sum())} lanes differ"
+    assert bool((want[-1].float().sum() > 0.5) & torch.isfinite(want[-1].float()).all())
+
+
 def test_corpora_equal_the_reference():
     for d in (16, 128):
         for mine, theirs in ((consumers.softmax_rows("float32", 8, d, 3),

@@ -317,6 +317,69 @@ def test_ilm_mul_kernel_over_all_of_uint32_every_iters(cuda, n):
     assert torch.equal(lanes(ilm.ilm_mul(at, bt, 32)), lanes(at) * lanes(bt) & ilm_core.U32)
 
 
+SOFTMAX_DIMS = [1, 100, 768, 1800, 2048, 2112, 2176, 3000, 8192, 8200]
+
+
+def _softmax_rows(m, d, seed):
+    """Seeded logits of scale 4; past the first row, one with a +inf logit,
+    an all-negative one, one with a nan, one all -inf (as m allows)."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(0, 4, (m, d))
+    for i, row in enumerate((np.where(np.arange(d) == d // 3, np.inf, x[0]),
+                             -np.abs(x[0]) - 200.0,
+                             np.where(np.arange(d) == d // 2, np.nan, x[0]),
+                             np.full(d, -np.inf)), start=1):
+        if i < m:
+            x[i] = row
+    return x.astype(np.float32)
+
+
+@pytest.mark.parametrize("d", SOFTMAX_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_softmax_kernel_matches_plain_version_bit_for_bit(cuda, d, dtype):
+    """The kernel against its plain version: 0 lanes for every row length
+    and row count m = 1, 7, 96, 1000, 2000, which between them take every
+    path (one warp holding up to 9 chunks; 8 warps holding 2 to 9 chunks,
+    or 10 to 32, where rows are few; one warp reading a longer row three
+    times), f32 and bf16, the three schedules, the corpus with its edge
+    rows, rows with +inf, nan, all-negative and all -inf logits, and a view
+    at an odd storage offset (the scalar path)."""
+    table = compute_segments(2, 24)
+    corpus = np.concatenate([*consumers.softmax_rows("float32", 8, d, 1).values(),
+                             consumers.softmax_edge_rows("float32", d), _softmax_rows(5, d, 3)])
+    cases = [torch.from_numpy(corpus).to(cuda, dtype)]
+    for m in (1, 7, 96, 1000, 2000):
+        x = torch.from_numpy(_softmax_rows(m, d, d + m)).to(cuda, dtype)
+        odd = torch.empty(m * d + 1, device=cuda, dtype=dtype)[1:].view(m, d)
+        odd.copy_(x)
+        cases += [x, odd]
+    for x in cases:
+        for sched in ("paper", "factored", "goldschmidt"):
+            got = softmax.softmax(x, 2, 24, sched)
+            assert got.dtype == dtype and _same_any(got, softmax.softmax_plain(x, table, 2, sched))
+
+
+def test_softmax_launches_once_and_copies_nothing(cuda):
+    """One softmax_f32 launch per call and no other work on the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.randn(96, 2112, device=cuda)
+    cfg = dm.DivisionConfig(mode="taylor_pallas")
+    dm.softmax(x, -1, cfg)
+    torch.cuda.synchronize()
+    softmax.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        dm.softmax(x, -1, cfg)
+        torch.cuda.synchronize()
+    assert softmax.LAUNCHES == {"softmax_f32": 1}
+    names = [e.key for e in prof.key_averages()]
+    assert not [k for k in names if k in ("aten::to", "aten::_to_copy", "aten::copy_")], names
+    device = [e.key for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    assert len(device) == 1 and "softmax_kernel" in device[0], device
+    assert [e.count for e in prof.key_averages() if e.key == device[0]] == [1]
+
+
 RMS_DIMS = [1, 100, 128, 300, 768, 2048, 2176, 8192]
 
 

@@ -15,16 +15,21 @@ and of ``kernels.flash_attention``
 on seeded q/k/v of (96, 2048, 64), causal, in bf16 and in f32 (CUDA events
 over ``--reps`` launches after a warm-up; f32 also as its kernel's device
 time); ``rmsnorm`` at the serving prefill shape (16384, 768) bf16 with a
-bf16 weight, and ``ilm_mul`` and ``ilm_square`` on 2^24 operands (pairs)
-below 2^16 at iters 16 and 4, each also as its kernel's device time from
-torch.profiler (``device_ms``); and for every kernel function of every library
+bf16 weight, ``softmax`` at the serving prefill and decode shapes ((196608,
+2048) and (96, 2112) f32) and at decode steps of longer contexts ((96,
+4096) and (96, 8192)), seeded logits of scale 4, the config's "paper"
+schedule, beside ``torch.softmax``, and ``ilm_mul`` and ``ilm_square`` on
+2^24 operands (pairs) below 2^16 at iters 16 and 4, each also as its
+kernel's device time from torch.profiler (``device_ms``; ``torch.softmax``
+as all of its kernels); and for every kernel function of every library
 its static SASS instruction count (``cuobjdump -sass``, NOPs left out), its
 local-memory instructions (LDL/STL: a spilled or indexed local copy), and
 the instructions from its first global load to the next global store,
 divided by the elements one such pass handles (4 after a 128-bit load).
-``per_element`` gives the ILM kernels' such counts and the RMSNorm kernel's
-instructions (the bf16 instantiation that runs at d = 768) over the
-elements one thread handles there. Needs a CUDA card and ``cuobjdump``;
+``per_element`` gives the ILM kernels' such counts, and the RMSNorm
+kernel's (the bf16 instantiation that runs at d = 768) and the softmax
+kernel's (the f32 instantiation that runs at d = 2048) static instructions
+over the elements one thread handles in such a row. Needs a CUDA card and ``cuobjdump``;
 imports nothing of JAX.
 """
 from __future__ import annotations
@@ -39,6 +44,8 @@ from pathlib import Path
 
 N_PLANE, K = 1_000_000, 1024
 RMS_SHAPE = (16384, 768)
+SOFTMAX_SHAPES = {"prefill": (196608, 2048), "decode": (96, 2112),
+                  "decode_4096": (96, 4096), "decode_8192": (96, 8192)}
 ILM_LANES = 1 << 24
 _INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")
 
@@ -77,20 +84,46 @@ def sass_counts(so: Path) -> dict:
 
 
 def per_element(sass: dict) -> dict:
-    """SASS instructions per element of the ILM kernels and of RMSNorm at
-    d = 768 bf16: the held-in-registers instantiation (24 elements a thread)
-    where the checkout has it, else the block-per-row kernel (3 elements a
-    thread)."""
+    """SASS instructions per element of the ILM kernels, of RMSNorm at
+    d = 768 bf16 and of softmax at d = 2048 f32: the held-in-registers
+    instantiation (24 and 64 elements a thread) where the checkout has it,
+    else the block-per-row kernel (3 and 8 elements a thread; its loops
+    run that many times, so its static count is not its dynamic one)."""
     sq = [v for k, v in sass["ilm"].items() if "ilm_square_kernel" in k]
     mul = [v for k, v in sass["ilm"].items() if "ilm_mul_kernel" in k]
     rms = sass["rmsnorm"]
     held = [v for k, v in rms.items() if "bfloat16" in k and "Lb1ELi3E" in k]
     block = [v for k, v in rms.items() if "rmsnorm_kernelI13__nv_bfloat16EEv" in k]
+    sm = sass["softmax"]
+    sm_held = [v for k, v in sm.items() if "softmax_kernelIfLb1ELi9ELi1E" in k]
+    sm_block = [v for k, v in sm.items() if "softmax_kernelIfEEv" in k]
+    d_sm = SOFTMAX_SHAPES["prefill"][1]
     return {"ilm_square": sq[0]["load_to_store_per_element"] if sq else None,
             "ilm_mul": mul[0]["load_to_store_per_element"] if mul else None,
             "rmsnorm_bf16_d768": (held[0]["instructions"] / (RMS_SHAPE[1] / 32) if held else
                                   block[0]["instructions"] / (RMS_SHAPE[1] / 256) if block
+                                  else None),
+            "softmax_f32_d2048": (sm_held[0]["instructions"] / (d_sm / 32) if sm_held else
+                                  sm_block[0]["instructions"] / (d_sm / 256) if sm_block
                                   else None)}
+
+
+def softmax_times(softmax, reps: int, gen) -> tuple:
+    """({name: event ms}, {name: device ms}) of the softmax kernel and of
+    torch.softmax at SOFTMAX_SHAPES."""
+    import torch
+    from chip_smoke import device_ms, event_ms
+
+    times, dev = {}, {}
+    for step, shape in SOFTMAX_SHAPES.items():
+        x = torch.randn(shape, generator=gen, device="cuda") * 4.0
+        fn = lambda: softmax.softmax(x, 2, 24, "paper")
+        times[f"softmax_{step}"] = event_ms(fn, reps)
+        dev[f"softmax_{step}"] = device_ms(fn, "softmax_kernel", reps)
+        times[f"torch.softmax_{step}"] = event_ms(lambda: torch.softmax(x, -1), reps)
+        dev[f"torch.softmax_{step}"] = device_ms(lambda: torch.softmax(x, -1), None, reps)
+        del x
+    return times, dev
 
 
 def main(argv=None) -> int:
@@ -107,7 +140,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(args.root.resolve() / "src"))
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
     from chip_smoke import device_ms, event_ms
-    from repro_torch.kernels import _build, flash_attention, ilm, rmsnorm, tsdiv
+    from repro_torch.kernels import _build, flash_attention, ilm, rmsnorm, softmax, tsdiv
 
     _build.build_all()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -139,6 +172,9 @@ def main(argv=None) -> int:
     norm = lambda: rmsnorm.rmsnorm(xr, w, 1e-6, 2, 16)
     times["rmsnorm_bf16"] = event_ms(norm, args.reps)
     dev["rmsnorm_bf16"] = device_ms(norm, "rmsnorm_kernel", args.reps)
+    sm_times, sm_dev = softmax_times(softmax, args.reps, gen)
+    times.update(sm_times)
+    dev.update(sm_dev)
     a, b = (torch.randint(1, 2**16, (ILM_LANES,), generator=gen, device="cuda").to(torch.int32)
             .view(torch.uint32) for _ in range(2))
     for it in (16, 4):
