@@ -1,5 +1,6 @@
-"""Drive the PyTorch port's division unit, dense-LM serving, attention and
-the ILM on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's division unit, its conformance grid, LM serving
+(dense, sliding-window, MoE), attention and the ILM on one NVIDIA GPU and
+check them.
 
     python3 chip_smoke.py [--seed N] [--json PATH]
 
@@ -36,6 +37,25 @@ source, in parallel), then runs, each phase printing one line:
                  the exact twin gated as tests/test_decode_equiv.py gates
                  it (teacher-forced, f32 params: the same seeded weights
                  before their bf16 rounding) and reported in bf16;
+  9a. conformance — the port's quick conformance grid (eval/conformance.py)
+                 on the card: every cell through its mode (the kernel modes
+                 through the tsdiv, softmax and RMSNorm kernels) must pass its
+                 gate; the max-ulp column per cell is printed;
+  9b. serve_swa — gemma3_12b at full width (48 layers, 5:1 sliding-window to
+                 global, W = 1024; bf16 params from --seed) in taylor_pallas:
+                 generate_batch over 4 prompts of 2048, 1536, 1024 and 512
+                 tokens, 32 new each, its launches held to 48 softmax and 97
+                 RMSNorm per forward; the exact twin on the same batch;
+                 serve() with 2 slots against generate_batch (>= 99% of
+                 tokens); a serve_calls line: every softmax and RMSNorm call
+                 of one prefill and one decode step held bit for bit to its
+                 plain version; the f32 greedy gate against the exact twin at
+                 12 layers (two periods);
+  9c. serve_moe — deepseek_moe_16b at full width (28 layers, 64 experts top-6
+                 + 2 shared) the same way: 55 softmax (router included), 57
+                 RMSNorm and 27 reciprocal launches per forward; the timed run
+                 at the config's capacity factor 1.25, the gates (serve(), the
+                 f32 twin at 4 layers) at 8.0, drop-free;
  10. serve calls — every softmax and RMSNorm call of one prefill and one
                  decode step, made again on its own inputs through the same
                  entry point, held bit for bit against the plain version;
@@ -69,7 +89,11 @@ source, in parallel), then runs, each phase printing one line:
                  tsdiv kernels on the K-Means distance plane, softmax and
                  RMSNorm at the serving prefill and decode shapes, flash
                  attention at (96, 2048, 64) causal in bf16 and in f32, the
-                 ILM multiplier and squarer on 2^24 lanes at iters 16 and 4.
+                 ILM multiplier and squarer on 2^24 lanes at iters 16 and 4,
+                 and the slice-8 shapes: softmax on deepseek's router rows
+                 (8192, 64) and gemma's sliding-window rows (131072, 2048),
+                 RMSNorm at (8192, 3840) bf16, the reciprocal of the (8192,)
+                 top-k sums.
                  Times are CUDA events over back-to-back wrapper calls
                  (``ms``, which holds the wrapper's host time where a kernel
                  is shorter); softmax, RMSNorm, flash attention and the ILM
@@ -77,7 +101,7 @@ source, in parallel), then runs, each phase printing one line:
                  from torch.profiler, and ``library_device_ms`` (flash: also
                  ``library_kernels``, the device kernels of the SDPA call).
 
-Phases 4-6, 9, 12 and 13 are the main path: launch counts are reset before
+Phases 4-6, 9, 9a-9c, 12 and 13 are the main path: launch counts are reset before
 each and read after it. Any failed check raises, and the script then exits non-zero
 without printing a result. It needs a CUDA card and the repository around
 it; it imports nothing of JAX or of the reference package.
@@ -156,6 +180,17 @@ ILM_ITERS = (1, 2, 3, 4, 6, 8, 16)
 ILM_FULL_RANGE_LANES = 1 << 22    # ILM operands over all of uint32, iters 1-32
 ILM_TIMED_ITERS = (16, 4)
 ILM_SERVE_NEW = 32
+MODEL_LENS = (2048, 1536, 1024, 512)     # gemma3_12b and deepseek_moe_16b
+MODEL_NEW, MODEL_SLOTS = 32, 2
+# Launches per forward, from the code: one softmax per attention layer (the
+# sliding and the global ones alike, query-chunked at 2048 keys), two
+# RMSNorms per block and the final one; a MoE layer adds its router softmax
+# and one reciprocal of the top-k sums.
+SWA_PER_FORWARD = {"softmax_f32": 48, "rmsnorm_f32": 2 * 48 + 1}
+MOE_PER_FORWARD = {"softmax_f32": 28 + 27, "rmsnorm_f32": 2 * 28 + 1, "tsdiv_recip": 27}
+SWA_GATE_DEPTH = {"n_layers": 12}     # two 6-layer periods (5 sliding, 1 global)
+MOE_GATE_DEPTH = {"n_layers": 4}      # the dense first layer and 3 MoE layers
+MOE_GATE_CF = 8.0                     # drop-free routing, as test_decode_equiv
 DEVICE = "cuda"     # the phases of the serving slice run here
 
 
@@ -665,18 +700,14 @@ def serve_setup(seed: int, param_dtype: str = "bfloat16"):
     """paper_fpdiv at full width, params drawn in f32 from a CUDA generator
     seeded with ``seed`` and cast to ``param_dtype`` (so the bf16 model is the
     f32 one rounded), and the 8 unequal prompts (token ids from ``seed``)."""
-    from repro_torch.configs import get_config
-    from repro_torch.models import init_params
-
-    cfg = dataclasses.replace(get_config("paper_fpdiv"), param_dtype=param_dtype)
-    params = init_params(cfg, torch.Generator(device=DEVICE).manual_seed(seed))
-    rng = np.random.default_rng(seed + 11)
-    prompts = [rng.integers(1, cfg.vocab, n).tolist() for n in SERVE_LENS]
-    return cfg, params, prompts
+    return model_setup("paper_fpdiv", seed, param_dtype, SERVE_LENS)
 
 
-def padded(prompts):
-    toks = torch.zeros((len(prompts), max(len(p) for p in prompts)), dtype=torch.int64)
+def padded(prompts, align: int = 1):
+    """Right-padded tokens (to a multiple of ``align``, the engine's window
+    alignment) and the lengths, on the card."""
+    n = -(-max(len(p) for p in prompts) // align) * align
+    toks = torch.zeros((len(prompts), n), dtype=torch.int64)
     for i, p in enumerate(prompts):
         toks[i, :len(p)] = torch.tensor(p)
     lengths = torch.tensor([len(p) for p in prompts], dtype=torch.int32, device=DEVICE)
@@ -691,7 +722,7 @@ def replay(engine, prompts, steps: int, teacher=None):
     argmax of every step (steps, B) and the logits (steps, B, V)."""
     from repro_torch.serving import pad_cache_to
 
-    toks, lengths = padded(prompts)
+    toks, lengths = padded(prompts, engine._align)
     logits, cache = engine._prefill_tok(toks, lengths)
     cache = pad_cache_to(cache, toks.shape[1], engine.max_len, engine.cfg)
     pos, picks, seen = lengths, [], []
@@ -707,12 +738,14 @@ def replay(engine, prompts, steps: int, teacher=None):
 
 
 def mode_agreement(cfg, params, prompts, steps: int, mode: str = "taylor_pallas"):
-    """Teacher-forced greedy agreement of ``mode`` with the exact twin, and
-    the logit drift max|dl| / max|l| (the gates of test_decode_equiv)."""
+    """Teacher-forced greedy agreement of ``mode`` with the exact twin (the
+    config's own division in both modes), and the logit drift max|dl| /
+    max|l| (the gates of test_decode_equiv)."""
     from repro_torch.serving import ServingEngine
 
-    engs = {m: ServingEngine(cfg, params, max_len=max(SERVE_LENS) + steps,
-                             division=dm_config(m)) for m in ("exact", mode)}
+    engs = {m: ServingEngine(cfg, params, max_len=max(len(p) for p in prompts) + steps,
+                             division=dataclasses.replace(cfg.division, mode=m))
+            for m in ("exact", mode)}
     teacher, exact_logits = replay(engs["exact"], prompts, steps)
     picks, logits = replay(engs[mode], prompts, steps, teacher)
     drift = float((logits - exact_logits).abs().max() / exact_logits.abs().max())
@@ -808,44 +841,12 @@ def phase_serve_calls(seed: int, err: dict) -> dict:
     """Every softmax and RMSNorm call of one prefill and one decode step, on
     its own inputs through the same entry point, against the plain version.
     Returns the first call's inputs of each kind and step, for the times."""
-    from repro_torch.core.seeds import compute_segments, rsqrt_seed_table
-    from repro_torch.kernels import rmsnorm, softmax
-    from repro_torch.serving import ServingEngine, pad_cache_to
+    from repro_torch.serving import ServingEngine
 
     cfg, params, prompts = serve_setup(seed)
     eng = ServingEngine(cfg, params, max_len=max(SERVE_LENS) + SERVE_NEW,
                         division=dm_config("taylor_pallas"))
-    rows, first, step = [], {}, ["prefill"]
-    real_sm, real_rms = softmax.softmax, rmsnorm.rmsnorm
-
-    def sm_spy(x, n_iters=2, precision_bits=24, schedule="factored"):
-        got = real_sm(x, n_iters, precision_bits, schedule)
-        want = softmax.softmax_plain(x, compute_segments(n_iters, precision_bits), n_iters, schedule)
-        n_bad, e = mismatch(got, want)
-        rows.append(("softmax_f32", step[0], list(x.shape), n_bad))
-        err["softmax_f32"] = max(err["softmax_f32"], e)
-        first.setdefault(("softmax", step[0]), x.clone())
-        return got
-
-    def rms_spy(x, w, eps=1e-6, newton_iters=2, n_segments=16):
-        got = real_rms(x, w, eps, newton_iters, n_segments)
-        want = rmsnorm.rmsnorm_plain(x, w, eps, rsqrt_seed_table(n_segments), newton_iters)
-        n_bad, e = mismatch(got, want)
-        rows.append(("rmsnorm_f32", step[0], list(x.shape), n_bad))
-        err["rmsnorm_f32"] = max(err["rmsnorm_f32"], e)
-        first.setdefault(("rmsnorm", step[0]), (x.clone(), w.clone()))
-        return got
-
-    softmax.softmax, rmsnorm.rmsnorm = sm_spy, rms_spy
-    try:
-        toks, lengths = padded(prompts)
-        logits, cache = eng._prefill_tok(toks, lengths)
-        cache = pad_cache_to(cache, toks.shape[1], eng.max_len, cfg)
-        step[0] = "decode"
-        eng._decode(cache, torch.argmax(logits, -1)[:, None].to(torch.int32), lengths)
-        sync()
-    finally:
-        softmax.softmax, rmsnorm.rmsnorm = real_sm, real_rms
+    rows, first = held_calls(eng, *padded(prompts), err)
     n_calls = {k: sum(1 for r in rows if r[:2] == k) for k in
                (("softmax_f32", "prefill"), ("rmsnorm_f32", "prefill"),
                 ("softmax_f32", "decode"), ("rmsnorm_f32", "decode"))}
@@ -855,7 +856,289 @@ def phase_serve_calls(seed: int, err: dict) -> dict:
     check(list(n_calls.values()) == [12, 25, 12, 25], f"serving call sites: {n_calls}")
     check(all(r[3] == 0 for r in rows), f"a serving call differs from the plain version: "
           f"{[r for r in rows if r[3]]}")
+    out = {}
+    for (kind, step, _), v in first.items():
+        out.setdefault((kind, step), v)
+    return out
+
+
+# ------------------------------------------- slice 8: conformance, SWA, MoE
+
+def phase_conformance(launches: dict):
+    """The port's quick conformance grid on the card (eval/conformance.py):
+    every cell must pass its gate, through the tsdiv, softmax and RMSNorm
+    kernels in the kernel modes."""
+    from repro_torch.eval import conformance
+    from repro_torch.kernels import rmsnorm, softmax, tsdiv
+
+    for m in (tsdiv, softmax, rmsnorm):
+        m.reset_launches()
+    t0 = time.perf_counter()
+    report = conformance.run_conformance(quick=True, seed=0, device=DEVICE)
+    sync()
+    wall = time.perf_counter() - t0
+    counts = {**tsdiv.LAUNCHES, **softmax.LAUNCHES, **rmsnorm.LAUNCHES}
+    for k, v in counts.items():
+        launches[k] += v
+    failing = [c["key"] for c in report["cells"] if not c["pass"]]
+    say("conformance", cells=len(report["cells"]), seconds=wall, sweep=report["meta"]["sweep"],
+        max_ulp={c["key"]: c["overall"]["max_ulp"] for c in report["cells"]},
+        vs_exact_max_ulp={c["key"]: c["vs_exact_max_ulp"] for c in report["cells"]
+                          if "vs_exact_max_ulp" in c},
+        launches=counts, failing=failing)
+    check(not failing, f"conformance cells fail their gates: {failing}")
+    check(all(counts.values()), f"the conformance grid left a kernel unlaunched: {counts}")
+
+
+def model_setup(arch: str, seed: int, param_dtype: str = "bfloat16", lens=None, **repl):
+    """``arch`` at full width (``repl`` may cut its depth), params drawn leaf
+    by leaf in f32 from a CUDA generator seeded with ``seed`` and cast to
+    ``param_dtype``, and prompts of ``lens`` tokens (MODEL_LENS by default;
+    token ids from ``seed``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    cfg = dataclasses.replace(get_config(arch), param_dtype=param_dtype, **repl)
+    params = init_params(cfg, torch.Generator(device=DEVICE).manual_seed(seed))
+    rng = np.random.default_rng(seed + 11)
+    prompts = [rng.integers(1, cfg.vocab, n).tolist() for n in lens or MODEL_LENS]
+    return cfg, params, prompts
+
+
+def held_calls(eng, toks, lengths, err: dict, recip: bool = False):
+    """One prefill of ``toks`` and one decode step through ``eng`` with every
+    softmax, RMSNorm (and, with ``recip``, reciprocal) kernel call held bit
+    for bit against its plain version on its own inputs. Returns the rows
+    (kernel, step, shape, lanes differing) and the first input of each
+    (kind, step, row length)."""
+    from repro_torch.core.seeds import compute_segments, rsqrt_seed_table
+    from repro_torch.kernels import common, rmsnorm, softmax, tsdiv
+    from repro_torch.serving import pad_cache_to
+
+    rows, first, step = [], {}, ["prefill"]
+    real = (softmax.softmax, rmsnorm.rmsnorm, tsdiv.recip)
+
+    def sm_spy(x, n_iters=2, precision_bits=24, schedule="factored"):
+        got = real[0](x, n_iters, precision_bits, schedule)
+        n_bad, e = mismatch(got, softmax.softmax_plain(
+            x, compute_segments(n_iters, precision_bits), n_iters, schedule))
+        rows.append(("softmax_f32", step[0], list(x.shape), n_bad))
+        err["softmax_f32"] = max(err["softmax_f32"], e)
+        first.setdefault(("softmax", step[0], x.shape[-1]), x.clone())
+        return got
+
+    def rms_spy(x, w, eps=1e-6, newton_iters=2, n_segments=16):
+        got = real[1](x, w, eps, newton_iters, n_segments)
+        n_bad, e = mismatch(got, rmsnorm.rmsnorm_plain(x, w, eps, rsqrt_seed_table(n_segments),
+                                                       newton_iters))
+        rows.append(("rmsnorm_f32", step[0], list(x.shape), n_bad))
+        err["rmsnorm_f32"] = max(err["rmsnorm_f32"], e)
+        first.setdefault(("rmsnorm", step[0], x.shape[-1]), (x.clone(), w.clone()))
+        return got
+
+    def recip_spy(x, n_iters=2, precision_bits=24, schedule="factored"):
+        got = real[2](x, n_iters, precision_bits, schedule)
+        n_bad, e = mismatch(got, common.recip_f32_bits(
+            x, compute_segments(n_iters, precision_bits), n_iters, schedule))
+        rows.append(("tsdiv_recip", step[0], list(x.shape), n_bad))
+        err["tsdiv_recip"] = max(err["tsdiv_recip"], e)
+        first.setdefault(("recip", step[0], 1), x.clone())
+        return got
+
+    softmax.softmax, rmsnorm.rmsnorm = sm_spy, rms_spy
+    if recip:
+        tsdiv.recip = recip_spy
+    try:
+        logits, cache = eng._prefill_tok(toks, lengths)
+        cache = pad_cache_to(cache, toks.shape[1], eng.max_len, eng.cfg)
+        step[0] = "decode"
+        eng._decode(cache, torch.argmax(logits, -1)[:, None].to(torch.int32), lengths)
+        sync()
+    finally:
+        softmax.softmax, rmsnorm.rmsnorm, tsdiv.recip = real
+    return rows, first
+
+
+def serve_agreement(eng, prompts, gb=None):
+    """serve() with MODEL_SLOTS slots over ``prompts`` against
+    generate_batch's tokens ``gb`` (run here when None): (requests, seconds,
+    tokens differing)."""
+    from repro_torch.serving import Request
+
+    gb = eng.generate_batch(prompts, MODEL_NEW) if gb is None else gb
+    reqs = [Request(list(p), max_new=MODEL_NEW) for p in prompts]
+    t0 = time.perf_counter()
+    eng.serve(reqs, slots=MODEL_SLOTS)
+    sync()
+    wall = time.perf_counter() - t0
+    check(all(r.done and len(r.out) == MODEL_NEW for r in reqs), "serve() left a request")
+    return reqs, wall, sum(a != b for r, g in zip(reqs, gb) for a, b in zip(r.out, g))
+
+
+def phase_serve_model(arch: str, seed: int, launches: dict, err: dict, per_forward: dict,
+                      gate_depth: dict, gate_cf=None):
+    """``arch`` at full width in taylor_pallas (bf16 params from ``seed``):
+    generate_batch over the MODEL_LENS prompts, MODEL_NEW new tokens each,
+    timed, its launches per forward held to ``per_forward``; the exact twin
+    on the same batch; serve() with MODEL_SLOTS slots against
+    generate_batch; every softmax, RMSNorm and reciprocal call of one
+    prefill and one decode step held to its plain version; then the f32
+    greedy gate against the exact twin at the depth ``gate_depth``.
+
+    With ``gate_cf`` (MoE) the gates run at that capacity factor, the timed
+    run at the config's own, and serve() is gated against generate_batch in
+    f32 at ``gate_depth``; in bf16 at full width it is reported: there the
+    router's top-k turns the batch shape's GEMM rounding into other experts
+    (PERF.md §6). Returns the first inputs of the calls, for the times."""
+    from repro_torch.kernels import rmsnorm, softmax, tsdiv
+    from repro_torch.serving import ServingEngine
+
+    mods = (softmax, rmsnorm, tsdiv)
+    cfg, params, prompts = model_setup(arch, seed)
+    max_len = max(MODEL_LENS) + MODEL_NEW
+    div = {m: dataclasses.replace(cfg.division, mode=m) for m in ("taylor_pallas", "exact")}
+    engines = {m: ServingEngine(cfg, params, max_len=max_len, division=d) for m, d in div.items()}
+    toks, lengths = padded(prompts, engines["exact"]._align)
+    out, runs = {}, {}
+    for mode, eng in engines.items():
+        eng.generate_batch([prompts[-1][:16]], max_new=2)        # warm-up
+        sync()
+        t0 = time.perf_counter()
+        eng._prefill_tok(toks, lengths)
+        sync()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.reset_peak_memory_stats()
+        for m in mods:
+            m.reset_launches()
+        t0 = time.perf_counter()
+        runs[mode] = eng.generate_batch(prompts, max_new=MODEL_NEW)
+        sync()
+        wall = time.perf_counter() - t0
+        counts = {k: v for m in mods for k, v in m.LAUNCHES.items() if v}
+        forwards = 1 + MODEL_NEW
+        out[mode] = {"generate_batch_s": wall, "prefill_ms": prefill_ms,
+                     "decode_ms_per_step": (wall * 1e3 - prefill_ms) / MODEL_NEW,
+                     "tokens_per_s": len(prompts) * MODEL_NEW / wall,
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "launches": counts}
+        if mode == "taylor_pallas":
+            for k, v in counts.items():
+                launches[k] += v
+            want = {k: v * forwards for k, v in per_forward.items()}
+            check(counts == want, f"{arch} generate_batch launches {counts}, expected {want}")
+        else:
+            check(not counts, f"{arch}: exact mode launched a kernel: {counts}")
+    teacher = np.array(runs["exact"]).T                        # (steps, B)
+    bf16_forced, _ = replay(engines["taylor_pallas"], prompts, MODEL_NEW, teacher)
+    out["agreement_vs_exact"] = {
+        "bf16_free_running": float((np.array(runs["taylor_pallas"]).T == teacher).mean()),
+        "bf16_teacher_forced": float((bf16_forced == teacher).mean())}
+    del engines
+    # serve() against generate_batch, at the gates' capacity factor.
+    gcfg = cfg if gate_cf is None else dataclasses.replace(cfg, capacity_factor=gate_cf)
+    eng = ServingEngine(gcfg, params, max_len=max_len, division=div["taylor_pallas"])
+    gb = runs["taylor_pallas"] if gate_cf is None else eng.generate_batch(prompts, MODEL_NEW)
+    for m in mods:
+        m.reset_launches()
+    _, wall, diff = serve_agreement(eng, prompts, gb)
+    counts = {k: v for m in mods for k, v in m.LAUNCHES.items() if v}
+    for k, v in counts.items():
+        launches[k] += v
+    fwd = counts.get("rmsnorm_f32", 0) // per_forward["rmsnorm_f32"]
+    check(fwd > 0 and counts == {k: v * fwd for k, v in per_forward.items()},
+          f"{arch} serve() launches {counts}: not {per_forward} per forward")
+    n_serve = len(prompts) * MODEL_NEW
+    out["serve"] = {"slots": MODEL_SLOTS, "capacity_factor": gcfg.capacity_factor,
+                    "seconds": wall, "tokens_per_s": n_serve / wall, "forwards": fwd,
+                    "launches": counts, "tokens_differing_from_generate_batch": diff,
+                    "agreement": 1 - diff / n_serve}
+
+    # Every kernel call of one prefill and one decode step, on its own inputs.
+    rows, first = held_calls(eng, toks, lengths, err, recip="tsdiv_recip" in per_forward)
+    n_calls = {f"{k}/{st}": sum(1 for r in rows if r[:2] == (k, st))
+               for st in ("prefill", "decode") for k in per_forward}
+    say("serve_calls", arch=cfg.name, calls=n_calls,
+        shapes=sorted({(r[0], r[1], str(r[2])) for r in rows}),
+        mismatched_lanes=sum(r[3] for r in rows))
+    check(n_calls == {f"{k}/{st}": v for st in ("prefill", "decode") for k, v in per_forward.items()},
+          f"{arch} call sites per step: {n_calls}, expected {per_forward}")
+    check(all(r[3] == 0 for r in rows), f"{arch}: a serving call differs from the plain version: "
+          f"{[r for r in rows if r[3]]}")
+    del eng, params
+    torch.cuda.empty_cache()
+
+    # The reference's serving gate, f32 at a cut depth (the full-width f32
+    # copy would not fit beside its activations).
+    repl = dict(gate_depth) if gate_cf is None else {**gate_depth, "capacity_factor": gate_cf}
+    fcfg, fparams, _ = model_setup(arch, seed, "float32", **repl)
+    f32_agree, f32_drift, _ = mode_agreement(fcfg, fparams, prompts, MODEL_NEW)
+    out["agreement_vs_exact"].update(f32_teacher_forced=f32_agree, f32_logit_drift=f32_drift,
+                                     f32_depth=fcfg.n_layers)
+    serve_gate = out["serve"]["agreement"]
+    if gate_cf is not None:
+        feng = ServingEngine(fcfg, fparams, max_len=max_len, division=div["taylor_pallas"])
+        _, _, fdiff = serve_agreement(feng, prompts)
+        serve_gate = out["serve"]["f32_agreement"] = 1 - fdiff / n_serve
+        out["serve"]["f32_depth"] = fcfg.n_layers
+        del feng
+    del fparams
+    torch.cuda.empty_cache()
+    say(f"serve_{cfg.family if cfg.n_experts else 'swa'}", arch=cfg.name, layers=cfg.n_layers,
+        params_dtype=cfg.param_dtype, prompt_lens=list(MODEL_LENS), max_new=MODEL_NEW,
+        capacity_factor=cfg.capacity_factor if cfg.n_experts else None, gate_capacity_factor=gate_cf,
+        launches_per_forward=per_forward, division=dataclasses.asdict(div["taylor_pallas"]),
+        runs=out)
+    for mode, toks_out in runs.items():
+        check(all(len(o) == MODEL_NEW for o in toks_out), f"{arch} {mode}: short output")
+    check(f32_agree >= 0.99, f"{arch}: greedy agreement with the exact twin {f32_agree} < 0.99")
+    check(f32_drift < 5e-3, f"{arch}: logit drift from the exact twin {f32_drift} >= 5e-3")
+    check(serve_gate >= 0.99, f"{arch}: serve() agrees with generate_batch on {serve_gate} < 0.99")
     return first
+
+
+def phase_times_models(err: dict, launches: dict, firsts: dict):
+    """The new main-path shapes of the SWA and MoE models, each kernel beside
+    its plain version, the torch call and the bound: softmax on the router's
+    (T, 64) rows and on gemma's prefill (b*nb*h*w, 2w) rows, RMSNorm at
+    d = 3840 in bf16, and the reciprocal of the (T, 1) top-k sums."""
+    from repro_torch.core.seeds import compute_segments, rsqrt_seed_table
+    from repro_torch.kernels import common, rmsnorm, softmax, tsdiv
+
+    table = compute_segments(2, 24)
+    rows = []
+    cases = [("softmax_f32", "softmax_kernel", firsts["moe"][("softmax", "prefill", 64)], "router"),
+             ("softmax_f32", "softmax_kernel", firsts["swa"][("softmax", "prefill", 2048)],
+              "swa_prefill"),
+             ("rmsnorm_f32", "rmsnorm_kernel", firsts["swa"][("rmsnorm", "prefill", 3840)],
+              "swa_prefill"),
+             ("tsdiv_recip", "elementwise_kernel", firsts["moe"][("recip", "prefill", 1)], "topk_sums")]
+    for name, kernel_name, inp, site in cases:
+        if name == "softmax_f32":
+            x = inp
+            kernel = lambda: softmax.softmax(x, 2, 24, "factored")
+            plain = lambda: softmax.softmax_plain(x, table, 2, "factored")
+            library = lambda: torch.softmax(x, -1)
+            nbytes, t, extra = 2 * x.numel() * x.element_size(), x, {}
+        elif name == "rmsnorm_f32":
+            x, w = inp
+            kernel = lambda: rmsnorm.rmsnorm(x, w, 1e-6, 2, 16)
+            plain = lambda: rmsnorm.rmsnorm_plain(x, w, 1e-6, rsqrt_seed_table(16), 2)
+            library = lambda: torch.nn.functional.rms_norm(x, (x.shape[-1],), w.to(x.dtype), 1e-6)
+            nbytes = 2 * x.numel() * x.element_size() + w.numel() * w.element_size()
+            t, extra = x, {"w_dtype": str(w.dtype).replace("torch.", "")}
+        else:
+            x = inp
+            kernel = lambda: tsdiv.recip(x, 2, 24, "factored")
+            plain = lambda: common.recip_f32_bits(x, table, 2, "factored")
+            library = lambda: torch.reciprocal(x)
+            nbytes, t, extra = 2 * x.numel() * x.element_size(), x, {}
+        row = kernel_row(name, event_ms(kernel), event_ms(plain, 3), event_ms(library), nbytes,
+                         t.numel(), launches, err, shape=list(t.shape),
+                         dtype=str(t.dtype).replace("torch.", ""), step="prefill", site=site,
+                         device_ms=device_ms(kernel, kernel_name),
+                         library_device_ms=device_ms(library), **extra)
+        say("times", **row)
+        rows.append(row)
+    return rows
 
 
 def u32_mismatch(got: torch.Tensor, want: torch.Tensor):
@@ -1294,6 +1577,11 @@ def main(argv=None) -> int:
     plane = phase_calls(args.seed, err)
     phase_consumers(args.seed, err)
     phase_serve(args.seed, launches)
+    phase_conformance(launches)
+    firsts = {"swa": phase_serve_model("gemma3_12b", args.seed, launches, err, SWA_PER_FORWARD,
+                                       SWA_GATE_DEPTH),
+              "moe": phase_serve_model("deepseek_moe_16b", args.seed, launches, err,
+                                       MOE_PER_FORWARD, MOE_GATE_DEPTH, MOE_GATE_CF)}
     flash_in = phase_flash_serve(args.seed, err, launches)
     ilm_in = phase_ilm(args.seed, err, launches)
     check(all(launches.values()), f"a kernel was not launched on the main path: {launches}")
@@ -1302,6 +1590,7 @@ def main(argv=None) -> int:
     phase_ilm_serve(args.seed)
     rows = phase_times(plane, err, launches, consumer_inputs)
     rows += phase_times_attention_ilm(err, launches, flash_in, ilm_in)
+    rows += phase_times_models(err, launches, firsts)
     result = {"kernels": rows}
     if args.json:
         args.json.parent.mkdir(parents=True, exist_ok=True)

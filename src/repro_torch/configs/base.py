@@ -4,11 +4,12 @@ The PyTorch counterpart of ``src/repro/configs/base.py``. ``ModelConfig``
 keeps the reference's fields that the ported models and the layer pattern
 read, with the same defaults and derived pattern (``layer_specs``,
 ``groups``, ``q_per_kv``), so a config means the same model in both
-packages. The MoE, SSM and encoder fields, the sharding rules, shape cells
-and dry-run knobs arrive with the slices that read them.
+packages. The SSM and encoder fields, the sharding rules, shape cells and
+dry-run knobs arrive with the slices that read them; so do the training
+knobs ``remat`` and ``train_microbatch_size`` (ROADMAP Queue 1 item 12).
 
 The registry resolves the architectures whose modules are ported; any other
-architecture raises, naming the ROADMAP item that ports it.
+architecture raises, naming what it still needs and the ROADMAP item.
 """
 from __future__ import annotations
 
@@ -65,7 +66,15 @@ class ModelConfig:
     sliding_window: int = 0
     global_every: int = 0
     rope_theta: float = 10_000.0
+    # --- moe ---
+    n_experts: int = 0
+    experts_per_tok: int = 0
+    n_shared_experts: int = 0
+    d_ff_expert: int = 0
     d_ff_dense: int = 0            # dense-FFN width when it differs
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+    moe_dispatch: str = "cumsum"   # cumsum | sort | local (one shard here)
     # --- enc-dec ---
     is_encoder_decoder: bool = False
     # --- io ---
@@ -126,8 +135,14 @@ ARCH_IDS = [
     "llava_next_mistral_7b", "whisper_tiny", "jamba_1_5_large",
     "moonshot_v1_16b_a3b", "deepseek_moe_16b", "paper_fpdiv",
 ]
-# Dense full-attention models: every module they run is ported.
-PORTED_ARCHS = ("paper_fpdiv", "tinyllama_1_1b")
+# Dense, sliding-window and MoE decoders: every module they run is ported.
+PORTED_ARCHS = ("paper_fpdiv", "tinyllama_1_1b", "llama3_8b", "granite_8b",
+                "gemma3_12b", "deepseek_moe_16b", "moonshot_v1_16b_a3b")
+# What each architecture left still needs.
+_MISSING = {"mamba2_780m": "the SSM mixer (models/mamba2.py)",
+            "jamba_1_5_large": "the SSM mixer (models/mamba2.py)",
+            "whisper_tiny": "the encoder-decoder stack and cross attention",
+            "llava_next_mistral_7b": "embedding inputs (the VLM hand-off)"}
 
 
 def canon(arch: str) -> str:
@@ -140,9 +155,8 @@ def _module(arch: str):
         raise ValueError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
     if name not in PORTED_ARCHS:
         raise NotImplementedError(
-            f"arch {name!r} is not ported yet: its sliding-window, MoE, SSM, "
-            f"encoder-decoder or embedding-input modules are ROADMAP Queue 1 "
-            f"item 10 (ported: {', '.join(PORTED_ARCHS)})")
+            f"arch {name!r} is not ported yet: it needs {_MISSING[name]}, "
+            f"ROADMAP Queue 1 item 10 (ported: {', '.join(PORTED_ARCHS)})")
     return importlib.import_module(f"repro_torch.configs.{name}")
 
 

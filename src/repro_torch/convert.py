@@ -7,7 +7,9 @@ reference's) and its numpy inputs. A model's parameters and caches are
 carried across as numpy trees (``jax.tree_util.tree_map(np.asarray, ...)``
 of the reference's), bits unchanged, bf16 included: the reference stacks a
 group's ``repeat`` copies of each leaf on a leading axis, and the port keeps
-them as separate layers (index ``r * period + i``).
+them as separate layers (index ``r * period + i``). Every leaf maps by its
+path, so MoE leaves (the f32 router, the ``(E, d, f)`` expert weights, the
+shared experts) and the sliding-window layers' K/V rings move the same way.
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ import torch
 
 from repro_torch.core.division_modes import DivisionConfig
 
-__all__ = ["config_from_reference", "tensors_from_numpy",
+__all__ = ["config_from_reference", "tensor_from_numpy", "tensors_from_numpy",
            "params_from_reference", "cache_from_reference"]
 
 
@@ -33,7 +35,9 @@ def tensors_from_numpy(arrays: Dict[str, np.ndarray], device) -> Dict[str, torch
             for k, v in arrays.items()}
 
 
-def _tensor(a, device) -> torch.Tensor:
+def tensor_from_numpy(a, device) -> torch.Tensor:
+    """One array (ml_dtypes' bf16 included) as a tensor on ``device``, bits
+    unchanged."""
     a = np.array(a)                     # a writable, contiguous copy
     if a.dtype.name == "bfloat16":      # ml_dtypes' bf16: carry the bits
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
@@ -56,14 +60,14 @@ def _unstack_groups(groups, cfg, device):
             for i in range(len(g.period)):
                 pick = (lambda a, r=r: a[r]) if g.repeat > 1 else (lambda a: a)
                 layers.append(_tree(gtree["layers"][i],
-                                    lambda a, pick=pick: _tensor(pick(a), device)))
+                                    lambda a, pick=pick: tensor_from_numpy(pick(a), device)))
         out.append({"layers": layers})
     return out
 
 
 def params_from_reference(tree, cfg, device) -> Dict:
     """The port's parameters from the reference's as a numpy tree."""
-    out = {k: _tree(v, lambda a: _tensor(a, device))
+    out = {k: _tree(v, lambda a: tensor_from_numpy(a, device))
            for k, v in tree.items() if k != "groups"}
     out["groups"] = _unstack_groups(tree["groups"], cfg, device)
     return out

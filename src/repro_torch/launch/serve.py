@@ -2,6 +2,13 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch paper_fpdiv \\
       --smoke --device cpu --division-mode taylor_pallas
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3_12b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek_moe_16b \\
+      --smoke --device cpu
+
+``--arch`` takes every architecture the port serves (``configs.PORTED_ARCHS``:
+the dense ones, gemma3_12b's sliding window, the MoE models), at full width
+on the card or as its smoke config (``--smoke``).
 
 ``--batch 1`` runs the single-request path; ``--batch N`` runs the batched
 path over N unequal-length prompts (the padded-prompt masking).
@@ -19,7 +26,8 @@ import time
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="paper_fpdiv")
+    ap.add_argument("--arch", default="paper_fpdiv",
+                    help="one of configs.PORTED_ARCHS")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--max-new", type=int, default=16)
@@ -45,7 +53,7 @@ def main(argv=None):
 
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.models import init_params
-    from repro_torch.serving import ServingEngine
+    from repro_torch.serving import ServingEngine, alignment
 
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
     division = None
@@ -60,8 +68,10 @@ def main(argv=None):
         division = dataclasses.replace(cfg.division, **repl)
     device = torch.device(args.device)
     params = init_params(cfg, torch.Generator(device=device).manual_seed(args.seed))
+    align = alignment(cfg)
+    padded_len = -(-args.prompt_len // align) * align
     engine = ServingEngine(cfg, params, division=division,
-                           max_len=args.prompt_len + args.max_new + 64)
+                           max_len=max(padded_len, args.prompt_len + args.max_new) + 64)
     print(f"[serve] arch={cfg.name} device={device} "
           f"division={engine.cfg.division.mode} "
           f"n_iters={engine.cfg.division.n_iters} "

@@ -1,11 +1,14 @@
-"""Full causal attention (GQA) for training/prefill and one-token decode.
+"""Attention (GQA): full causal and sliding-window for training/prefill,
+and one-token decode against a full cache or a W-sized ring.
 
-The PyTorch counterpart of the full-attention parts of
+The PyTorch counterpart of the self-attention parts of
 ``src/repro/models/attention.py``, with its layouts: ``wq`` is ``(d, H,
 hd)``, ``wo`` is ``(H, hd, d)``, activations ``(b, s, h, hd)``. Softmax
 denominators go through the division unit (``division_modes.softmax`` on
-the materialised f32 scores). The reference's sharding annotations are
-dropped (one card). Sliding-window attention waits for its model slice.
+the materialised f32 scores). Sliding-window attention is block-local, as
+in the reference: each W-sized query block sees the previous and its own
+key block, O(S*W). The reference's sharding annotations are dropped (one
+card). Cross attention waits for the encoder-decoder slice.
 
 The decode KV cache is updated in place (``index_put_``), where the JAX
 reference builds a new cache array: the cache passed to
@@ -23,8 +26,8 @@ from repro_torch.core import division_modes as dm
 from repro_torch.kernels.flash_attention import NEG_INF
 from .layers import rope
 
-__all__ = ["NEG_INF", "rope_apply", "full_attention", "init_cache_attn",
-           "decode_positions", "decode_attention"]
+__all__ = ["NEG_INF", "rope_apply", "full_attention", "sliding_attention",
+           "init_cache_attn", "decode_positions", "decode_attention"]
 
 
 def _proj(x, w):
@@ -86,9 +89,61 @@ def full_attention(p, x, positions, cfg: ModelConfig, *, return_kv: bool = False
     return (out, (k, v)) if return_kv else out
 
 
-def init_cache_attn(cfg: ModelConfig, batch: int, max_len: int,
+def _sliding_mask(nb: int, w: int, device) -> torch.Tensor:
+    """(nb, w, 2w): query i of a block sees keys i-w+1 .. i of the previous
+    and its own block; block 0 has no previous block (the phantom block)."""
+    qpos = torch.arange(w, device=device)
+    kpos = torch.arange(2 * w, device=device) - w
+    base = (qpos[:, None] >= kpos[None, :]) & (qpos[:, None] - kpos[None, :] < w)
+    first = kpos[None, :] >= 0
+    bidx = torch.arange(nb, device=device)
+    return base[None] & (first | (bidx[:, None, None] > 0))
+
+
+def sliding_attention(p, x, positions, cfg: ModelConfig, *,
+                      return_kv: bool = False):
+    """Block-local sliding-window attention: O(S*W) compute and memory.
+
+    A sequence no longer than the window is plain causal attention;
+    otherwise its length must be a multiple of the window (the serving
+    engine pads prompts to it). ``return_kv`` as in :func:`full_attention`.
+    """
+    b, s, _ = x.shape
+    w = cfg.sliding_window
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    q = rope_apply(_proj(x, p["wq"]), positions, cfg)
+    k = rope_apply(_proj(x, p["wk"]), positions, cfg)
+    v = _proj(x, p["wv"])
+    kr, vr = _repeat_kv(k, cfg.q_per_kv), _repeat_kv(v, cfg.q_per_kv)
+    if s <= w:
+        mask = positions[:, None, :, None] >= positions[:, None, None, :]
+        out = _sdpa(q, kr, vr, mask, cfg.division, scale)
+    else:
+        if s % w:
+            raise ValueError(f"seq {s} must be a multiple of window {w}")
+        nb = s // w
+        h, hd = q.shape[2], q.shape[3]
+        qb = q.reshape(b, nb, w, h, hd)
+        # Each key/value block after the one before it (zeros before block 0):
+        # (b, nb, 2w, h, hd).
+        k2, v2 = (torch.cat([torch.cat([torch.zeros_like(t[:, :1]), t[:, :-1]], 1), t], 2)
+                  for t in (kr.reshape(b, nb, w, h, hd), vr.reshape(b, nb, w, h, hd)))
+        scores = torch.einsum("bnqhk,bnthk->bnhqt", qb.to(torch.float32),
+                              k2.to(torch.float32)) * scale
+        mask = _sliding_mask(nb, w, x.device)
+        scores = torch.where(mask[None, :, None], scores, NEG_INF)
+        probs = dm.softmax(scores, axis=-1, cfg=cfg.division)
+        out = torch.einsum("bnhqt,bnthk->bnqhk", probs.to(v2.dtype), v2)
+        out = out.reshape(b, s, h, hd)
+    out = _out_proj(out, p["wo"])
+    return (out, (k, v)) if return_kv else out
+
+
+def init_cache_attn(cfg: ModelConfig, batch: int, max_len: int, window: int = 0,
                     dtype=torch.bfloat16, device=None) -> Dict[str, torch.Tensor]:
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    """Zero K/V: ``max_len`` slots, or a ``window``-slot ring when > 0."""
+    shape = (batch, window if window > 0 else max_len, cfg.n_kv_heads,
+             cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -102,13 +157,16 @@ def decode_positions(pos, batch: int, device=None) -> torch.Tensor:
     return pos_v
 
 
-def decode_attention(p, x, cache, pos, cfg: ModelConfig):
+def decode_attention(p, x, cache, pos, cfg: ModelConfig, *, window: int = 0):
     """One-token decode. x: (b, 1, d); cache k/v: (b, L, kv, hd); pos: a
     scalar or a per-request (b,) vector of absolute positions.
 
-    Request i writes its k/v at slot pos_i (in place) and attends to slots
-    0..pos_i, so pad slots of a padded batch above pos_i are never seen.
-    Returns (out, cache).
+    Full-attention layers (``window`` 0): request i writes its k/v at slot
+    pos_i (in place) and attends to slots 0..pos_i, so pad slots of a padded
+    batch above pos_i are never seen. Sliding-window layers treat the cache
+    as a ring of L = W slots: slot pos_i % L, and slot j is valid when the
+    position it holds, pos_i - ((pos_i - j) mod L), is not negative (softmax
+    does not depend on the ring's order). Returns (out, cache).
     """
     b = x.shape[0]
     scale = 1.0 / math.sqrt(cfg.head_dim)
@@ -118,12 +176,18 @@ def decode_attention(p, x, cache, pos, cfg: ModelConfig):
     k_new = rope_apply(_proj(x, p["wk"]), posv, cfg)
     v_new = _proj(x, p["wv"])
     bidx = torch.arange(b, device=x.device)
-    slot = pos_v.long()
+    L = cache["k"].shape[1]
+    slot = (torch.remainder(pos_v, L) if window > 0 else pos_v).long()
     cache["k"][bidx, slot] = k_new[:, 0].to(cache["k"].dtype)
     cache["v"][bidx, slot] = v_new[:, 0].to(cache["v"].dtype)
     k_all = _repeat_kv(cache["k"], cfg.q_per_kv)
     v_all = _repeat_kv(cache["v"], cfg.q_per_kv)
-    idx = torch.arange(cache["k"].shape[1], device=x.device)
-    mask = (idx[None, :] <= pos_v[:, None])[:, None, None, :]
+    idx = torch.arange(L, device=x.device)
+    if window > 0:
+        held = pos_v[:, None] - torch.remainder(pos_v[:, None] - idx[None, :], L)
+        valid = held >= 0
+    else:
+        valid = idx[None, :] <= pos_v[:, None]
+    mask = valid[:, None, None, :]
     out = _sdpa(q, k_all, v_all, mask, cfg.division, scale)
     return _out_proj(out, p["wo"]), cache

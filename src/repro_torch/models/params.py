@@ -1,4 +1,4 @@
-"""Parameter specs and concrete init for the dense blocks.
+"""Parameter specs and concrete init for the attention, dense and MoE blocks.
 
 The PyTorch counterpart of ``src/repro/models/params.py``. Parameters are a
 plain dict tree with the reference's grouping, ``{"embed", "groups":
@@ -24,7 +24,7 @@ import torch
 from repro_torch.configs.base import LayerSpec, ModelConfig
 
 __all__ = ["ParamSpec", "model_specs", "init_params", "param_count",
-           "torch_dtype"]
+           "active_param_count", "torch_dtype"]
 
 _NOT_PORTED = "ROADMAP Queue 1 item 10"
 
@@ -35,6 +35,7 @@ class ParamSpec:
     init: str = "normal"           # normal | zeros | ones
     scale: Optional[float] = None  # stddev for normal; default 1/sqrt(shape[0])
     dtype: Optional[str] = None    # overrides cfg.param_dtype
+    expert: bool = False           # a routed expert's leaf (the 'experts' axis)
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -57,23 +58,38 @@ def _mlp_specs(cfg: ModelConfig, d_ff: int) -> Dict[str, ParamSpec]:
             "wo": ParamSpec((d_ff, d), scale=1.0 / np.sqrt(d_ff))}
 
 
+def _moe_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    d, E, f = cfg.d_model, cfg.n_experts, cfg.d_ff_expert
+    out: Dict[str, Any] = {
+        "router": ParamSpec((d, E), scale=1.0 / np.sqrt(d), dtype="float32"),
+        "wi": ParamSpec((E, d, f), scale=1.0 / np.sqrt(d), expert=True),
+        "wg": ParamSpec((E, d, f), scale=1.0 / np.sqrt(d), expert=True),
+        "wo": ParamSpec((E, f, d), scale=1.0 / np.sqrt(f), expert=True)}
+    if cfg.n_shared_experts:
+        out["shared"] = _mlp_specs(cfg, cfg.n_shared_experts * cfg.d_ff_expert)
+    return out
+
+
 def _block_specs(cfg: ModelConfig, spec: LayerSpec) -> Dict[str, Any]:
-    if spec.mixer != "attn" or spec.ffn != "dense":
+    if spec.mixer == "mamba" or spec.ffn == "none":
         raise NotImplementedError(
-            f"{spec.mixer}/{spec.ffn} blocks are not ported yet ({_NOT_PORTED})")
+            f"SSM blocks ({spec.mixer}/{spec.ffn}) are not ported yet "
+            f"({_NOT_PORTED})")
     d = cfg.d_model
     return {"mixer_norm": ParamSpec((d,), init="ones", dtype="float32"),
             "attn": _attn_specs(cfg),
             "ffn_norm": ParamSpec((d,), init="ones", dtype="float32"),
-            "ffn": _mlp_specs(cfg, cfg.dense_ff)}
+            "ffn": (_moe_specs(cfg) if spec.ffn == "moe"
+                    else _mlp_specs(cfg, cfg.dense_ff))}
 
 
 def model_specs(cfg: ModelConfig) -> Dict[str, Any]:
-    """The spec tree of a dense decoder-only model."""
+    """The spec tree of a decoder-only model (attention or sliding-window
+    mixers, dense or MoE FFNs)."""
     if cfg.is_encoder_decoder or cfg.embed_inputs:
         raise NotImplementedError(
-            f"encoder-decoder and embedding-input models are not ported yet "
-            f"({_NOT_PORTED})")
+            f"encoder-decoder (cross attention) and embedding-input models "
+            f"are not ported yet ({_NOT_PORTED})")
     d, V = cfg.d_model, cfg.vocab
     out: Dict[str, Any] = {"embed": ParamSpec((V, d), scale=1.0)}
     out["groups"] = [{"layers": [_block_specs(cfg, s)
@@ -112,11 +128,22 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None):
     return _map(model_specs(cfg), leaf)
 
 
+def _leaves(cfg: ModelConfig):
+    out = []
+    _map(model_specs(cfg), out.append)
+    return out
+
+
 def param_count(cfg: ModelConfig) -> int:
-    n = [0]
+    return sum(int(np.prod(p.shape)) for p in _leaves(cfg))
 
-    def count(p: ParamSpec):
-        n[0] += int(np.prod(p.shape))
 
-    _map(model_specs(cfg), count)
-    return n[0]
+def active_param_count(cfg: ModelConfig) -> int:
+    """Parameters touched per token (MoE: the top-k routed experts and the
+    shared ones), reckoned as the reference reckons it."""
+    total = param_count(cfg)
+    if not cfg.n_experts:
+        return total
+    expert_total = sum(int(np.prod(p.shape)) for p in _leaves(cfg) if p.expert)
+    frac = cfg.experts_per_tok / cfg.n_experts
+    return int(total - expert_total * (1.0 - frac))

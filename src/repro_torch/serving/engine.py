@@ -1,17 +1,21 @@
-"""Serving engine: prefill + batched greedy decode with a full-attention KV cache.
+"""Serving engine: prefill + batched greedy decode with per-layer-kind caches.
 
-The PyTorch counterpart of ``src/repro/serving/engine.py`` for dense
-models. Eager PyTorch takes the place of ``jax.jit``; the KV cache is
-updated in place (the reference rebuilds it), so a cache handed to
-:func:`decode_step` or :func:`_insert_cache_row` is the one returned.
+The PyTorch counterpart of ``src/repro/serving/engine.py`` for token-input
+decoders: full-length K/V for global attention layers, W-slot ring caches
+for sliding-window layers. Eager PyTorch takes the place of ``jax.jit``; the
+caches are updated in place (the reference rebuilds them), so a cache handed
+to :func:`decode_step` or :func:`_insert_cache_row` is the one returned.
 
-Padded-prompt correctness: prompts of unequal length are right-padded, but
-padding never leaks into the output: prefill gathers each request's logit at
-``len(prompt) - 1``, and decode runs at per-request positions, so request
-i's token t lands at absolute position ``len(prompt_i) + t`` and attends to
-nothing above it. ``generate_batch`` is therefore token-identical to
-single-request ``generate`` (where the matmuls do not depend on the batch's
-shape, as on the CPU in f32).
+Padded-prompt correctness: prompts of unequal length are right-padded to a
+multiple of the window (the block-local attention's alignment), but padding
+never leaks into the output: prefill gathers each request's logit at
+``len(prompt) - 1`` and keeps pad tokens out of the rings (``lengths``),
+and decode runs at per-request positions, so request i's token t lands at
+absolute position ``len(prompt_i) + t`` and attends to nothing above it.
+``generate_batch`` is therefore token-identical to single-request
+``generate`` (where the matmuls do not depend on the batch's shape, as on
+the CPU in f32, and where MoE capacity drops nothing: pad tokens take
+capacity, as in the reference).
 
 ``ServingEngine.serve`` is the continuous-batching loop: admit a request
 into a free slot (single-row prefill + cache row insert), decode all active
@@ -31,15 +35,24 @@ from repro_torch.core.division_modes import DivisionConfig
 from repro_torch.models import forward, make_cache
 from repro_torch.models.model import group_layers
 
-__all__ = ["prefill", "decode_step", "pad_cache_to", "Request",
+__all__ = ["alignment", "prefill", "decode_step", "pad_cache_to", "Request",
            "ServingEngine"]
 
 
+def alignment(cfg: ModelConfig) -> int:
+    """Prompt lengths pad to a multiple of this: the window, which the
+    block-local sliding attention needs (the SSM chunk joins it when the SSM
+    slice is ported)."""
+    return cfg.sliding_window if cfg.sliding_window else 1
+
+
 def prefill(cfg: ModelConfig, params, tokens, *, lengths=None):
-    """Returns (last_logits (B, V), cache). With per-request ``lengths`` the
-    logits are gathered at each request's last real position ``lengths[i] -
-    1``; without, at the final position."""
-    logits, cache, _ = forward(cfg, params, tokens=tokens, mode="prefill")
+    """Returns (last_logits (B, V), cache). Seq must respect the window
+    alignment. With per-request ``lengths`` the logits are gathered at each
+    request's last real position ``lengths[i] - 1`` and pad positions are
+    kept out of the rings; without, the final position is used."""
+    logits, cache, _ = forward(cfg, params, tokens=tokens, mode="prefill",
+                               lengths=lengths)
     if lengths is None:
         return logits[:, -1], cache
     lv = torch.as_tensor(lengths, device=logits.device).long()
@@ -57,7 +70,8 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, pos):
 def pad_cache_to(cache, from_len: int, to_len: int, cfg: ModelConfig):
     """Grow the full-attention K/V caches from ``from_len`` to ``to_len``
     slots along the sequence axis (axis -3), chosen by walking the cache
-    beside ``cfg.groups()``: only ``attn`` layers' K/V are padded."""
+    beside ``cfg.groups()``: only ``attn`` layers' K/V are padded;
+    sliding-window rings keep their W slots, even where W == from_len."""
     if to_len < from_len:
         raise ValueError(f"pad_cache_to: to_len {to_len} < from_len {from_len}")
     if to_len == from_len:
@@ -82,7 +96,9 @@ def pad_cache_to(cache, from_len: int, to_len: int, cfg: ModelConfig):
 
 def _insert_cache_row(cache, row, slot: int, cfg: ModelConfig):
     """Write single-request cache ``row`` (batch 1) into batch slot ``slot``,
-    in place (the batch axis is 0 in every leaf: layers are not stacked)."""
+    in place (the batch axis is 0 in every leaf: layers are not stacked).
+    Full-attention rows arrive grown to ``max_len`` and rings at W, the
+    sizes of the batch cache's leaves."""
     for gc, rc in zip(cache["groups"], row["groups"]):
         for lc, lr in zip(gc["layers"], rc["layers"]):
             for kind, leaves in lc.items():
@@ -112,10 +128,10 @@ class ServingEngine:
                  eos_id: Optional[int] = None):
         if division is not None:
             cfg = dataclasses.replace(cfg, division=division)
-        if cfg.embed_inputs or cfg.is_encoder_decoder:
-            raise NotImplementedError("embedding-input and encoder-decoder "
-                                      "serving is not ported yet (ROADMAP "
-                                      "Queue 1 item 11)")
+        if cfg.embed_inputs or cfg.is_encoder_decoder or cfg.family in ("ssm", "hybrid"):
+            raise NotImplementedError("serving embedding-input, encoder-decoder "
+                                      "and SSM models is not ported yet "
+                                      "(ROADMAP Queue 1 item 11)")
         self.cfg = cfg
         self.params = params
         self.max_len = max_len
@@ -128,8 +144,15 @@ class ServingEngine:
     def _decode(self, cache, tokens, pos):
         return decode_step(self.cfg, self.params, cache, tokens, pos)
 
-    def _check_fits(self, s_max: int, max_new: int):
-        need = s_max + max_new
+    @property
+    def _align(self) -> int:
+        return alignment(self.cfg)
+
+    def _pad_to(self, s_max: int) -> int:
+        return -(-s_max // self._align) * self._align
+
+    def _check_fits(self, s_max: int, max_new: int, pad_to: int):
+        need = max(pad_to, s_max + max_new)
         if need > self.max_len:
             raise ValueError(
                 f"prompt ({s_max}) + max_new ({max_new}) needs {need} cache "
@@ -151,14 +174,15 @@ class ServingEngine:
             raise ValueError("generate_batch: empty prompt")
         lens = [len(p) for p in prompts]
         B, s_max = len(prompts), max(lens)
-        self._check_fits(s_max, max_new)
-        toks = np.zeros((B, s_max), np.int64)
+        pad_to = self._pad_to(s_max)
+        self._check_fits(s_max, max_new, pad_to)
+        toks = np.zeros((B, pad_to), np.int64)
         for i, p in enumerate(prompts):
             toks[i, :len(p)] = p          # zero right-pad; pads never attended
         lengths = torch.tensor(lens, dtype=torch.int32, device=self.device)
         last_logits, cache = self._prefill_tok(
             torch.from_numpy(toks).to(self.device), lengths)
-        cache = pad_cache_to(cache, s_max, self.max_len, self.cfg)
+        cache = pad_cache_to(cache, pad_to, self.max_len, self.cfg)
         pos_v = lengths                   # request i's first new token: len_i
         tok = self._argmax(last_logits)
         outs: List[List[int]] = [[] for _ in range(B)]
@@ -191,7 +215,7 @@ class ServingEngine:
         for r in requests:
             if not r.tokens:
                 raise ValueError("serve: empty prompt")
-            self._check_fits(len(r.tokens), r.max_new)
+            self._check_fits(len(r.tokens), r.max_new, self._pad_to(len(r.tokens)))
         B = slots
         cache = make_cache(cfg, B, self.max_len, self.device)
         pos_v = np.zeros((B,), np.int32)
@@ -201,10 +225,11 @@ class ServingEngine:
 
         def admit(slot: int, req: Request):
             s = len(req.tokens)
-            toks = torch.tensor([req.tokens], dtype=torch.int64,
-                                device=self.device)
-            last, row = self._prefill_tok(toks, [s])
-            row = pad_cache_to(row, s, self.max_len, cfg)
+            pad_to = self._pad_to(s)
+            toks = torch.zeros((1, pad_to), dtype=torch.int64)
+            toks[0, :s] = torch.tensor(req.tokens)
+            last, row = self._prefill_tok(toks.to(self.device), [s])
+            row = pad_cache_to(row, pad_to, self.max_len, cfg)
             _insert_cache_row(cache, row, slot, cfg)
             cur[slot, 0] = int(torch.argmax(last[0]))
             pos_v[slot] = s

@@ -131,8 +131,9 @@ def test_kernel_modes_without_a_kernel_dtype_run_the_ftz_twin_on_cpu(mode):
 
 def test_not_ported_parts_raise():
     """Every mode of every division-unit op and consumer runs now (the ILM
-    modes and attention included); what is still not ported is the model
-    families past dense attention, which raise naming their ROADMAP item."""
+    modes and attention included); what is still not ported is the SSM,
+    encoder-decoder and embedding-input model families, which raise naming
+    their ROADMAP item."""
     from repro_torch.configs import get_config
 
     x = torch.ones(1, 4, 16)
@@ -143,4 +144,4 @@ def test_not_ported_parts_raise():
                  lambda: dm.attention(x, x, x)):
         assert bool(torch.isfinite(call()).all())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("gemma3_12b")
+        get_config("mamba2_780m")

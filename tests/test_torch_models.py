@@ -1,4 +1,5 @@
-"""The port's dense models against the live reference, on the same parameters.
+"""The port's models (dense, sliding-window, MoE) against the live reference,
+on the same parameters.
 
 The reference's ``init_params`` output goes through numpy to the port
 (``convert.params_from_reference``), so both packages run the same weights;
@@ -6,7 +7,8 @@ the smoke configs run with ``param_dtype="float32"``. The packages sum their
 matmuls and row reductions in different orders and use different exp, pow,
 sin and cos implementations (torch's CPU kernels vs XLA's), so logits are
 held to ``LOGIT_RTOL`` of the largest logit (measured: <= 6e-7) and greedy
-choices must agree on every position.
+choices must agree on every position. Sequence lengths are multiples of the
+gemma smoke model's window (16), which its block-local attention needs.
 """
 import dataclasses
 
@@ -24,15 +26,18 @@ from repro.models import forward as ref_forward
 from repro.models import init_params as ref_init_params
 from repro.models import layers as ref_layers
 from repro.models import param_count as ref_param_count
+from repro.models.params import active_param_count as ref_active_param_count
 from repro.serving import pad_cache_to as ref_pad_cache_to
 from repro_torch import convert
 from repro_torch.configs import base as cfg_base
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.division_modes import DivisionConfig
-from repro_torch.models import forward, init_params, layers, param_count
+from repro_torch.models import (active_param_count, forward, init_params, layers,
+                                param_count)
 from repro_torch.serving import pad_cache_to
 
-ARCHS = ["paper_fpdiv", "tinyllama_1_1b"]
+ARCHS = ["paper_fpdiv", "tinyllama_1_1b", "llama3_8b", "granite_8b", "gemma3_12b",
+         "deepseek_moe_16b", "moonshot_v1_16b_a3b"]
 MODES = ["exact", "taylor_pallas", "goldschmidt_pallas"]
 LOGIT_RTOL = 1e-5
 
@@ -77,6 +82,7 @@ def test_configs_are_the_reference_configs(arch):
             [(len(g.period), g.repeat) for g in theirs.groups()]
         assert mine.q_per_kv == theirs.q_per_kv
         assert param_count(mine) == ref_param_count(theirs)
+        assert active_param_count(mine) == ref_active_param_count(theirs)
     assert get_config("tinyllama_1_1b").q_per_kv == 8
 
 
@@ -86,6 +92,12 @@ def test_unported_archs_raise_naming_the_roadmap_item():
             continue
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
             get_smoke_config(arch)
+    assert set(cfg_base.ARCH_IDS) - set(cfg_base.PORTED_ARCHS) == {
+        "mamba2_780m", "jamba_1_5_large", "whisper_tiny", "llava_next_mistral_7b"}
+    for arch, what in (("mamba2_780m", "SSM"), ("whisper_tiny", "encoder-decoder"),
+                       ("llava_next_mistral_7b", "embedding inputs")):
+        with pytest.raises(NotImplementedError, match=what):
+            get_config(arch)
     with pytest.raises(ValueError, match="unknown arch"):
         get_config("no_such_model")
 
@@ -136,15 +148,18 @@ def test_forward_matches_the_reference_in_every_mode(arch, mode):
     reference's own cache."""
     rc, pc = _pair(arch, mode)
     rp, pp = _params(rc, pc)
-    toks = np.random.default_rng(1).integers(0, rc.vocab, (2, 20))
-    want, _, _ = ref_forward(rc, rp, tokens=jnp.asarray(toks), mode="train")
-    got, _, _ = forward(pc, pp, tokens=torch.from_numpy(toks), mode="train")
+    toks = np.random.default_rng(1).integers(0, rc.vocab, (2, 32))
+    want, _, want_aux = ref_forward(rc, rp, tokens=jnp.asarray(toks), mode="train")
+    got, _, got_aux = forward(pc, pp, tokens=torch.from_numpy(toks), mode="train")
     _close(got, want)
+    np.testing.assert_allclose(float(got_aux), float(want_aux), rtol=1e-6)
+    assert (float(want_aux) > 0) == bool(rc.n_experts)
     want, rcache, _ = ref_forward(rc, rp, tokens=jnp.asarray(toks[:, :16]), mode="prefill")
     got, pcache, _ = forward(pc, pp, tokens=torch.from_numpy(toks[:, :16]), mode="prefill")
     _close(got, want)
     k_ref = np.asarray(rcache["groups"][0]["layers"][0]["attn"]["k"])
-    k_port = pcache["groups"][0]["layers"][-1]["attn"]["k"].numpy()
+    g0 = pc.groups()[0]                 # its last repeat's first layer
+    k_port = pcache["groups"][0]["layers"][(g0.repeat - 1) * len(g0.period)]["attn"]["k"].numpy()
     np.testing.assert_allclose(k_port, k_ref[-1] if k_ref.ndim == 5 else k_ref,
                                rtol=1e-5, atol=1e-5)
     rcache = ref_pad_cache_to(rcache, 16, 24, rc)
@@ -159,14 +174,15 @@ def test_forward_matches_the_reference_in_every_mode(arch, mode):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_then_decode_matches_the_full_forward(arch):
-    _, cfg = _pair(arch, "taylor_pallas")
+    # MoE at capacity_factor 8: the full forward drops no token either.
+    _, cfg = _pair(arch, "taylor_pallas", capacity_factor=8.0)
     params = init_params(cfg, torch.Generator().manual_seed(0))
-    toks = torch.from_numpy(np.random.default_rng(2).integers(0, cfg.vocab, (2, 24)))
+    toks = torch.from_numpy(np.random.default_rng(2).integers(0, cfg.vocab, (2, 32)))
     full, _, _ = forward(cfg, params, tokens=toks, mode="train")
     _, cache, _ = forward(cfg, params, tokens=toks[:, :16], mode="prefill")
-    cache = pad_cache_to(cache, 16, 24, cfg)
+    cache = pad_cache_to(cache, 16, 32, cfg)
     scale = float(full.abs().max())
-    for t in range(16, 24):
+    for t in range(16, 32):
         logits, cache, _ = forward(cfg, params, tokens=toks[:, t:t + 1], cache=cache,
                                    pos=t, mode="decode")
         assert float((logits[:, 0] - full[:, t]).abs().max()) / scale < 1e-5
@@ -185,7 +201,7 @@ def test_unported_blocks_and_kv_layouts():
     cfg = _pair("paper_fpdiv")[1]
     params = init_params(cfg, torch.Generator().manual_seed(0))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_params(dataclasses.replace(cfg, moe_period=1),
+        init_params(dataclasses.replace(cfg, family="ssm"),
                     torch.Generator().manual_seed(0))
     k = torch.arange(2 * 3 * 2 * 4, dtype=torch.float32).reshape(2, 3, 2, 4)
     from repro_torch.models.attention import _repeat_kv
