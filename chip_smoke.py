@@ -1,6 +1,6 @@
 """Drive the PyTorch port's division unit, its conformance grid, LM serving
-(dense, sliding-window, MoE), attention and the ILM on one NVIDIA GPU and
-check them.
+(dense, sliding-window, MoE, SSM, hybrid, encoder-decoder, embedding-input),
+attention and the ILM on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py [--seed N] [--json PATH]
 
@@ -56,6 +56,28 @@ source, in parallel), then runs, each phase printing one line:
                  RMSNorm and 27 reciprocal launches per forward; the timed run
                  at the config's capacity factor 1.25, the gates (serve(), the
                  f32 twin at 4 layers) at 8.0, drop-free;
+  9d. serve_ssm — mamba2_780m at full width and depth (48 Mamba-2 layers,
+                 d_inner 3072, 48 heads x 64, state 128) the same way: 97
+                 RMSNorm launches per forward (48 block norms, 48 gated
+                 norms over d_inner, the final one), no softmax; the f32
+                 gates at full depth, serve() against generate_batch among
+                 them (in bf16 the batch shape's GEMM rounding flips greedy
+                 tokens of this random-init model: reported);
+  9e. serve_hybrid — jamba_1_5_large at full width, its first 5 layers (4
+                 Mamba, 1 attention; 2 MoE FFNs of 16 experts top-2): 15
+                 RMSNorm, 3 softmax (1 attention, 2 routers), 2 reciprocal;
+                 timed at capacity factor 1.25, bf16 serve() reported there;
+                 the f32 gates at 2 layers (Mamba + dense, Mamba + MoE),
+                 capacity factor 8, over prompts of 512 and 256 tokens;
+  9f. serve_encdec — whisper_tiny at full width and depth (4 + 4 layers)
+                 on 4 x 1500 encoder frames from --seed, decoder prompts of
+                 384, 256, 128 and 64 tokens: prefill 12 softmax (encoder,
+                 self, cross) and 22 RMSNorm, decode 8 and 13; serve()
+                 refuses as the reference's; the f32 gate at full depth;
+  9g. serve_vlm — llava_next_mistral_7b's backbone at full width and depth
+                 (32 layers, d 4096) on prompt embeddings from --seed of
+                 MODEL_LENS tokens: 32 softmax, 65 RMSNorm; serve() refuses;
+                 the f32 gate at full depth;
  10. serve calls — every softmax and RMSNorm call of one prefill and one
                  decode step, made again on its own inputs through the same
                  entry point, held bit for bit against the plain version;
@@ -90,10 +112,15 @@ source, in parallel), then runs, each phase printing one line:
                  RMSNorm at the serving prefill and decode shapes, flash
                  attention at (96, 2048, 64) causal in bf16 and in f32, the
                  ILM multiplier and squarer on 2^24 lanes at iters 16 and 4,
-                 and the slice-8 shapes: softmax on deepseek's router rows
+                 the SWA and MoE models' shapes: softmax on deepseek's router rows
                  (8192, 64) and gemma's sliding-window rows (131072, 2048),
                  RMSNorm at (8192, 3840) bf16, the reciprocal of the (8192,)
-                 top-k sums.
+                 top-k sums; and the SSM, hybrid and encoder-decoder models'
+                 shapes: RMSNorm on mamba2's
+                 gated-norm rows (8192, 3072) and (4, 3072) and jamba's
+                 (8192, 16384), bf16 with an f32 weight; softmax on jamba's
+                 router rows (8192, 16) and whisper's 1500-key encoder and
+                 cross rows.
                  Times are CUDA events over back-to-back wrapper calls
                  (``ms``, which holds the wrapper's host time where a kernel
                  is shorter); softmax, RMSNorm, flash attention and the ILM
@@ -101,8 +128,9 @@ source, in parallel), then runs, each phase printing one line:
                  from torch.profiler, and ``library_device_ms`` (flash: also
                  ``library_kernels``, the device kernels of the SDPA call).
 
-Phases 4-6, 9, 9a-9c, 12 and 13 are the main path: launch counts are reset before
-each and read after it. Any failed check raises, and the script then exits non-zero
+Phases 4-6, 9, 9a-9g, 12 and 13 are the main path: launch counts are reset before
+each and read after it. The command's wall time, the build included, is
+printed on a ``wall`` line. Any failed check raises, and the script then exits non-zero
 without printing a result. It needs a CUDA card and the repository around
 it; it imports nothing of JAX or of the reference package.
 """
@@ -180,17 +208,69 @@ ILM_ITERS = (1, 2, 3, 4, 6, 8, 16)
 ILM_FULL_RANGE_LANES = 1 << 22    # ILM operands over all of uint32, iters 1-32
 ILM_TIMED_ITERS = (16, 4)
 ILM_SERVE_NEW = 32
-MODEL_LENS = (2048, 1536, 1024, 512)     # gemma3_12b and deepseek_moe_16b
+MODEL_LENS = (2048, 1536, 1024, 512)     # the model phases 9b-9e and 9g
 MODEL_NEW, MODEL_SLOTS = 32, 2
-# Launches per forward, from the code: one softmax per attention layer (the
-# sliding and the global ones alike, query-chunked at 2048 keys), two
-# RMSNorms per block and the final one; a MoE layer adds its router softmax
-# and one reciprocal of the top-k sums.
-SWA_PER_FORWARD = {"softmax_f32": 48, "rmsnorm_f32": 2 * 48 + 1}
-MOE_PER_FORWARD = {"softmax_f32": 28 + 27, "rmsnorm_f32": 2 * 28 + 1, "tsdiv_recip": 27}
-SWA_GATE_DEPTH = {"n_layers": 12}     # two 6-layer periods (5 sliding, 1 global)
-MOE_GATE_DEPTH = {"n_layers": 4}      # the dense first layer and 3 MoE layers
+
+
+@dataclasses.dataclass(frozen=True)
+class Serving:
+    """One served architecture: its phase line, the launches per forward
+    from the code (``per_decode`` where a decode step's differ), the timed
+    run's depth cut, the f32 gate's depth, capacity factor and prompt
+    lengths (the timed ones when None), the prefill hand-off: ``enc``
+    (encoder frames) or ``emb`` (prompt embeddings), and whether serve() is
+    gated against generate_batch in f32 at the gate's depth (``f32_serve``;
+    the bf16 full-width agreement is then reported) or in bf16."""
+    phase: str
+    arch: str
+    per_forward: dict
+    gate_depth: dict
+    per_decode: dict | None = None
+    depth: dict = dataclasses.field(default_factory=dict)
+    gate_cf: float | None = None
+    gate_lens: tuple | None = None
+    lens: tuple = MODEL_LENS
+    hand: str | None = None
+    f32_serve: bool = False
+
+
+# Launches per forward, from the code: one softmax per attention layer
+# (sliding, global, encoder and cross alike, query-chunked at 2048 keys), one
+# RMSNorm before each mixer, cross attention and FFN and the final one (an
+# encoder adds its blocks' and its own final one); a MoE layer adds its
+# router softmax and one reciprocal of the top-k sums; a Mamba mixer adds
+# its gated RMSNorm over d_inner.
 MOE_GATE_CF = 8.0                     # drop-free routing, as test_decode_equiv
+SWA = Serving("serve_swa", "gemma3_12b", {"softmax_f32": 48, "rmsnorm_f32": 2 * 48 + 1},
+              {"n_layers": 12})       # two 6-layer periods (5 sliding, 1 global)
+MOE = Serving("serve_moe", "deepseek_moe_16b",
+              {"softmax_f32": 28 + 27, "rmsnorm_f32": 2 * 28 + 1, "tsdiv_recip": 27},
+              {"n_layers": 4}, gate_cf=MOE_GATE_CF, f32_serve=True)   # dense, 3 MoE
+SSM = Serving("serve_ssm", "mamba2_780m", {"rmsnorm_f32": 2 * 48 + 1}, {},   # full depth
+              f32_serve=True)
+# jamba's first 5 layers: Mamba + dense, Mamba + MoE (twice), attention + dense.
+HYBRID = Serving("serve_hybrid", "jamba_1_5_large",
+                 {"softmax_f32": 1 + 2, "rmsnorm_f32": 2 * 5 + 4 + 1, "tsdiv_recip": 2},
+                 {"n_layers": 2}, depth={"n_layers": 5}, gate_cf=MOE_GATE_CF,
+                 gate_lens=(512, 256), f32_serve=True)
+ENCDEC = Serving("serve_encdec", "whisper_tiny",
+                 {"softmax_f32": 4 + 4 + 4, "rmsnorm_f32": (2 * 4 + 1) + (3 * 4 + 1)}, {},
+                 per_decode={"softmax_f32": 4 + 4, "rmsnorm_f32": 3 * 4 + 1},
+                 lens=(384, 256, 128, 64), hand="enc")   # the decoder's context is 448
+VLM = Serving("serve_vlm", "llava_next_mistral_7b",
+              {"softmax_f32": 32, "rmsnorm_f32": 2 * 32 + 1}, {}, hand="emb")
+# The times phase's model shapes: (kernel, model phase, step, row length,
+# rows where a length recurs, site).
+MODEL_TIMES = [("softmax", "moe", "prefill", 64, None, "router"),
+               ("softmax", "hybrid", "prefill", 16, None, "router"),
+               ("softmax", "swa", "prefill", 2048, None, "swa_prefill"),
+               ("softmax", "encdec", "prefill", 1500, 4 * 6 * 1500, "encoder"),
+               ("softmax", "encdec", "prefill", 1500, 4 * 6 * 384, "cross"),
+               ("rmsnorm", "swa", "prefill", 3840, None, "swa_prefill"),
+               ("rmsnorm", "ssm", "prefill", 3072, None, "gated_norm"),
+               ("rmsnorm", "ssm", "decode", 3072, None, "gated_norm"),
+               ("rmsnorm", "hybrid", "prefill", 16384, None, "gated_norm"),
+               ("recip", "moe", "prefill", 4 * 2048, None, "topk_sums")]   # (T,), flattened
 DEVICE = "cuda"     # the phases of the serving slice run here
 
 
@@ -714,7 +794,27 @@ def padded(prompts, align: int = 1):
     return toks.to(DEVICE), lengths
 
 
-def replay(engine, prompts, steps: int, teacher=None):
+def prefill_batch(engine, prompts, hand=None):
+    """The engine's prefill of ``prompts`` right-padded to its alignment:
+    token prompts, or with ``hand`` (generate_batch's ``enc_embeds`` or
+    ``embeds``) an encoder-decoder's or an embedding-input model's. Returns
+    (last logits, cache, lengths, padded length)."""
+    hand = hand or {}
+    if "embeds" in hand:
+        lengths = torch.tensor([e.shape[0] for e in hand["embeds"]], dtype=torch.int32,
+                               device=DEVICE)
+        n = engine._pad_to(int(lengths.max()))
+        emb = torch.zeros((len(lengths), n, engine.cfg.d_model), device=DEVICE)
+        for i, e in enumerate(hand["embeds"]):
+            emb[i, :e.shape[0]] = e
+        return (*engine._prefill_emb(emb, lengths), lengths, n)
+    toks, lengths = padded(prompts, engine._align)
+    if "enc_embeds" in hand:
+        return (*engine._prefill_enc(toks, hand["enc_embeds"], lengths), lengths, toks.shape[1])
+    return (*engine._prefill_tok(toks, lengths), lengths, toks.shape[1])
+
+
+def replay(engine, prompts, steps: int, teacher=None, hand=None):
     """Greedy decode through the engine's own steps, as
     tests/test_decode_equiv.py does: with ``teacher`` (the exact run's
     tokens, (steps, B)) that stream is fed back instead of the engine's own
@@ -722,9 +822,8 @@ def replay(engine, prompts, steps: int, teacher=None):
     argmax of every step (steps, B) and the logits (steps, B, V)."""
     from repro_torch.serving import pad_cache_to
 
-    toks, lengths = padded(prompts, engine._align)
-    logits, cache = engine._prefill_tok(toks, lengths)
-    cache = pad_cache_to(cache, toks.shape[1], engine.max_len, engine.cfg)
+    logits, cache, lengths, n = prefill_batch(engine, prompts, hand)
+    cache = pad_cache_to(cache, n, engine.max_len, engine.cfg)
     pos, picks, seen = lengths, [], []
     for t in range(steps):
         seen.append(logits)
@@ -737,17 +836,26 @@ def replay(engine, prompts, steps: int, teacher=None):
     return torch.stack(picks).cpu().numpy(), torch.stack(seen)
 
 
-def mode_agreement(cfg, params, prompts, steps: int, mode: str = "taylor_pallas"):
+def cache_len(cfg, prompts, steps: int) -> int:
+    """Cache slots for ``prompts`` padded to the engine's alignment and
+    ``steps`` new tokens."""
+    from repro_torch.serving import alignment
+
+    a, s = alignment(cfg), max(len(p) for p in prompts)
+    return max(-(-s // a) * a, s + steps)
+
+
+def mode_agreement(cfg, params, prompts, steps: int, mode: str = "taylor_pallas", hand=None):
     """Teacher-forced greedy agreement of ``mode`` with the exact twin (the
     config's own division in both modes), and the logit drift max|dl| /
     max|l| (the gates of test_decode_equiv)."""
     from repro_torch.serving import ServingEngine
 
-    engs = {m: ServingEngine(cfg, params, max_len=max(len(p) for p in prompts) + steps,
+    engs = {m: ServingEngine(cfg, params, max_len=cache_len(cfg, prompts, steps),
                              division=dataclasses.replace(cfg.division, mode=m))
             for m in ("exact", mode)}
-    teacher, exact_logits = replay(engs["exact"], prompts, steps)
-    picks, logits = replay(engs[mode], prompts, steps, teacher)
+    teacher, exact_logits = replay(engs["exact"], prompts, steps, hand=hand)
+    picks, logits = replay(engs[mode], prompts, steps, teacher, hand)
     drift = float((logits - exact_logits).abs().max() / exact_logits.abs().max())
     return float((picks == teacher).mean()), drift, teacher
 
@@ -846,7 +954,7 @@ def phase_serve_calls(seed: int, err: dict) -> dict:
     cfg, params, prompts = serve_setup(seed)
     eng = ServingEngine(cfg, params, max_len=max(SERVE_LENS) + SERVE_NEW,
                         division=dm_config("taylor_pallas"))
-    rows, first = held_calls(eng, *padded(prompts), err)
+    rows, first = held_calls(eng, prompts, err)
     n_calls = {k: sum(1 for r in rows if r[:2] == k) for k in
                (("softmax_f32", "prefill"), ("rmsnorm_f32", "prefill"),
                 ("softmax_f32", "decode"), ("rmsnorm_f32", "decode"))}
@@ -860,6 +968,14 @@ def phase_serve_calls(seed: int, err: dict) -> dict:
     for (kind, step, _), v in first.items():
         out.setdefault((kind, step), v)
     return out
+
+
+def first_of(first: dict, kind: str, step: str, d: int, rows: int | None = None):
+    """The first input held_calls kept of ``kind`` at ``step`` with rows of
+    ``d`` (and ``rows`` of them, where given)."""
+    return next(v for (k, st, shape), v in first.items()
+                if (k, st, shape[-1]) == (kind, step, d)
+                and (rows is None or math.prod(shape[:-1]) == rows))
 
 
 # ------------------------------------------- slice 8: conformance, SWA, MoE
@@ -905,12 +1021,47 @@ def model_setup(arch: str, seed: int, param_dtype: str = "bfloat16", lens=None, 
     return cfg, params, prompts
 
 
-def held_calls(eng, toks, lengths, err: dict, recip: bool = False):
-    """One prefill of ``toks`` and one decode step through ``eng`` with every
-    softmax, RMSNorm (and, with ``recip``, reciprocal) kernel call held bit
-    for bit against its plain version on its own inputs. Returns the rows
-    (kernel, step, shape, lanes differing) and the first input of each
-    (kind, step, row length)."""
+def hand_offs(cfg, kind, prompts, seed: int):
+    """generate_batch's prefill inputs beside the prompts, drawn on the card
+    from ``seed`` (stub frontends, as in the reference): encoder frames
+    (B, encoder_seq, d_model) or per-request prompt embeddings (len_i,
+    d_model), f32."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 13)
+    if kind == "enc":
+        return {"enc_embeds": torch.randn((len(prompts), cfg.encoder_seq, cfg.d_model),
+                                          generator=gen, device=DEVICE)}
+    if kind == "emb":
+        return {"embeds": [torch.randn((len(p), cfg.d_model), generator=gen, device=DEVICE)
+                           for p in prompts]}
+    return {}
+
+
+def cut(hand: dict, n: int, rows: int = 1) -> dict:
+    """The hand-off of the first ``rows`` requests, each cut to ``n`` tokens."""
+    if "embeds" in hand:
+        return {"embeds": [e[:n] for e in hand["embeds"][:rows]]}
+    return {k: v[:rows] for k, v in hand.items()}
+
+
+def rows_held(got: torch.Tensor, plain, x: torch.Tensor, *rest):
+    """mismatch() of a row kernel's (M, D) output against ``plain(x, *rest)``
+    on blocks of rows of at most PLAIN_ELEMENTS elements (the plain versions
+    work row by row), so that its temporaries fit beside a large model."""
+    step = max(1, PLAIN_ELEMENTS // max(1, x.shape[-1]))
+    n_bad, err = 0, 0.0
+    for s in range(0, x.shape[0], step):
+        b, e = mismatch(got[s:s + step], plain(x[s:s + step], *rest))
+        n_bad, err = n_bad + b, max(err, e)
+    return n_bad, err
+
+
+def held_calls(eng, prompts, err: dict, recip: bool = False, hand=None, keep=None):
+    """One prefill of ``prompts`` (padded; ``hand``: prefill_batch's) and one
+    decode step through ``eng`` with every softmax, RMSNorm (and, with
+    ``recip``, reciprocal) kernel call held bit for bit against its plain
+    version on its own inputs. Returns the rows (kernel, step, shape, lanes
+    differing) and the first input of each (kind, step, shape), of the
+    (kind, step, row length) in ``keep`` where given."""
     from repro_torch.core.seeds import compute_segments, rsqrt_seed_table
     from repro_torch.kernels import common, rmsnorm, softmax, tsdiv
     from repro_torch.serving import pad_cache_to
@@ -918,39 +1069,45 @@ def held_calls(eng, toks, lengths, err: dict, recip: bool = False):
     rows, first, step = [], {}, ["prefill"]
     real = (softmax.softmax, rmsnorm.rmsnorm, tsdiv.recip)
 
+    def kept(kind, x, make):
+        key = (kind, step[0], tuple(x.shape))
+        if key not in first and (keep is None or (kind, step[0], x.shape[-1]) in keep):
+            first[key] = make()
+
     def sm_spy(x, n_iters=2, precision_bits=24, schedule="factored"):
         got = real[0](x, n_iters, precision_bits, schedule)
-        n_bad, e = mismatch(got, softmax.softmax_plain(
-            x, compute_segments(n_iters, precision_bits), n_iters, schedule))
+        n_bad, e = rows_held(got, softmax.softmax_plain, x,
+                             compute_segments(n_iters, precision_bits), n_iters, schedule)
         rows.append(("softmax_f32", step[0], list(x.shape), n_bad))
         err["softmax_f32"] = max(err["softmax_f32"], e)
-        first.setdefault(("softmax", step[0], x.shape[-1]), x.clone())
+        kept("softmax", x, x.clone)
         return got
 
     def rms_spy(x, w, eps=1e-6, newton_iters=2, n_segments=16):
         got = real[1](x, w, eps, newton_iters, n_segments)
-        n_bad, e = mismatch(got, rmsnorm.rmsnorm_plain(x, w, eps, rsqrt_seed_table(n_segments),
-                                                       newton_iters))
+        n_bad, e = rows_held(got, lambda xs: rmsnorm.rmsnorm_plain(
+            xs, w, eps, rsqrt_seed_table(n_segments), newton_iters), x)
         rows.append(("rmsnorm_f32", step[0], list(x.shape), n_bad))
         err["rmsnorm_f32"] = max(err["rmsnorm_f32"], e)
-        first.setdefault(("rmsnorm", step[0], x.shape[-1]), (x.clone(), w.clone()))
+        kept("rmsnorm", x, lambda: (x.clone(), w.clone()))
         return got
 
     def recip_spy(x, n_iters=2, precision_bits=24, schedule="factored"):
         got = real[2](x, n_iters, precision_bits, schedule)
-        n_bad, e = mismatch(got, common.recip_f32_bits(
-            x, compute_segments(n_iters, precision_bits), n_iters, schedule))
+        table = compute_segments(n_iters, precision_bits)
+        n_bad, e = held_to_plain(got, lambda v: common.recip_f32_bits(
+            v, table, n_iters, schedule), x)
         rows.append(("tsdiv_recip", step[0], list(x.shape), n_bad))
         err["tsdiv_recip"] = max(err["tsdiv_recip"], e)
-        first.setdefault(("recip", step[0], 1), x.clone())
+        kept("recip", x, x.clone)
         return got
 
     softmax.softmax, rmsnorm.rmsnorm = sm_spy, rms_spy
     if recip:
         tsdiv.recip = recip_spy
     try:
-        logits, cache = eng._prefill_tok(toks, lengths)
-        cache = pad_cache_to(cache, toks.shape[1], eng.max_len, eng.cfg)
+        logits, cache, lengths, n = prefill_batch(eng, prompts, hand)
+        cache = pad_cache_to(cache, n, eng.max_len, eng.cfg)
         step[0] = "decode"
         eng._decode(cache, torch.argmax(logits, -1)[:, None].to(torch.int32), lengths)
         sync()
@@ -975,47 +1132,55 @@ def serve_agreement(eng, prompts, gb=None):
     return reqs, wall, sum(a != b for r, g in zip(reqs, gb) for a, b in zip(r.out, g))
 
 
-def phase_serve_model(arch: str, seed: int, launches: dict, err: dict, per_forward: dict,
-                      gate_depth: dict, gate_cf=None):
-    """``arch`` at full width in taylor_pallas (bf16 params from ``seed``):
-    generate_batch over the MODEL_LENS prompts, MODEL_NEW new tokens each,
-    timed, its launches per forward held to ``per_forward``; the exact twin
-    on the same batch; serve() with MODEL_SLOTS slots against
-    generate_batch; every softmax, RMSNorm and reciprocal call of one
-    prefill and one decode step held to its plain version; then the f32
-    greedy gate against the exact twin at the depth ``gate_depth``.
+def phase_serve_model(sv: Serving, seed: int, launches: dict, err: dict):
+    """``sv.arch`` at full width in taylor_pallas (bf16 params from ``seed``,
+    depth cut by ``sv.depth``): generate_batch over the ``sv.lens`` prompts
+    (with the seeded encoder frames or prompt embeddings of ``sv.hand``),
+    MODEL_NEW new tokens each, timed, its launches held to ``sv.per_forward``
+    (and ``sv.per_decode``); the exact twin on the same batch; serve() with
+    MODEL_SLOTS slots against generate_batch, or its refusal of
+    encoder-decoder and embedding-input configs; every softmax, RMSNorm and
+    reciprocal call of one prefill and one decode step held to its plain
+    version; then the f32 greedy gate against the exact twin at the depth
+    ``sv.gate_depth``.
 
-    With ``gate_cf`` (MoE) the gates run at that capacity factor, the timed
-    run at the config's own, and serve() is gated against generate_batch in
-    f32 at ``gate_depth``; in bf16 at full width it is reported: there the
-    router's top-k turns the batch shape's GEMM rounding into other experts
-    (PERF.md §6). Returns the first inputs of the calls, for the times."""
+    With ``sv.gate_cf`` (MoE) the gates run at that capacity factor, the
+    timed run at the config's own. With ``sv.f32_serve`` serve() is gated
+    against generate_batch in f32 at ``sv.gate_depth``; in bf16 at full
+    width it is reported (at the gate's capacity factor where the gate's
+    prompts are the timed ones): there a random-init model turns the batch
+    shape's rounding into other greedy tokens (a MoE's router into other
+    experts, PERF.md §6). Returns the first inputs of the calls, for the
+    times."""
     from repro_torch.kernels import rmsnorm, softmax, tsdiv
-    from repro_torch.serving import ServingEngine
+    from repro_torch.serving import Request, ServingEngine
 
     mods = (softmax, rmsnorm, tsdiv)
-    cfg, params, prompts = model_setup(arch, seed)
-    max_len = max(MODEL_LENS) + MODEL_NEW
+    arch, per_decode = sv.arch, sv.per_decode or sv.per_forward
+    held = torch.cuda.memory_allocated() / 2**30     # earlier phases' inputs kept for the times
+    cfg, params, prompts = model_setup(arch, seed, lens=sv.lens, **sv.depth)
+    hand = hand_offs(cfg, sv.hand, prompts, seed)
+    tok_prompts = None if sv.hand == "emb" else prompts   # embeddings replace the tokens
+    max_len = cache_len(cfg, prompts, MODEL_NEW)
     div = {m: dataclasses.replace(cfg.division, mode=m) for m in ("taylor_pallas", "exact")}
     engines = {m: ServingEngine(cfg, params, max_len=max_len, division=d) for m, d in div.items()}
-    toks, lengths = padded(prompts, engines["exact"]._align)
     out, runs = {}, {}
     for mode, eng in engines.items():
-        eng.generate_batch([prompts[-1][:16]], max_new=2)        # warm-up
+        eng.generate_batch(None if tok_prompts is None else [prompts[-1][:16]],   # warm-up
+                           max_new=2, **cut(hand, 16))
         sync()
         t0 = time.perf_counter()
-        eng._prefill_tok(toks, lengths)
+        prefill_batch(eng, prompts, hand)
         sync()
         prefill_ms = (time.perf_counter() - t0) * 1e3
         torch.cuda.reset_peak_memory_stats()
         for m in mods:
             m.reset_launches()
         t0 = time.perf_counter()
-        runs[mode] = eng.generate_batch(prompts, max_new=MODEL_NEW)
+        runs[mode] = eng.generate_batch(tok_prompts, max_new=MODEL_NEW, **hand)
         sync()
         wall = time.perf_counter() - t0
         counts = {k: v for m in mods for k, v in m.LAUNCHES.items() if v}
-        forwards = 1 + MODEL_NEW
         out[mode] = {"generate_batch_s": wall, "prefill_ms": prefill_ms,
                      "decode_ms_per_step": (wall * 1e3 - prefill_ms) / MODEL_NEW,
                      "tokens_per_s": len(prompts) * MODEL_NEW / wall,
@@ -1023,118 +1188,145 @@ def phase_serve_model(arch: str, seed: int, launches: dict, err: dict, per_forwa
         if mode == "taylor_pallas":
             for k, v in counts.items():
                 launches[k] += v
-            want = {k: v * forwards for k, v in per_forward.items()}
+            want = {k: v + MODEL_NEW * per_decode[k] for k, v in sv.per_forward.items()}
             check(counts == want, f"{arch} generate_batch launches {counts}, expected {want}")
         else:
             check(not counts, f"{arch}: exact mode launched a kernel: {counts}")
     teacher = np.array(runs["exact"]).T                        # (steps, B)
-    bf16_forced, _ = replay(engines["taylor_pallas"], prompts, MODEL_NEW, teacher)
+    bf16_forced, _ = replay(engines["taylor_pallas"], prompts, MODEL_NEW, teacher, hand)
     out["agreement_vs_exact"] = {
         "bf16_free_running": float((np.array(runs["taylor_pallas"]).T == teacher).mean()),
         "bf16_teacher_forced": float((bf16_forced == teacher).mean())}
     del engines
-    # serve() against generate_batch, at the gates' capacity factor.
-    gcfg = cfg if gate_cf is None else dataclasses.replace(cfg, capacity_factor=gate_cf)
+    # serve() against generate_batch, at the gates' capacity factor where
+    # the gates' prompts are these (jamba's experts at capacity factor 8 on
+    # 4 x 2048 tokens would not fit beside its weights).
+    serve_cf = sv.gate_cf if sv.gate_lens is None else None
+    gcfg = cfg if serve_cf is None else dataclasses.replace(cfg, capacity_factor=serve_cf)
     eng = ServingEngine(gcfg, params, max_len=max_len, division=div["taylor_pallas"])
-    gb = runs["taylor_pallas"] if gate_cf is None else eng.generate_batch(prompts, MODEL_NEW)
-    for m in mods:
-        m.reset_launches()
-    _, wall, diff = serve_agreement(eng, prompts, gb)
-    counts = {k: v for m in mods for k, v in m.LAUNCHES.items() if v}
-    for k, v in counts.items():
-        launches[k] += v
-    fwd = counts.get("rmsnorm_f32", 0) // per_forward["rmsnorm_f32"]
-    check(fwd > 0 and counts == {k: v * fwd for k, v in per_forward.items()},
-          f"{arch} serve() launches {counts}: not {per_forward} per forward")
     n_serve = len(prompts) * MODEL_NEW
-    out["serve"] = {"slots": MODEL_SLOTS, "capacity_factor": gcfg.capacity_factor,
-                    "seconds": wall, "tokens_per_s": n_serve / wall, "forwards": fwd,
-                    "launches": counts, "tokens_differing_from_generate_batch": diff,
-                    "agreement": 1 - diff / n_serve}
+    if sv.hand:       # the reference's serve() refuses these before it prefills
+        try:
+            eng.serve([Request(list(prompts[-1]), max_new=MODEL_NEW)])
+            msg = ""
+        except ValueError as e:
+            msg = str(e)
+        out["serve"] = {"refused": msg}
+        check("serve() " in msg and "generate/generate_batch" in msg,
+              f"{arch}: serve() did not refuse as the reference does: {msg!r}")
+    else:
+        gb = (runs["taylor_pallas"] if serve_cf is None
+              else eng.generate_batch(prompts, MODEL_NEW))
+        for m in mods:
+            m.reset_launches()
+        _, wall, diff = serve_agreement(eng, prompts, gb)
+        counts = {k: v for m in mods for k, v in m.LAUNCHES.items() if v}
+        for k, v in counts.items():
+            launches[k] += v
+        fwd = counts.get("rmsnorm_f32", 0) // sv.per_forward["rmsnorm_f32"]
+        check(fwd > 0 and counts == {k: v * fwd for k, v in sv.per_forward.items()},
+              f"{arch} serve() launches {counts}: not {sv.per_forward} per forward")
+        out["serve"] = {"slots": MODEL_SLOTS, "capacity_factor": gcfg.capacity_factor,
+                        "seconds": wall, "tokens_per_s": n_serve / wall, "forwards": fwd,
+                        "launches": counts, "tokens_differing_from_generate_batch": diff,
+                        "agreement": 1 - diff / n_serve}
 
     # Every kernel call of one prefill and one decode step, on its own inputs.
-    rows, first = held_calls(eng, toks, lengths, err, recip="tsdiv_recip" in per_forward)
+    keep = {(k, st, d) for k, m, st, d, _, _ in MODEL_TIMES if m == sv.phase.removeprefix("serve_")}
+    rows, first = held_calls(eng, prompts, err, recip="tsdiv_recip" in sv.per_forward,
+                             hand=hand, keep=keep)
     n_calls = {f"{k}/{st}": sum(1 for r in rows if r[:2] == (k, st))
-               for st in ("prefill", "decode") for k in per_forward}
+               for st in ("prefill", "decode") for k in sv.per_forward}
     say("serve_calls", arch=cfg.name, calls=n_calls,
         shapes=sorted({(r[0], r[1], str(r[2])) for r in rows}),
         mismatched_lanes=sum(r[3] for r in rows))
-    check(n_calls == {f"{k}/{st}": v for st in ("prefill", "decode") for k, v in per_forward.items()},
-          f"{arch} call sites per step: {n_calls}, expected {per_forward}")
+    want = {f"{k}/{st}": n[k] for st, n in (("prefill", sv.per_forward), ("decode", per_decode))
+            for k in sv.per_forward}
+    check(n_calls == want, f"{arch} call sites per step: {n_calls}, expected {want}")
     check(all(r[3] == 0 for r in rows), f"{arch}: a serving call differs from the plain version: "
           f"{[r for r in rows if r[3]]}")
-    del eng, params
+    del eng, params, hand
     torch.cuda.empty_cache()
 
-    # The reference's serving gate, f32 at a cut depth (the full-width f32
-    # copy would not fit beside its activations).
-    repl = dict(gate_depth) if gate_cf is None else {**gate_depth, "capacity_factor": gate_cf}
-    fcfg, fparams, _ = model_setup(arch, seed, "float32", **repl)
-    f32_agree, f32_drift, _ = mode_agreement(fcfg, fparams, prompts, MODEL_NEW)
+    # The reference's serving gate, f32 at a cut depth where the full-width
+    # f32 copy would not fit beside its activations.
+    repl = dict(sv.gate_depth)
+    if sv.gate_cf is not None:
+        repl["capacity_factor"] = sv.gate_cf
+    fcfg, fparams, gprompts = model_setup(arch, seed, "float32", lens=sv.gate_lens or sv.lens,
+                                          **repl)
+    ghand = hand_offs(fcfg, sv.hand, gprompts, seed)
+    f32_agree, f32_drift, _ = mode_agreement(fcfg, fparams, gprompts, MODEL_NEW, hand=ghand)
     out["agreement_vs_exact"].update(f32_teacher_forced=f32_agree, f32_logit_drift=f32_drift,
-                                     f32_depth=fcfg.n_layers)
-    serve_gate = out["serve"]["agreement"]
-    if gate_cf is not None:
-        feng = ServingEngine(fcfg, fparams, max_len=max_len, division=div["taylor_pallas"])
-        _, _, fdiff = serve_agreement(feng, prompts)
-        serve_gate = out["serve"]["f32_agreement"] = 1 - fdiff / n_serve
+                                     f32_depth=fcfg.n_layers,
+                                     f32_prompt_lens=[len(p) for p in gprompts])
+    serve_gate = out["serve"].get("agreement")
+    if sv.f32_serve:
+        feng = ServingEngine(fcfg, fparams, max_len=cache_len(fcfg, gprompts, MODEL_NEW),
+                             division=div["taylor_pallas"])
+        _, _, fdiff = serve_agreement(feng, gprompts)
+        serve_gate = out["serve"]["f32_agreement"] = 1 - fdiff / (len(gprompts) * MODEL_NEW)
         out["serve"]["f32_depth"] = fcfg.n_layers
         del feng
-    del fparams
+    del fparams, ghand
     torch.cuda.empty_cache()
-    say(f"serve_{cfg.family if cfg.n_experts else 'swa'}", arch=cfg.name, layers=cfg.n_layers,
-        params_dtype=cfg.param_dtype, prompt_lens=list(MODEL_LENS), max_new=MODEL_NEW,
-        capacity_factor=cfg.capacity_factor if cfg.n_experts else None, gate_capacity_factor=gate_cf,
-        launches_per_forward=per_forward, division=dataclasses.asdict(div["taylor_pallas"]),
+    say(sv.phase, arch=cfg.name, layers=cfg.n_layers, params_dtype=cfg.param_dtype,
+        prompt_lens=list(sv.lens), max_new=MODEL_NEW, hand_off=sv.hand,
+        capacity_factor=cfg.capacity_factor if cfg.n_experts else None,
+        gate_capacity_factor=sv.gate_cf, held_gib_at_start=held,
+        launches_per_forward=sv.per_forward,
+        launches_per_decode=per_decode, division=dataclasses.asdict(div["taylor_pallas"]),
         runs=out)
     for mode, toks_out in runs.items():
         check(all(len(o) == MODEL_NEW for o in toks_out), f"{arch} {mode}: short output")
     check(f32_agree >= 0.99, f"{arch}: greedy agreement with the exact twin {f32_agree} < 0.99")
     check(f32_drift < 5e-3, f"{arch}: logit drift from the exact twin {f32_drift} >= 5e-3")
-    check(serve_gate >= 0.99, f"{arch}: serve() agrees with generate_batch on {serve_gate} < 0.99")
+    check(serve_gate is None or serve_gate >= 0.99,
+          f"{arch}: serve() agrees with generate_batch on {serve_gate} < 0.99")
     return first
 
 
 def phase_times_models(err: dict, launches: dict, firsts: dict):
-    """The new main-path shapes of the SWA and MoE models, each kernel beside
-    its plain version, the torch call and the bound: softmax on the router's
-    (T, 64) rows and on gemma's prefill (b*nb*h*w, 2w) rows, RMSNorm at
-    d = 3840 in bf16, and the reciprocal of the (T, 1) top-k sums."""
+    """The main-path shapes of the model phases, each kernel beside its
+    plain version, the torch call and the bound: softmax on the routers'
+    (T, E) rows, gemma's sliding-window prefill rows (b*nb*h*w, 2w) and
+    whisper's 1500-key encoder and cross rows; RMSNorm at gemma's d = 3840
+    and on the Mamba gated norms' rows of d_inner (mamba2's 3072 at prefill
+    and decode, jamba's 16384), bf16 with an f32 weight; the reciprocal of
+    the (T, 1) top-k sums."""
     from repro_torch.core.seeds import compute_segments, rsqrt_seed_table
     from repro_torch.kernels import common, rmsnorm, softmax, tsdiv
 
     table = compute_segments(2, 24)
     rows = []
-    cases = [("softmax_f32", "softmax_kernel", firsts["moe"][("softmax", "prefill", 64)], "router"),
-             ("softmax_f32", "softmax_kernel", firsts["swa"][("softmax", "prefill", 2048)],
-              "swa_prefill"),
-             ("rmsnorm_f32", "rmsnorm_kernel", firsts["swa"][("rmsnorm", "prefill", 3840)],
-              "swa_prefill"),
-             ("tsdiv_recip", "elementwise_kernel", firsts["moe"][("recip", "prefill", 1)], "topk_sums")]
-    for name, kernel_name, inp, site in cases:
-        if name == "softmax_f32":
+    for kind, model, step, d, n_rows, site in MODEL_TIMES:
+        inp = first_of(firsts[model], kind, step, d, n_rows)
+        if kind == "softmax":
             x = inp
+            name, kernel_name = "softmax_f32", "softmax_kernel"
             kernel = lambda: softmax.softmax(x, 2, 24, "factored")
             plain = lambda: softmax.softmax_plain(x, table, 2, "factored")
             library = lambda: torch.softmax(x, -1)
-            nbytes, t, extra = 2 * x.numel() * x.element_size(), x, {}
-        elif name == "rmsnorm_f32":
+            nbytes, extra = 2 * x.numel() * x.element_size(), {}
+        elif kind == "rmsnorm":
             x, w = inp
+            name, kernel_name = "rmsnorm_f32", "rmsnorm_kernel"
             kernel = lambda: rmsnorm.rmsnorm(x, w, 1e-6, 2, 16)
             plain = lambda: rmsnorm.rmsnorm_plain(x, w, 1e-6, rsqrt_seed_table(16), 2)
             library = lambda: torch.nn.functional.rms_norm(x, (x.shape[-1],), w.to(x.dtype), 1e-6)
             nbytes = 2 * x.numel() * x.element_size() + w.numel() * w.element_size()
-            t, extra = x, {"w_dtype": str(w.dtype).replace("torch.", "")}
+            extra = {"w_dtype": str(w.dtype).replace("torch.", "")}
         else:
             x = inp
+            name, kernel_name = "tsdiv_recip", "elementwise_kernel"
             kernel = lambda: tsdiv.recip(x, 2, 24, "factored")
             plain = lambda: common.recip_f32_bits(x, table, 2, "factored")
             library = lambda: torch.reciprocal(x)
-            nbytes, t, extra = 2 * x.numel() * x.element_size(), x, {}
+            nbytes, extra = 2 * x.numel() * x.element_size(), {}
         row = kernel_row(name, event_ms(kernel), event_ms(plain, 3), event_ms(library), nbytes,
-                         t.numel(), launches, err, shape=list(t.shape),
-                         dtype=str(t.dtype).replace("torch.", ""), step="prefill", site=site,
-                         device_ms=device_ms(kernel, kernel_name),
+                         x.numel(), launches, err, shape=list(x.shape),
+                         dtype=str(x.dtype).replace("torch.", ""), step=step, site=site,
+                         model=model, device_ms=device_ms(kernel, kernel_name),
                          library_device_ms=device_ms(library), **extra)
         say("times", **row)
         rows.append(row)
@@ -1578,10 +1770,8 @@ def main(argv=None) -> int:
     phase_consumers(args.seed, err)
     phase_serve(args.seed, launches)
     phase_conformance(launches)
-    firsts = {"swa": phase_serve_model("gemma3_12b", args.seed, launches, err, SWA_PER_FORWARD,
-                                       SWA_GATE_DEPTH),
-              "moe": phase_serve_model("deepseek_moe_16b", args.seed, launches, err,
-                                       MOE_PER_FORWARD, MOE_GATE_DEPTH, MOE_GATE_CF)}
+    firsts = {sv.phase.removeprefix("serve_"): phase_serve_model(sv, args.seed, launches, err)
+              for sv in (SWA, MOE, SSM, HYBRID, ENCDEC, VLM)}
     flash_in = phase_flash_serve(args.seed, err, launches)
     ilm_in = phase_ilm(args.seed, err, launches)
     check(all(launches.values()), f"a kernel was not launched on the main path: {launches}")
@@ -1592,6 +1782,7 @@ def main(argv=None) -> int:
     rows += phase_times_attention_ilm(err, launches, flash_in, ilm_in)
     rows += phase_times_models(err, launches, firsts)
     result = {"kernels": rows}
+    say("wall", seconds=time.perf_counter() - t_start)
     if args.json:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps(

@@ -1,4 +1,4 @@
-"""Model configs of the port: the dense, sliding-window and MoE architectures."""
+"""Model configs of the port: every architecture of the reference."""
 from .base import (ARCH_IDS, PORTED_ARCHS, Group, LayerSpec, ModelConfig,
                    get_config, get_smoke_config)
 

@@ -4,12 +4,11 @@ The PyTorch counterpart of ``src/repro/configs/base.py``. ``ModelConfig``
 keeps the reference's fields that the ported models and the layer pattern
 read, with the same defaults and derived pattern (``layer_specs``,
 ``groups``, ``q_per_kv``), so a config means the same model in both
-packages. The SSM and encoder fields, the sharding rules, shape cells and
-dry-run knobs arrive with the slices that read them; so do the training
-knobs ``remat`` and ``train_microbatch_size`` (ROADMAP Queue 1 item 12).
+packages. The sharding rules, shape cells and dry-run knobs arrive with the
+slices that read them; so do the training knobs ``remat`` and
+``train_microbatch_size`` (ROADMAP Queue 1 item 12).
 
-The registry resolves the architectures whose modules are ported; any other
-architecture raises, naming what it still needs and the ROADMAP item.
+The registry resolves every architecture of the reference.
 """
 from __future__ import annotations
 
@@ -75,10 +74,19 @@ class ModelConfig:
     capacity_factor: float = 1.25
     router_aux_weight: float = 0.01
     moe_dispatch: str = "cumsum"   # cumsum | sort | local (one shard here)
+    # --- ssm (mamba2 / SSD) ---
+    ssm_state: int = 0
+    ssm_heads: int = 0
+    ssm_head_dim: int = 64
+    d_inner: int = 0
+    ssm_chunk: int = 256
+    conv_width: int = 4
     # --- enc-dec ---
     is_encoder_decoder: bool = False
+    n_encoder_layers: int = 0
+    encoder_seq: int = 0           # stub frontend: precomputed frames
     # --- io ---
-    embed_inputs: bool = False
+    embed_inputs: bool = False     # vlm stub: prefill takes embeddings
     tie_embeddings: bool = False
     # --- numerics ---
     param_dtype: str = "bfloat16"
@@ -135,14 +143,8 @@ ARCH_IDS = [
     "llava_next_mistral_7b", "whisper_tiny", "jamba_1_5_large",
     "moonshot_v1_16b_a3b", "deepseek_moe_16b", "paper_fpdiv",
 ]
-# Dense, sliding-window and MoE decoders: every module they run is ported.
-PORTED_ARCHS = ("paper_fpdiv", "tinyllama_1_1b", "llama3_8b", "granite_8b",
-                "gemma3_12b", "deepseek_moe_16b", "moonshot_v1_16b_a3b")
-# What each architecture left still needs.
-_MISSING = {"mamba2_780m": "the SSM mixer (models/mamba2.py)",
-            "jamba_1_5_large": "the SSM mixer (models/mamba2.py)",
-            "whisper_tiny": "the encoder-decoder stack and cross attention",
-            "llava_next_mistral_7b": "embedding inputs (the VLM hand-off)"}
+# Every module each architecture runs is ported.
+PORTED_ARCHS = list(ARCH_IDS)
 
 
 def canon(arch: str) -> str:
@@ -153,10 +155,6 @@ def _module(arch: str):
     name = canon(arch)
     if name not in ARCH_IDS:
         raise ValueError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
-    if name not in PORTED_ARCHS:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported yet: it needs {_MISSING[name]}, "
-            f"ROADMAP Queue 1 item 10 (ported: {', '.join(PORTED_ARCHS)})")
     return importlib.import_module(f"repro_torch.configs.{name}")
 
 

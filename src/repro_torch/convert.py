@@ -7,9 +7,12 @@ reference's) and its numpy inputs. A model's parameters and caches are
 carried across as numpy trees (``jax.tree_util.tree_map(np.asarray, ...)``
 of the reference's), bits unchanged, bf16 included: the reference stacks a
 group's ``repeat`` copies of each leaf on a leading axis, and the port keeps
-them as separate layers (index ``r * period + i``). Every leaf maps by its
-path, so MoE leaves (the f32 router, the ``(E, d, f)`` expert weights, the
-shared experts) and the sliding-window layers' K/V rings move the same way.
+them as separate layers (index ``r * period + i``); the encoder of an
+encoder-decoder stacks its ``n_encoder_layers`` blocks the same way. Every
+leaf maps by its path, so MoE leaves (the f32 router, the ``(E, d, f)``
+expert weights, the shared experts), Mamba leaves (A_log, D, dt_bias and
+the norm in f32), the sliding-window layers' K/V rings, the SSM state and
+conv windows and the cross K/V move the same way.
 """
 from __future__ import annotations
 
@@ -52,27 +55,38 @@ def _tree(tree, fn):
     return fn(tree)
 
 
-def _unstack_groups(groups, cfg, device):
+def _unstack_groups(groups, shapes, device):
+    """``groups`` of stacked layers, one ``(period, repeat)`` of ``shapes``
+    each, as lists of ``repeat * period`` layers."""
     out = []
-    for g, gtree in zip(cfg.groups(), groups):
+    for (period, repeat), gtree in zip(shapes, groups):
         layers = []
-        for r in range(g.repeat):
-            for i in range(len(g.period)):
-                pick = (lambda a, r=r: a[r]) if g.repeat > 1 else (lambda a: a)
+        for r in range(repeat):
+            for i in range(period):
+                pick = (lambda a, r=r: a[r]) if repeat > 1 else (lambda a: a)
                 layers.append(_tree(gtree["layers"][i],
                                     lambda a, pick=pick: tensor_from_numpy(pick(a), device)))
         out.append({"layers": layers})
     return out
 
 
+def _group_shapes(cfg):
+    return [(len(g.period), g.repeat) for g in cfg.groups()]
+
+
 def params_from_reference(tree, cfg, device) -> Dict:
     """The port's parameters from the reference's as a numpy tree."""
     out = {k: _tree(v, lambda a: tensor_from_numpy(a, device))
-           for k, v in tree.items() if k != "groups"}
-    out["groups"] = _unstack_groups(tree["groups"], cfg, device)
+           for k, v in tree.items() if k not in ("groups", "encoder")}
+    out["groups"] = _unstack_groups(tree["groups"], _group_shapes(cfg), device)
+    if "encoder" in tree:
+        enc = tree["encoder"]
+        out["encoder"] = {
+            "groups": _unstack_groups(enc["groups"], [(1, cfg.n_encoder_layers)], device),
+            "final_norm": tensor_from_numpy(enc["final_norm"], device)}
     return out
 
 
 def cache_from_reference(tree, cfg, device) -> Dict:
     """The port's decode cache from the reference's as a numpy tree."""
-    return {"groups": _unstack_groups(tree["groups"], cfg, device)}
+    return {"groups": _unstack_groups(tree["groups"], _group_shapes(cfg), device)}

@@ -3,12 +3,15 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch paper_fpdiv \\
       --smoke --device cpu --division-mode taylor_pallas
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3_12b
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek_moe_16b \\
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2_780m \\
       --smoke --device cpu
 
-``--arch`` takes every architecture the port serves (``configs.PORTED_ARCHS``:
-the dense ones, gemma3_12b's sliding window, the MoE models), at full width
-on the card or as its smoke config (``--smoke``).
+``--arch`` takes every architecture of ``configs.ARCH_IDS``, at full width
+on the card or as its smoke config (``--smoke``). As the reference's
+launcher, it prefills token prompts only: ``whisper_tiny`` (encoder frames)
+and ``llava_next_mistral_7b`` (prompt embeddings) stop at the engine's
+ValueError; ``ServingEngine.generate_batch(enc_embeds= / embeds=)`` serves
+them.
 
 ``--batch 1`` runs the single-request path; ``--batch N`` runs the batched
 path over N unequal-length prompts (the padded-prompt masking).
@@ -27,7 +30,7 @@ import time
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="paper_fpdiv",
-                    help="one of configs.PORTED_ARCHS")
+                    help="one of configs.ARCH_IDS")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--max-new", type=int, default=16)

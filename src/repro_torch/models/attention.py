@@ -1,14 +1,16 @@
 """Attention (GQA): full causal and sliding-window for training/prefill,
-and one-token decode against a full cache or a W-sized ring.
+cross attention on precomputed K/V, and one-token decode against a full
+cache, a W-sized ring or the cross K/V.
 
-The PyTorch counterpart of the self-attention parts of
-``src/repro/models/attention.py``, with its layouts: ``wq`` is ``(d, H,
+The PyTorch counterpart of ``src/repro/models/attention.py``, with its
+layouts: ``wq`` is ``(d, H,
 hd)``, ``wo`` is ``(H, hd, d)``, activations ``(b, s, h, hd)``. Softmax
 denominators go through the division unit (``division_modes.softmax`` on
 the materialised f32 scores). Sliding-window attention is block-local, as
 in the reference: each W-sized query block sees the previous and its own
-key block, O(S*W). The reference's sharding annotations are dropped (one
-card). Cross attention waits for the encoder-decoder slice.
+key block, O(S*W). Cross attention takes its K/V as given (no rope on
+them or on its queries) and masks nothing. The reference's sharding
+annotations are dropped (one card).
 
 The decode KV cache is updated in place (``index_put_``), where the JAX
 reference builds a new cache array: the cache passed to
@@ -49,10 +51,12 @@ def _repeat_kv(k, n_rep: int):
 
 
 def _sdpa(q, k, v, mask, div: dm.DivisionConfig, scale: float):
-    """q: (b,qs,h,hd), k/v: (b,ks,h,hd), mask: broadcastable to (b,h,qs,ks)."""
+    """q: (b,qs,h,hd), k/v: (b,ks,h,hd), mask: broadcastable to (b,h,qs,ks),
+    or None where every key is seen."""
     scores = torch.einsum("bqhk,bthk->bhqt", q.to(torch.float32),
                           k.to(torch.float32)) * scale
-    scores = torch.where(mask, scores, NEG_INF)
+    if mask is not None:
+        scores = torch.where(mask, scores, NEG_INF)
     probs = dm.softmax(scores, axis=-1, cfg=div)
     return torch.einsum("bhqt,bthk->bqhk", probs.to(v.dtype), v)
 
@@ -61,8 +65,12 @@ def rope_apply(x, positions, cfg: ModelConfig):
     return rope(x, positions, cfg.rope_theta)
 
 
-def full_attention(p, x, positions, cfg: ModelConfig, *, return_kv: bool = False):
-    """Training/prefill causal attention, query-chunked above cfg.attn_chunk.
+def full_attention(p, x, positions, cfg: ModelConfig, *, causal: bool = True,
+                   kv_override=None, return_kv: bool = False):
+    """Training/prefill attention, query-chunked above cfg.attn_chunk:
+    causal self-attention, or (``kv_override``: the precomputed cross
+    ``(k, v)``, not roped, nor are the queries) cross attention, which masks
+    nothing; ``causal=False`` unmasks self-attention too.
 
     With ``return_kv`` it also returns the post-rope ``(k, v)`` before the
     GQA repeat, which prefill stores in the cache (the reference recomputes
@@ -70,13 +78,18 @@ def full_attention(p, x, positions, cfg: ModelConfig, *, return_kv: bool = False
     """
     b, s, _ = x.shape
     scale = 1.0 / math.sqrt(cfg.head_dim)
-    q = rope_apply(_proj(x, p["wq"]), positions, cfg)
-    k = rope_apply(_proj(x, p["wk"]), positions, cfg)
-    v = _proj(x, p["wv"])
+    if kv_override is not None:
+        q = _proj(x, p["wq"])
+        k, v = kv_override
+    else:
+        q = rope_apply(_proj(x, p["wq"]), positions, cfg)
+        k = rope_apply(_proj(x, p["wk"]), positions, cfg)
+        v = _proj(x, p["wv"])
     kr, vr = _repeat_kv(k, cfg.q_per_kv), _repeat_kv(v, cfg.q_per_kv)
+    masked = causal and kv_override is None
 
     def attend(qc, qpos):
-        mask = qpos[:, None, :, None] >= positions[:, None, None, :]
+        mask = qpos[:, None, :, None] >= positions[:, None, None, :] if masked else None
         return _sdpa(qc, kr, vr, mask, cfg.division, scale)
 
     chunk = cfg.attn_chunk
@@ -157,9 +170,13 @@ def decode_positions(pos, batch: int, device=None) -> torch.Tensor:
     return pos_v
 
 
-def decode_attention(p, x, cache, pos, cfg: ModelConfig, *, window: int = 0):
+def decode_attention(p, x, cache, pos, cfg: ModelConfig, *, window: int = 0,
+                     kv_override=None):
     """One-token decode. x: (b, 1, d); cache k/v: (b, L, kv, hd); pos: a
     scalar or a per-request (b,) vector of absolute positions.
+
+    With ``kv_override`` (the cross ``(k, v)``) the query attends to every
+    cross key, unroped, and ``cache`` is returned as it came.
 
     Full-attention layers (``window`` 0): request i writes its k/v at slot
     pos_i (in place) and attends to slots 0..pos_i, so pad slots of a padded
@@ -170,6 +187,10 @@ def decode_attention(p, x, cache, pos, cfg: ModelConfig, *, window: int = 0):
     """
     b = x.shape[0]
     scale = 1.0 / math.sqrt(cfg.head_dim)
+    if kv_override is not None:
+        k_all, v_all = (_repeat_kv(t, cfg.q_per_kv) for t in kv_override)
+        out = _sdpa(_proj(x, p["wq"]), k_all, v_all, None, cfg.division, scale)
+        return _out_proj(out, p["wo"]), cache
     pos_v = decode_positions(pos, b, x.device)
     posv = pos_v[:, None]
     q = rope_apply(_proj(x, p["wq"]), posv, cfg)

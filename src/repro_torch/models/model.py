@@ -1,16 +1,17 @@
-"""Model assembly for decoder-only stacks: attention or sliding-window
-mixers, dense or MoE FFNs.
+"""Model assembly: decoder stacks of attention, sliding-window and Mamba-2
+mixers with dense, MoE or no FFNs, the encoder-decoder's encoder and cross
+attention, and embedding inputs.
 
-The PyTorch counterpart of ``src/repro/models/model.py`` for the ``attn`` and
-``swa`` mixers and the ``dense`` and ``moe`` FFNs. The reference lowers each
-group of layers as one ``lax.scan`` over stacked parameters; here a Python
-loop runs a group's ``repeat * period`` layers in order (see :mod:`.params`
-for the layout). SSM (mamba) mixers, cross attention and embedding inputs
-are not ported yet and raise.
+The PyTorch counterpart of ``src/repro/models/model.py``. The reference
+lowers each group of layers as one ``lax.scan`` over stacked parameters;
+here a Python loop runs a group's ``repeat * period`` layers in order (see
+:mod:`.params` for the layout).
 
 Modes: ``train`` (no cache), ``prefill`` (emit cache), ``decode`` (carry
-cache; updated in place, see :mod:`.attention`). Sliding-window layers keep
-a W-slot ring cache: slot = position % W.
+cache). Sliding-window layers keep a W-slot ring cache: slot = position %
+W; attention K/V are updated in place (see :mod:`.attention`), a Mamba
+layer's state and conv window are replaced each step, and an
+encoder-decoder's cross K/V are computed at prefill and read as they are.
 """
 from __future__ import annotations
 
@@ -19,15 +20,14 @@ from typing import Any, Dict, List
 import torch
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
-from .attention import (decode_attention, decode_positions, full_attention,
+from .attention import (_proj, decode_attention, decode_positions, full_attention,
                         init_cache_attn, sliding_attention)
 from .layers import embed_tokens, gated_mlp, lm_logits, rms_norm
+from .mamba2 import decode_mamba, init_cache_mamba, mamba_mixer
 from .moe import moe_ffn
 from .params import torch_dtype
 
-__all__ = ["block_forward", "forward", "make_cache", "group_layers"]
-
-_NOT_PORTED = "ROADMAP Queue 1 item 10"
+__all__ = ["block_forward", "encode", "forward", "make_cache", "group_layers"]
 
 
 def group_layers(group) -> List[LayerSpec]:
@@ -66,58 +66,102 @@ def _ring_from_prefill(k, window: int, lengths=None):
 
 
 def block_forward(bp: Dict, x, spec: LayerSpec, cfg: ModelConfig, positions,
-                  *, mode: str, cache=None, pos=None, lengths=None):
-    """One block; returns (x, new_cache, aux). ``lengths`` (prefill only):
-    the real prompt lengths of a right-padded batch, which keep pad tokens
-    out of sliding-window rings."""
-    if spec.mixer not in ("attn", "swa"):
-        raise NotImplementedError(
-            f"{spec.mixer} mixers (SSM) are not ported yet ({_NOT_PORTED})")
-    if spec.ffn not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"{spec.ffn} FFN blocks (SSM) are not ported yet ({_NOT_PORTED})")
-    if "cross" in bp:
-        raise NotImplementedError(
-            f"cross attention (encoder-decoder) is not ported yet ({_NOT_PORTED})")
+                  *, mode: str, cache=None, pos=None, enc_out=None, lengths=None):
+    """One block; returns (x, new_cache, aux). ``enc_out`` (train and
+    prefill of an encoder-decoder): the encoder's output, which the cross
+    attention projects to K/V. ``lengths`` (prefill only): the real prompt
+    lengths of a right-padded batch, which make pad tokens SSM no-ops and
+    keep them out of sliding-window rings."""
     div = cfg.division
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache: Dict[str, Any] = {}
-    window = cfg.sliding_window if spec.mixer == "swa" else 0
     h = rms_norm(x, bp["mixer_norm"], div, cfg.norm_eps)
-    if mode == "decode":
-        ah, new_cache["attn"] = decode_attention(bp["attn"], h, cache["attn"],
-                                                 pos, cfg, window=window)
+    if spec.mixer == "mamba":
+        if mode == "decode":
+            mh, new_cache["mamba"] = decode_mamba(bp["mamba"], h, cache["mamba"], cfg)
+        elif mode == "prefill":
+            mh, new_cache["mamba"] = mamba_mixer(bp["mamba"], h, cfg, return_state=True,
+                                                 lengths=lengths)
+        else:
+            mh = mamba_mixer(bp["mamba"], h, cfg)
+        x = x + mh
     else:
-        fn = sliding_attention if window else full_attention
-        ah, (k, v) = fn(bp["attn"], h, positions, cfg, return_kv=True)
-        if mode == "prefill":
-            if window:
-                k = _ring_from_prefill(k, window, lengths)
-                v = _ring_from_prefill(v, window, lengths)
-            dt = torch_dtype(cfg.param_dtype)
-            new_cache["attn"] = {"k": k.to(dt), "v": v.to(dt)}
-    x = x + ah
-    h2 = rms_norm(x, bp["ffn_norm"], div, cfg.norm_eps)
-    if spec.ffn == "moe":
-        ff, a = moe_ffn(bp["ffn"], h2, cfg)
-        aux = aux + a
-    else:
-        ff = gated_mlp(bp["ffn"], h2)
-    return x + ff, new_cache, aux
+        window = cfg.sliding_window if spec.mixer == "swa" else 0
+        if mode == "decode":
+            ah, new_cache["attn"] = decode_attention(bp["attn"], h, cache["attn"],
+                                                     pos, cfg, window=window)
+        else:
+            fn = sliding_attention if window else full_attention
+            ah, (k, v) = fn(bp["attn"], h, positions, cfg, return_kv=True)
+            if mode == "prefill":
+                if window:
+                    k = _ring_from_prefill(k, window, lengths)
+                    v = _ring_from_prefill(v, window, lengths)
+                dt = torch_dtype(cfg.param_dtype)
+                new_cache["attn"] = {"k": k.to(dt), "v": v.to(dt)}
+        x = x + ah
+
+    if "cross" in bp:  # encoder-decoder cross attention (no rope on its K/V)
+        hc = rms_norm(x, bp["cross_norm"], div, cfg.norm_eps)
+        if mode == "decode":
+            kv = (cache["cross"]["ck"], cache["cross"]["cv"])
+            ch, _ = decode_attention(bp["cross"], hc, None, pos, cfg, kv_override=kv)
+            new_cache["cross"] = cache["cross"]
+        else:
+            ck, cv = _proj(enc_out, bp["cross"]["wk"]), _proj(enc_out, bp["cross"]["wv"])
+            ch = full_attention(bp["cross"], hc, positions, cfg, causal=False,
+                                kv_override=(ck, cv))
+            if mode == "prefill":
+                new_cache["cross"] = {"ck": ck, "cv": cv}
+        x = x + ch
+
+    if spec.ffn != "none":
+        h2 = rms_norm(x, bp["ffn_norm"], div, cfg.norm_eps)
+        if spec.ffn == "moe":
+            ff, a = moe_ffn(bp["ffn"], h2, cfg)
+            aux = aux + a
+        else:
+            ff = gated_mlp(bp["ffn"], h2)
+        x = x + ff
+    return x, new_cache, aux
 
 
-def forward(cfg: ModelConfig, params, *, tokens, cache=None, pos=None,
-            mode: str = "train", lengths=None):
+def encode(cfg: ModelConfig, enc_params, enc_embeds):
+    """The encoder over stub frontend embeddings (b, s, d_model): attention
+    and dense blocks, then the final norm. Its attention is causal: the
+    reference's ``encode`` runs ``full_attention`` with its default
+    ``causal=True`` (ROADMAP F9)."""
+    b, s, _ = enc_embeds.shape
+    x = enc_embeds.to(torch_dtype(cfg.param_dtype))
+    positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
+    spec = LayerSpec("attn", "dense")
+    for lp in enc_params["groups"][0]["layers"]:
+        x, _, _ = block_forward(lp, x, spec, cfg, positions, mode="train")
+    return rms_norm(x, enc_params["final_norm"], cfg.division, cfg.norm_eps)
+
+
+def forward(cfg: ModelConfig, params, *, tokens=None, embeds=None, cache=None, pos=None,
+            mode: str = "train", enc_embeds=None, lengths=None):
     """Returns (logits (b, s, V) f32, new_cache, aux f32 scalar).
 
-    ``pos`` (decode) is a scalar or a per-request (b,) vector. ``lengths``
-    (prefill) marks per-request real prompt lengths of a right-padded batch:
-    pad positions are kept out of sliding-window rings.
+    ``embeds`` (b, s, d_model) take the place of ``tokens`` for an
+    embedding-input model (not an encoder-decoder); ``enc_embeds`` feed an
+    encoder-decoder's encoder in train and prefill (decode reads the cross
+    K/V from the cache). ``pos`` (decode) is a scalar or a per-request (b,)
+    vector. ``lengths`` (prefill) marks per-request real prompt lengths of a
+    right-padded batch: pad positions become SSM no-ops and are kept out of
+    sliding-window rings.
     """
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
-    x = embed_tokens(params["embed"], tokens, cfg)
-    b, s = tokens.shape
+    enc_out = None
+    if cfg.is_encoder_decoder and mode != "decode":
+        enc_out = encode(cfg, params["encoder"], enc_embeds)
+    if embeds is not None and cfg.embed_inputs and not cfg.is_encoder_decoder:
+        x = embeds.to(torch_dtype(cfg.param_dtype))
+    else:
+        x = embed_tokens(params["embed"], tokens, cfg)
+    b, s = x.shape[0], x.shape[1]
     if mode == "decode":
         pos = decode_positions(pos, b, x.device)
         positions = pos[:, None]
@@ -136,7 +180,7 @@ def forward(cfg: ModelConfig, params, *, tokens, cache=None, pos=None,
             lc = cache["groups"][gi]["layers"][li] if mode == "decode" else None
             x, nc, a = block_forward(layers[li], x, spec, cfg, positions,
                                      mode=mode, cache=lc, pos=pos,
-                                     lengths=lengths)
+                                     enc_out=enc_out, lengths=lengths)
             caches.append(nc)
             aux = aux + a
         new_groups.append({"layers": caches})
@@ -148,17 +192,23 @@ def forward(cfg: ModelConfig, params, *, tokens, cache=None, pos=None,
 
 def make_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
     """Zero decode cache in the parameters' grouped layout: ``max_len`` slots
-    for full-attention layers, W-slot rings for sliding-window layers."""
+    for full-attention layers, W-slot rings for sliding-window layers, the
+    SSM state and conv windows for Mamba layers, and an encoder-decoder's
+    ``encoder_seq``-long cross K/V."""
     dt = torch_dtype(cfg.param_dtype)
     groups = []
     for g in cfg.groups():
         layers = []
         for spec in group_layers(g):
-            if spec.mixer not in ("attn", "swa"):
-                raise NotImplementedError(
-                    f"{spec.mixer} caches (SSM) are not ported yet ({_NOT_PORTED})")
-            window = cfg.sliding_window if spec.mixer == "swa" else 0
-            layers.append({"attn": init_cache_attn(cfg, batch, max_len, window,
-                                                   dt, device)})
+            if spec.mixer == "mamba":
+                lc = {"mamba": init_cache_mamba(cfg, batch, dt, device)}
+            else:
+                window = cfg.sliding_window if spec.mixer == "swa" else 0
+                lc = {"attn": init_cache_attn(cfg, batch, max_len, window, dt, device)}
+            if cfg.is_encoder_decoder:
+                shape = (batch, cfg.encoder_seq, cfg.n_kv_heads, cfg.head_dim)
+                lc["cross"] = {"ck": torch.zeros(shape, dtype=dt, device=device),
+                               "cv": torch.zeros(shape, dtype=dt, device=device)}
+            layers.append(lc)
         groups.append({"layers": layers})
     return {"groups": groups}

@@ -1,12 +1,13 @@
-"""Parameter specs and concrete init for the attention, dense and MoE blocks.
+"""Parameter specs and concrete init for every block: attention, Mamba-2,
+cross attention, dense and MoE FFNs, and the encoder.
 
 The PyTorch counterpart of ``src/repro/models/params.py``. Parameters are a
 plain dict tree with the reference's grouping, ``{"embed", "groups":
-[{"layers": [...]}], "final_norm", "lm_head"}``, except that a group's
-``repeat`` copies are separate entries of ``layers`` (index ``r * period +
-i``) instead of leaves stacked on a leading axis: the port loops over
-layers where the reference scans. ``convert.params_from_reference`` maps one
-layout onto the other.
+[{"layers": [...]}], "final_norm", "lm_head", "encoder": {"groups",
+"final_norm"}}``, except that a group's ``repeat`` copies are separate
+entries of ``layers`` (index ``r * period + i``) instead of leaves stacked
+on a leading axis: the port loops over layers where the reference scans.
+``convert.params_from_reference`` maps one layout onto the other.
 
 ``init_params`` draws from a ``torch.Generator`` with the reference's scales
 and dtypes. The two packages' random streams differ (and the reference's
@@ -25,8 +26,6 @@ from repro_torch.configs.base import LayerSpec, ModelConfig
 
 __all__ = ["ParamSpec", "model_specs", "init_params", "param_count",
            "active_param_count", "torch_dtype"]
-
-_NOT_PORTED = "ROADMAP Queue 1 item 10"
 
 
 @dataclass(frozen=True)
@@ -70,34 +69,66 @@ def _moe_specs(cfg: ModelConfig) -> Dict[str, Any]:
     return out
 
 
-def _block_specs(cfg: ModelConfig, spec: LayerSpec) -> Dict[str, Any]:
-    if spec.mixer == "mamba" or spec.ffn == "none":
-        raise NotImplementedError(
-            f"SSM blocks ({spec.mixer}/{spec.ffn}) are not ported yet "
-            f"({_NOT_PORTED})")
-    d = cfg.d_model
-    return {"mixer_norm": ParamSpec((d,), init="ones", dtype="float32"),
-            "attn": _attn_specs(cfg),
-            "ffn_norm": ParamSpec((d,), init="ones", dtype="float32"),
-            "ffn": (_moe_specs(cfg) if spec.ffn == "moe"
-                    else _mlp_specs(cfg, cfg.dense_ff))}
+def _mamba_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    d, din, n, h, w = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.conv_width
+    s = 1.0 / np.sqrt(d)
+    return {"wz": ParamSpec((d, din), scale=s),
+            "wx": ParamSpec((d, din), scale=s),
+            "wB": ParamSpec((d, n), scale=s),
+            "wC": ParamSpec((d, n), scale=s),
+            "wdt": ParamSpec((d, h), scale=s),
+            "conv_x": ParamSpec((w, din), scale=1.0 / np.sqrt(w)),
+            "conv_B": ParamSpec((w, n), scale=1.0 / np.sqrt(w)),
+            "conv_C": ParamSpec((w, n), scale=1.0 / np.sqrt(w)),
+            "A_log": ParamSpec((h,), init="zeros", dtype="float32"),
+            "D": ParamSpec((h,), init="ones", dtype="float32"),
+            "dt_bias": ParamSpec((h,), init="zeros", dtype="float32"),
+            "norm": ParamSpec((din,), init="ones", dtype="float32"),
+            "wout": ParamSpec((din, d), scale=1.0 / np.sqrt(din))}
+
+
+def _norm(cfg: ModelConfig) -> ParamSpec:
+    return ParamSpec((cfg.d_model,), init="ones", dtype="float32")
+
+
+def _block_specs(cfg: ModelConfig, spec: LayerSpec, cross: bool = False) -> Dict[str, Any]:
+    """A block: its mixer (attention or Mamba), the cross attention of an
+    encoder-decoder's decoder, and its FFN unless ``ffn == "none"``."""
+    out: Dict[str, Any] = {"mixer_norm": _norm(cfg)}
+    if spec.mixer == "mamba":
+        out["mamba"] = _mamba_specs(cfg)
+    else:
+        out["attn"] = _attn_specs(cfg)
+    if cross:
+        out["cross_norm"] = _norm(cfg)
+        out["cross"] = _attn_specs(cfg)
+    if spec.ffn != "none":
+        out["ffn_norm"] = _norm(cfg)
+        out["ffn"] = (_moe_specs(cfg) if spec.ffn == "moe"
+                      else _mlp_specs(cfg, cfg.dense_ff))
+    return out
 
 
 def model_specs(cfg: ModelConfig) -> Dict[str, Any]:
-    """The spec tree of a decoder-only model (attention or sliding-window
-    mixers, dense or MoE FFNs)."""
-    if cfg.is_encoder_decoder or cfg.embed_inputs:
-        raise NotImplementedError(
-            f"encoder-decoder (cross attention) and embedding-input models "
-            f"are not ported yet ({_NOT_PORTED})")
+    """The spec tree of a model. A VLM keeps its text embedding table
+    (decode reads generated tokens; only prefill takes embeddings); an
+    encoder-decoder adds ``n_encoder_layers`` attention/dense blocks and
+    their final norm under ``encoder``."""
     d, V = cfg.d_model, cfg.vocab
-    out: Dict[str, Any] = {"embed": ParamSpec((V, d), scale=1.0)}
-    out["groups"] = [{"layers": [_block_specs(cfg, s)
+    out: Dict[str, Any] = {}
+    if not cfg.embed_inputs or cfg.is_encoder_decoder or cfg.family == "vlm":
+        out["embed"] = ParamSpec((V, d), scale=1.0)
+    out["groups"] = [{"layers": [_block_specs(cfg, s, cross=cfg.is_encoder_decoder)
                                  for _ in range(g.repeat) for s in g.period]}
                      for g in cfg.groups()]
-    out["final_norm"] = ParamSpec((d,), init="ones", dtype="float32")
+    out["final_norm"] = _norm(cfg)
     if not cfg.tie_embeddings:
         out["lm_head"] = ParamSpec((d, V), scale=1.0 / np.sqrt(d))
+    if cfg.is_encoder_decoder:
+        enc = LayerSpec("attn", "dense")
+        out["encoder"] = {"groups": [{"layers": [_block_specs(cfg, enc)
+                                                 for _ in range(cfg.n_encoder_layers)]}],
+                          "final_norm": _norm(cfg)}
     return out
 
 

@@ -1,21 +1,29 @@
 """Serving engine: prefill + batched greedy decode with per-layer-kind caches.
 
-The PyTorch counterpart of ``src/repro/serving/engine.py`` for token-input
-decoders: full-length K/V for global attention layers, W-slot ring caches
-for sliding-window layers. Eager PyTorch takes the place of ``jax.jit``; the
-caches are updated in place (the reference rebuilds them), so a cache handed
-to :func:`decode_step` or :func:`_insert_cache_row` is the one returned.
+The PyTorch counterpart of ``src/repro/serving/engine.py``: full-length K/V
+for global attention layers, W-slot ring caches for sliding-window layers,
+the O(1) SSM state and conv windows for Mamba layers, and an
+encoder-decoder's cross K/V. Eager PyTorch takes the place of ``jax.jit``;
+attention K/V and inserted rows are written in place (the reference
+rebuilds them) while a Mamba layer's state is replaced each step, so after
+:func:`decode_step` read the cache it returns.
 
 Padded-prompt correctness: prompts of unequal length are right-padded to a
-multiple of the window (the block-local attention's alignment), but padding
-never leaks into the output: prefill gathers each request's logit at
-``len(prompt) - 1`` and keeps pad tokens out of the rings (``lengths``),
-and decode runs at per-request positions, so request i's token t lands at
+multiple of the window and the SSM chunk (the block-local attention's and
+the chunked scan's alignment), but padding never leaks into the output:
+prefill gathers each request's logit at ``len(prompt) - 1``, keeps pad
+tokens out of the rings and makes them SSM no-ops (``lengths``), and
+decode runs at per-request positions, so request i's token t lands at
 absolute position ``len(prompt_i) + t`` and attends to nothing above it.
 ``generate_batch`` is therefore token-identical to single-request
 ``generate`` (where the matmuls do not depend on the batch's shape, as on
 the CPU in f32, and where MoE capacity drops nothing: pad tokens take
 capacity, as in the reference).
+
+Embedding-input (VLM) configs prefill from ``embeds`` and encoder-decoder
+configs from ``enc_embeds`` plus token prompts, through
+``generate_batch`` / ``generate``; ``serve()`` refuses both, as the
+reference does.
 
 ``ServingEngine.serve`` is the continuous-batching loop: admit a request
 into a free slot (single-row prefill + cache row insert), decode all active
@@ -25,6 +33,7 @@ division unit is a serving knob (``division=``).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -41,18 +50,28 @@ __all__ = ["alignment", "prefill", "decode_step", "pad_cache_to", "Request",
 
 def alignment(cfg: ModelConfig) -> int:
     """Prompt lengths pad to a multiple of this: the window, which the
-    block-local sliding attention needs (the SSM chunk joins it when the SSM
-    slice is ported)."""
-    return cfg.sliding_window if cfg.sliding_window else 1
+    block-local sliding attention needs, and for SSM and hybrid models its
+    lcm with ``ssm_chunk``, which the chunked scan needs."""
+    a = cfg.sliding_window if cfg.sliding_window else 1
+    if cfg.family in ("ssm", "hybrid"):
+        a = math.lcm(a, cfg.ssm_chunk)
+    return a
 
 
-def prefill(cfg: ModelConfig, params, tokens, *, lengths=None):
-    """Returns (last_logits (B, V), cache). Seq must respect the window
-    alignment. With per-request ``lengths`` the logits are gathered at each
+def prefill(cfg: ModelConfig, params, tokens, *, enc_embeds=None, embeds=None,
+            lengths=None):
+    """Returns (last_logits (B, V), cache). Seq must respect the alignment.
+    Embedding-input configs prefill from ``embeds`` (B, S, d_model),
+    encoder-decoders from ``tokens`` and ``enc_embeds`` (B, encoder_seq,
+    d_model). With per-request ``lengths`` the logits are gathered at each
     request's last real position ``lengths[i] - 1`` and pad positions are
-    kept out of the rings; without, the final position is used."""
-    logits, cache, _ = forward(cfg, params, tokens=tokens, mode="prefill",
-                               lengths=lengths)
+    masked out of the caches; without, the final position is used."""
+    kw = {"enc_embeds": enc_embeds} if cfg.is_encoder_decoder else {}
+    if cfg.embed_inputs and not cfg.is_encoder_decoder:
+        kw["embeds"] = embeds
+    else:
+        kw["tokens"] = tokens
+    logits, cache, _ = forward(cfg, params, mode="prefill", lengths=lengths, **kw)
     if lengths is None:
         return logits[:, -1], cache
     lv = torch.as_tensor(lengths, device=logits.device).long()
@@ -71,7 +90,8 @@ def pad_cache_to(cache, from_len: int, to_len: int, cfg: ModelConfig):
     """Grow the full-attention K/V caches from ``from_len`` to ``to_len``
     slots along the sequence axis (axis -3), chosen by walking the cache
     beside ``cfg.groups()``: only ``attn`` layers' K/V are padded;
-    sliding-window rings keep their W slots, even where W == from_len."""
+    sliding-window rings keep their W slots, even where W == from_len, and
+    SSM state, conv windows and cross K/V pass through."""
     if to_len < from_len:
         raise ValueError(f"pad_cache_to: to_len {to_len} < from_len {from_len}")
     if to_len == from_len:
@@ -97,8 +117,9 @@ def pad_cache_to(cache, from_len: int, to_len: int, cfg: ModelConfig):
 def _insert_cache_row(cache, row, slot: int, cfg: ModelConfig):
     """Write single-request cache ``row`` (batch 1) into batch slot ``slot``,
     in place (the batch axis is 0 in every leaf: layers are not stacked).
-    Full-attention rows arrive grown to ``max_len`` and rings at W, the
-    sizes of the batch cache's leaves."""
+    Full-attention rows arrive grown to ``max_len``, rings at W, SSM state
+    and conv windows at their fixed sizes: those of the batch cache's
+    leaves."""
     for gc, rc in zip(cache["groups"], row["groups"]):
         for lc, lr in zip(gc["layers"], rc["layers"]):
             for kind, leaves in lc.items():
@@ -128,10 +149,6 @@ class ServingEngine:
                  eos_id: Optional[int] = None):
         if division is not None:
             cfg = dataclasses.replace(cfg, division=division)
-        if cfg.embed_inputs or cfg.is_encoder_decoder or cfg.family in ("ssm", "hybrid"):
-            raise NotImplementedError("serving embedding-input, encoder-decoder "
-                                      "and SSM models is not ported yet "
-                                      "(ROADMAP Queue 1 item 11)")
         self.cfg = cfg
         self.params = params
         self.max_len = max_len
@@ -140,6 +157,13 @@ class ServingEngine:
 
     def _prefill_tok(self, tokens, lengths):
         return prefill(self.cfg, self.params, tokens, lengths=lengths)
+
+    def _prefill_emb(self, embeds, lengths):
+        return prefill(self.cfg, self.params, None, embeds=embeds, lengths=lengths)
+
+    def _prefill_enc(self, tokens, enc_embeds, lengths):
+        return prefill(self.cfg, self.params, tokens, enc_embeds=enc_embeds,
+                       lengths=lengths)
 
     def _decode(self, cache, tokens, pos):
         return decode_step(self.cfg, self.params, cache, tokens, pos)
@@ -164,25 +188,56 @@ class ServingEngine:
 
     # ----------------------------------------------------------- static batch
 
-    def generate_batch(self, prompts, max_new: int = 32):
-        """Batched requests of unequal length: right-pad to the longest,
-        prefill once, then decode all slots in lockstep at per-request
-        positions. Returns a list of generated-token lists."""
-        if not prompts:
-            raise ValueError("generate_batch: empty prompt list")
-        if any(len(p) == 0 for p in prompts):
-            raise ValueError("generate_batch: empty prompt")
-        lens = [len(p) for p in prompts]
-        B, s_max = len(prompts), max(lens)
+    def generate_batch(self, prompts, max_new: int = 32, *, enc_embeds=None,
+                       embeds=None):
+        """Batched requests of unequal length: right-pad to the aligned
+        longest, prefill once, then decode all slots in lockstep at
+        per-request positions. Returns a list of generated-token lists.
+
+        Embedding-input (VLM) configs take ``embeds``, a list of per-request
+        ``(len_i, d_model)`` arrays or tensors, in place of ``prompts``
+        (decode reads the generated tokens). Encoder-decoder configs also
+        take ``enc_embeds`` (B, encoder_seq, d_model)."""
+        cfg = self.cfg
+        vlm = cfg.embed_inputs and not cfg.is_encoder_decoder
+        if vlm:
+            if embeds is None:
+                raise ValueError(
+                    f"config '{cfg.name}' has embed_inputs=True: pass "
+                    "embeds=[...(len_i, d_model) arrays] (prompt tokens have "
+                    "no embedding path at prefill)")
+            lens = [int(e.shape[0]) for e in embeds]
+        else:
+            if not prompts:
+                raise ValueError("generate_batch: empty prompt list")
+            if any(len(p) == 0 for p in prompts):
+                raise ValueError("generate_batch: empty prompt")
+            lens = [len(p) for p in prompts]
+        if cfg.is_encoder_decoder and enc_embeds is None:
+            raise ValueError(
+                f"config '{cfg.name}' is encoder-decoder: pass "
+                "enc_embeds=(B, encoder_seq, d_model)")
+        B, s_max = len(lens), max(lens)
         pad_to = self._pad_to(s_max)
         self._check_fits(s_max, max_new, pad_to)
-        toks = np.zeros((B, pad_to), np.int64)
-        for i, p in enumerate(prompts):
-            toks[i, :len(p)] = p          # zero right-pad; pads never attended
         lengths = torch.tensor(lens, dtype=torch.int32, device=self.device)
-        last_logits, cache = self._prefill_tok(
-            torch.from_numpy(toks).to(self.device), lengths)
-        cache = pad_cache_to(cache, pad_to, self.max_len, self.cfg)
+        if vlm:
+            emb = torch.zeros((B, pad_to, cfg.d_model), dtype=torch.float32,
+                              device=self.device)
+            for i, e in enumerate(embeds):
+                emb[i, :lens[i]] = torch.as_tensor(e, dtype=torch.float32)
+            last_logits, cache = self._prefill_emb(emb, lengths)
+        else:
+            toks = np.zeros((B, pad_to), np.int64)
+            for i, p in enumerate(prompts):
+                toks[i, :len(p)] = p      # zero right-pad; pads are masked out
+            toks = torch.from_numpy(toks).to(self.device)
+            if cfg.is_encoder_decoder:
+                last_logits, cache = self._prefill_enc(
+                    toks, torch.as_tensor(enc_embeds, device=self.device), lengths)
+            else:
+                last_logits, cache = self._prefill_tok(toks, lengths)
+        cache = pad_cache_to(cache, pad_to, self.max_len, cfg)
         pos_v = lengths                   # request i's first new token: len_i
         tok = self._argmax(last_logits)
         outs: List[List[int]] = [[] for _ in range(B)]
@@ -200,9 +255,16 @@ class ServingEngine:
             pos_v = pos_v + 1
         return outs
 
-    def generate(self, prompt_tokens, max_new: int = 32):
-        """Single-request generate: the batch-of-one ``generate_batch``."""
-        return self.generate_batch([list(prompt_tokens)], max_new)[0]
+    def generate(self, prompt_tokens=None, max_new: int = 32, *, enc_embeds=None,
+                 embeds=None):
+        """Single-request generate: the batch-of-one ``generate_batch``
+        (``enc_embeds`` may come without its batch axis)."""
+        if enc_embeds is not None and np.ndim(enc_embeds) == 2:
+            enc_embeds = torch.as_tensor(enc_embeds)[None]
+        prompts = None if prompt_tokens is None else [list(prompt_tokens)]
+        embs = None if embeds is None else [embeds]
+        return self.generate_batch(prompts, max_new, enc_embeds=enc_embeds,
+                                   embeds=embs)[0]
 
     # ------------------------------------------------------ continuous batch
 
@@ -212,6 +274,15 @@ class ServingEngine:
         release each on EOS / its own ``max_new``, refill from the queue.
         Mutates and returns the ``Request`` objects (``out``/``done``)."""
         cfg = self.cfg
+        if cfg.embed_inputs and not cfg.is_encoder_decoder:
+            raise ValueError(
+                f"serve() prefills token prompts; embed-input config "
+                f"'{cfg.name}' must use generate/generate_batch with embeds=")
+        if cfg.is_encoder_decoder:
+            raise ValueError(
+                f"serve() does not carry per-slot encoder state; "
+                f"encoder-decoder config '{cfg.name}' must use "
+                "generate/generate_batch with enc_embeds=")
         for r in requests:
             if not r.tokens:
                 raise ValueError("serve: empty prompt")

@@ -131,10 +131,10 @@ def test_kernel_modes_without_a_kernel_dtype_run_the_ftz_twin_on_cpu(mode):
 
 def test_not_ported_parts_raise():
     """Every mode of every division-unit op and consumer runs now (the ILM
-    modes and attention included); what is still not ported is the SSM,
-    encoder-decoder and embedding-input model families, which raise naming
-    their ROADMAP item."""
-    from repro_torch.configs import get_config
+    modes and attention included), and every model family of the reference
+    resolves (the SSM, encoder-decoder and embedding-input ones included);
+    what the reference refuses, an unknown architecture, is still refused."""
+    from repro_torch.configs import ARCH_IDS, get_config
 
     x = torch.ones(1, 4, 16)
     ilm = dm.DivisionConfig(mode="ilm")
@@ -143,5 +143,6 @@ def test_not_ported_parts_raise():
                  lambda: dm.rmsnorm(x, x[0, 0], ilm), lambda: dm.attention(x, x, x, ilm),
                  lambda: dm.attention(x, x, x)):
         assert bool(torch.isfinite(call()).all())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("mamba2_780m")
+    assert {get_config(a).family for a in ARCH_IDS} >= {"ssm", "hybrid", "audio", "vlm"}
+    with pytest.raises(ValueError, match="unknown arch"):
+        get_config("mamba3_780m")

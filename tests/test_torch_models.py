@@ -1,14 +1,19 @@
-"""The port's models (dense, sliding-window, MoE) against the live reference,
-on the same parameters.
+"""The port's models (dense, sliding-window, MoE, Mamba-2 and hybrid,
+encoder-decoder, embedding-input) against the live reference, on the same
+parameters.
 
 The reference's ``init_params`` output goes through numpy to the port
 (``convert.params_from_reference``), so both packages run the same weights;
 the smoke configs run with ``param_dtype="float32"``. The packages sum their
 matmuls and row reductions in different orders and use different exp, pow,
 sin and cos implementations (torch's CPU kernels vs XLA's), so logits are
-held to ``LOGIT_RTOL`` of the largest logit (measured: <= 6e-7) and greedy
-choices must agree on every position. Sequence lengths are multiples of the
-gemma smoke model's window (16), which its block-local attention needs.
+held to ``LOGIT_RTOL`` of the largest logit (measured: <= 6e-6, jamba's
+hybrid stack the largest) and greedy choices must agree on every position;
+caches are held leaf by leaf to ``LOGIT_RTOL`` of each leaf's largest
+value. Sequence lengths are multiples of the gemma smoke model's window and
+the SSM smoke models' chunk (16), which the block-local attention and the
+chunked scan need. Encoder-decoder models take seeded encoder frames,
+embedding-input models seeded prompt embeddings.
 """
 import dataclasses
 
@@ -26,6 +31,7 @@ from repro.models import forward as ref_forward
 from repro.models import init_params as ref_init_params
 from repro.models import layers as ref_layers
 from repro.models import param_count as ref_param_count
+from repro.models.model import encode as ref_encode
 from repro.models.params import active_param_count as ref_active_param_count
 from repro.serving import pad_cache_to as ref_pad_cache_to
 from repro_torch import convert
@@ -34,10 +40,12 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.division_modes import DivisionConfig
 from repro_torch.models import (active_param_count, forward, init_params, layers,
                                 param_count)
-from repro_torch.serving import pad_cache_to
+from repro_torch.models.model import encode
+from repro_torch.serving import ServingEngine, pad_cache_to
 
 ARCHS = ["paper_fpdiv", "tinyllama_1_1b", "llama3_8b", "granite_8b", "gemma3_12b",
-         "deepseek_moe_16b", "moonshot_v1_16b_a3b"]
+         "deepseek_moe_16b", "moonshot_v1_16b_a3b", "mamba2_780m", "jamba_1_5_large",
+         "whisper_tiny", "llava_next_mistral_7b"]
 MODES = ["exact", "taylor_pallas", "goldschmidt_pallas"]
 LOGIT_RTOL = 1e-5
 
@@ -65,6 +73,44 @@ def _close(got, want):
     np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
 
 
+def _inputs(cfg, toks, seed=5):
+    """(reference kwargs, port kwargs) of a forward on ``toks`` (b, s):
+    the tokens, or for an embedding-input model seeded prompt embeddings,
+    and for an encoder-decoder seeded encoder frames."""
+    rng = np.random.default_rng(seed)
+    b, s = toks.shape
+    ref, port = {}, {}
+    if cfg.embed_inputs and not cfg.is_encoder_decoder:
+        e = rng.normal(size=(b, s, cfg.d_model)).astype(np.float32)
+        ref["embeds"], port["embeds"] = jnp.asarray(e), torch.from_numpy(e)
+    else:
+        ref["tokens"], port["tokens"] = jnp.asarray(toks), torch.from_numpy(toks)
+    if cfg.is_encoder_decoder:
+        e = rng.normal(size=(b, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+        ref["enc_embeds"], port["enc_embeds"] = jnp.asarray(e), torch.from_numpy(e)
+    return ref, port
+
+
+def _cache_kinds(cache):
+    return {kind for g in cache["groups"] for lc in g["layers"] for kind in lc}
+
+
+def _caches_close(got, want_np):
+    """Every leaf of the port's cache against the reference's (as the port's
+    layout), each to LOGIT_RTOL of its largest value."""
+    for g, w in zip(got["groups"], want_np["groups"]):
+        assert len(g["layers"]) == len(w["layers"])
+        for lg, lw in zip(g["layers"], w["layers"]):
+            assert set(lg) == set(lw)
+            for kind in lg:
+                for name, t in lg[kind].items():
+                    ref = lw[kind][name].numpy()
+                    assert t.shape == ref.shape and t.dtype == lw[kind][name].dtype
+                    scale = np.abs(ref).max()
+                    diff = np.abs(t.numpy() - ref).max()
+                    assert diff <= LOGIT_RTOL * scale if scale else diff == 0, (kind, name)
+
+
 # ---------------------------------------------------------------- configs
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -87,19 +133,25 @@ def test_configs_are_the_reference_configs(arch):
 
 
 def test_unported_archs_raise_naming_the_roadmap_item():
+    """Every architecture of the reference is ported: the registry resolves
+    each, full and smoke, and its parameters and engine build; what the
+    reference refuses is still refused (an unknown arch, a bad layer spec,
+    serve() of an encoder-decoder or embedding-input model)."""
+    assert cfg_base.PORTED_ARCHS == cfg_base.ARCH_IDS
     for arch in cfg_base.ARCH_IDS:
-        if arch in cfg_base.PORTED_ARCHS:
-            continue
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
-            get_smoke_config(arch)
-    assert set(cfg_base.ARCH_IDS) - set(cfg_base.PORTED_ARCHS) == {
-        "mamba2_780m", "jamba_1_5_large", "whisper_tiny", "llava_next_mistral_7b"}
-    for arch, what in (("mamba2_780m", "SSM"), ("whisper_tiny", "encoder-decoder"),
-                       ("llava_next_mistral_7b", "embedding inputs")):
-        with pytest.raises(NotImplementedError, match=what):
-            get_config(arch)
+        assert get_config(arch).name == ref_get_config(arch).name
+        cfg = dataclasses.replace(get_smoke_config(arch), param_dtype="float32")
+        params = init_params(cfg, torch.Generator().manual_seed(0))
+        assert ServingEngine(cfg, params).cfg is cfg
     with pytest.raises(ValueError, match="unknown arch"):
         get_config("no_such_model")
+    with pytest.raises(ValueError, match="bad layer spec"):
+        cfg_base.LayerSpec("rnn", "dense")
+    for arch, what in (("whisper_tiny", "encoder-decoder"), ("llava_next_mistral_7b", "embed")):
+        cfg = dataclasses.replace(get_smoke_config(arch), param_dtype="float32")
+        eng = ServingEngine(cfg, init_params(cfg, torch.Generator().manual_seed(0)))
+        with pytest.raises(ValueError, match=what):
+            eng.serve([])
 
 
 def test_init_params_draws_from_the_generator_with_the_reference_scales():
@@ -144,24 +196,28 @@ def test_rope_matches_the_reference():
 @pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("mode", MODES)
 def test_forward_matches_the_reference_in_every_mode(arch, mode):
-    """train, prefill (with its cache) and one decode step from the
-    reference's own cache."""
+    """train, prefill (every leaf of its cache: attention K/V, SSM state
+    and conv tails, cross K/V) and one decode step from the reference's own
+    cache."""
     rc, pc = _pair(arch, mode)
     rp, pp = _params(rc, pc)
     toks = np.random.default_rng(1).integers(0, rc.vocab, (2, 32))
-    want, _, want_aux = ref_forward(rc, rp, tokens=jnp.asarray(toks), mode="train")
-    got, _, got_aux = forward(pc, pp, tokens=torch.from_numpy(toks), mode="train")
+    rk, pk = _inputs(rc, toks)
+    want, _, want_aux = ref_forward(rc, rp, mode="train", **rk)
+    got, _, got_aux = forward(pc, pp, mode="train", **pk)
     _close(got, want)
     np.testing.assert_allclose(float(got_aux), float(want_aux), rtol=1e-6)
     assert (float(want_aux) > 0) == bool(rc.n_experts)
-    want, rcache, _ = ref_forward(rc, rp, tokens=jnp.asarray(toks[:, :16]), mode="prefill")
-    got, pcache, _ = forward(pc, pp, tokens=torch.from_numpy(toks[:, :16]), mode="prefill")
+    rk, pk = _inputs(rc, toks[:, :16])
+    want, rcache, _ = ref_forward(rc, rp, mode="prefill", **rk)
+    got, pcache, _ = forward(pc, pp, mode="prefill", **pk)
     _close(got, want)
-    k_ref = np.asarray(rcache["groups"][0]["layers"][0]["attn"]["k"])
-    g0 = pc.groups()[0]                 # its last repeat's first layer
-    k_port = pcache["groups"][0]["layers"][(g0.repeat - 1) * len(g0.period)]["attn"]["k"].numpy()
-    np.testing.assert_allclose(k_port, k_ref[-1] if k_ref.ndim == 5 else k_ref,
-                               rtol=1e-5, atol=1e-5)
+    _caches_close(pcache, convert.cache_from_reference(
+        jax.tree_util.tree_map(np.asarray, rcache), pc, "cpu"))
+    kinds = {"attn"} if rc.family not in ("ssm", "hybrid") else {"mamba"}
+    kinds |= {"attn"} if rc.family == "hybrid" else set()
+    kinds |= {"cross"} if rc.is_encoder_decoder else set()
+    assert _cache_kinds(pcache) == kinds
     rcache = ref_pad_cache_to(rcache, 16, 24, rc)
     cache = convert.cache_from_reference(jax.tree_util.tree_map(np.asarray, rcache), pc, "cpu")
     pos = np.array([16, 11], np.int32)
@@ -174,18 +230,53 @@ def test_forward_matches_the_reference_in_every_mode(arch, mode):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_then_decode_matches_the_full_forward(arch):
-    # MoE at capacity_factor 8: the full forward drops no token either.
+    # MoE at capacity_factor 8: the full forward drops no token either. An
+    # embedding-input model runs on the embeddings of the tokens it decodes.
     _, cfg = _pair(arch, "taylor_pallas", capacity_factor=8.0)
     params = init_params(cfg, torch.Generator().manual_seed(0))
-    toks = torch.from_numpy(np.random.default_rng(2).integers(0, cfg.vocab, (2, 32)))
-    full, _, _ = forward(cfg, params, tokens=toks, mode="train")
-    _, cache, _ = forward(cfg, params, tokens=toks[:, :16], mode="prefill")
+    toks = np.random.default_rng(2).integers(0, cfg.vocab, (2, 32))
+    _, kw = _inputs(cfg, toks)
+    if "embeds" in kw:
+        kw["embeds"] = params["embed"][torch.from_numpy(toks)]
+    full, _, _ = forward(cfg, params, mode="train", **kw)
+    _, kw16 = _inputs(cfg, toks[:, :16])
+    if "embeds" in kw16:
+        kw16["embeds"] = kw["embeds"][:, :16]
+    _, cache, _ = forward(cfg, params, mode="prefill", **kw16)
     cache = pad_cache_to(cache, 16, 32, cfg)
     scale = float(full.abs().max())
     for t in range(16, 32):
-        logits, cache, _ = forward(cfg, params, tokens=toks[:, t:t + 1], cache=cache,
-                                   pos=t, mode="decode")
+        logits, cache, _ = forward(cfg, params, tokens=torch.from_numpy(toks[:, t:t + 1]),
+                                   cache=cache, pos=t, mode="decode")
         assert float((logits[:, 0] - full[:, t]).abs().max()) / scale < 1e-5
+
+
+def test_encoder_is_the_references_and_causal():
+    """The encoder equals the reference's ``encode``, which runs its
+    attention causal (its docstring says non-causal; ROADMAP F9): a later
+    frame changes no earlier output."""
+    rc, pc = _pair("whisper_tiny", "taylor_pallas")
+    rp, pp = _params(rc, pc)
+    e = np.random.default_rng(3).normal(size=(2, rc.encoder_seq, rc.d_model)).astype(np.float32)
+    got = encode(pc, pp["encoder"], torch.from_numpy(e))
+    want = np.asarray(ref_encode(rc, rp["encoder"], jnp.asarray(e)))
+    assert np.abs(got.numpy() - want).max() / np.abs(want).max() <= LOGIT_RTOL
+    e2 = e.copy()
+    e2[:, -1] += 1.0
+    moved = encode(pc, pp["encoder"], torch.from_numpy(e2))
+    torch.testing.assert_close(moved[:, :-1], got[:, :-1], rtol=0, atol=0)
+    assert not torch.equal(moved[:, -1], got[:, -1])
+
+
+def test_embedding_inputs_take_the_place_of_tokens():
+    """A VLM's forward from the embeddings of its tokens is its forward
+    from the tokens (decode reads tokens through the same table)."""
+    _, pc = _pair("llava_next_mistral_7b", "taylor_pallas")
+    pp = init_params(pc, torch.Generator().manual_seed(4))
+    toks = torch.from_numpy(np.random.default_rng(4).integers(0, pc.vocab, (2, 16)))
+    by_tok, _, _ = forward(pc, pp, tokens=toks, mode="train")
+    by_emb, _, _ = forward(pc, pp, embeds=pp["embed"][toks], mode="train")
+    torch.testing.assert_close(by_emb, by_tok, rtol=0, atol=0)
 
 
 def test_query_chunking_equals_one_chunk():
@@ -198,11 +289,23 @@ def test_query_chunking_equals_one_chunk():
 
 
 def test_unported_blocks_and_kv_layouts():
+    """Every block kind builds now: a family="ssm" config gets Mamba blocks
+    with no FFN, an encoder-decoder cross attention and an encoder; the GQA
+    head repeat is the reference's; an unknown mode is refused."""
     cfg = _pair("paper_fpdiv")[1]
     params = init_params(cfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_params(dataclasses.replace(cfg, family="ssm"),
-                    torch.Generator().manual_seed(0))
+    ssm = dataclasses.replace(cfg, family="ssm", ssm_state=8, ssm_heads=2, ssm_head_dim=8,
+                              d_inner=16)
+    block = init_params(ssm, torch.Generator().manual_seed(0))["groups"][0]["layers"][0]
+    assert set(block) == {"mixer_norm", "mamba"}
+    assert block["mamba"]["A_log"].dtype == torch.float32
+    assert block["mamba"]["wx"].shape == (cfg.d_model, 16)
+    encdec = dataclasses.replace(cfg, is_encoder_decoder=True, n_encoder_layers=3,
+                                 encoder_seq=8)
+    ep = init_params(encdec, torch.Generator().manual_seed(0))
+    assert set(ep["groups"][0]["layers"][0]) == {"mixer_norm", "attn", "cross_norm", "cross",
+                                                 "ffn_norm", "ffn"}
+    assert len(ep["encoder"]["groups"][0]["layers"]) == 3
     k = torch.arange(2 * 3 * 2 * 4, dtype=torch.float32).reshape(2, 3, 2, 4)
     from repro_torch.models.attention import _repeat_kv
 

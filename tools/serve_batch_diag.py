@@ -1,12 +1,13 @@
 """Does a served model give a request the same numbers alone and in a batch?
 
-    python3 tools/serve_batch_diag.py [--device cpu --smoke] [--json PATH]
+    python3 tools/serve_batch_diag.py [--device cpu --smoke] [--archs A,B] [--json PATH]
 
 For gemma3_12b and deepseek_moe_16b at full width in bf16 (params from
-``--seed``, capacity factor 8: no token is dropped), and deepseek_moe_16b in
-f32 at 4 layers, prefills the 4 prompts of ``chip_smoke.py``'s slice-8
-phases once as a right-padded batch and once each alone, in taylor_pallas,
-and prints one JSON line per model:
+``--seed``, capacity factor 8: no token is dropped), deepseek_moe_16b in
+f32 at 4 layers, and mamba2_780m at full width in bf16 and in f32
+(``--archs`` picks among them), prefills the 4 prompts of
+``chip_smoke.py``'s model phases once as a right-padded batch and once each
+alone, in taylor_pallas, and prints one JSON line per model:
 
   * per request: whether the last logits' argmax agrees, their largest
     difference relative to the largest logit, and the batch run's top-2
@@ -108,6 +109,8 @@ def main(argv=None) -> int:
     ap.add_argument("--smoke", action="store_true", help="the smoke configs (a CPU check)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--json", type=Path)
+    ap.add_argument("--archs", default="gemma3_12b,deepseek_moe_16b,mamba2_780m",
+                    help="comma-separated models to diagnose")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(ROOT / "src"))
     device = torch.device(args.device)
@@ -121,9 +124,12 @@ def main(argv=None) -> int:
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
         _build.build_all()
     results = []
-    for arch, dtype, repl in (("gemma3_12b", "bfloat16", {}),
-                              ("deepseek_moe_16b", "bfloat16", {}),
-                              ("deepseek_moe_16b", "float32", {"n_layers": 4})):
+    runs = (("gemma3_12b", "bfloat16", {}), ("deepseek_moe_16b", "bfloat16", {}),
+            ("deepseek_moe_16b", "float32", {"n_layers": 4}),
+            ("mamba2_780m", "bfloat16", {}), ("mamba2_780m", "float32", {}))
+    for arch, dtype, repl in runs:
+        if arch not in args.archs.split(","):
+            continue
         results.append(diagnose(arch, dtype, args.seed, device, args.smoke, **repl))
         print(json.dumps(results[-1]), flush=True)
         if device.type == "cuda":
