@@ -1,6 +1,6 @@
 """Drive the PyTorch port's division unit, its conformance grid, LM serving
 (dense, sliding-window, MoE, SSM, hybrid, encoder-decoder, embedding-input),
-attention and the ILM on one NVIDIA GPU and check them.
+attention, the ILM and LM training on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py [--seed N] [--json PATH]
 
@@ -105,6 +105,24 @@ source, in parallel), then runs, each phase printing one line:
                  at the exact bound, and the accuracy table; then both
                  kernels on 2^22 operands (pairs) over all of uint32 at
                  iters 1-32 against their plain versions' stage loop;
+ 13a. train    — paper_fpdiv trained at full width and depth (bf16 params
+                 from --seed) in taylor_pallas through train.loop.run: 8
+                 steps of 32 x 2048 SyntheticLM tokens from --seed in 2
+                 microbatches of 16, remat on; its launches held to 48
+                 softmax, 98 RMSNorm (the final norm is not recomputed) and
+                 one tsdiv_recip per parameter leaf (111) a step; the loss
+                 must fall by 0.3; step time, tokens/s, peak memory;
+ 13b. train calls — one more step with every softmax, RMSNorm and AdamW
+                 reciprocal call held bit for bit to its plain version on
+                 its own inputs, each remat recompute to its forward; AdamW
+                 on that step's grads against its exact twin on f32 copies
+                 of the params (< 1e-6, tests/test_optim.py's gate), its
+                 time in both modes, the exact twin's step, and one
+                 microbatch's grads against the exact twin's (relative L2
+                 per leaf, f32 copies; reported); then kill -> resume at
+                 full width on 8 x 512 tokens: 6 steps straight against a
+                 run killed before step 4 and resumed from its step-4
+                 checkpoint, every leaf of the state equal;
  14. ilm serve — paper_fpdiv at full width in mode="ilm", teacher-forced
                  against the exact twin in f32 (reported, not gated);
  15. times     — each kernel, its plain version and the torch yardstick: the
@@ -120,7 +138,8 @@ source, in parallel), then runs, each phase printing one line:
                  gated-norm rows (8192, 3072) and (4, 3072) and jamba's
                  (8192, 16384), bf16 with an f32 weight; softmax on jamba's
                  router rows (8192, 16) and whisper's 1500-key encoder and
-                 cross rows.
+                 cross rows; and tsdiv_recip on one train step's 111
+                 AdamW denominators (134.1 M lanes) beside torch.reciprocal.
                  Times are CUDA events over back-to-back wrapper calls
                  (``ms``, which holds the wrapper's host time where a kernel
                  is shorter); softmax, RMSNorm, flash attention and the ILM
@@ -128,7 +147,7 @@ source, in parallel), then runs, each phase printing one line:
                  from torch.profiler, and ``library_device_ms`` (flash: also
                  ``library_kernels``, the device kernels of the SDPA call).
 
-Phases 4-6, 9, 9a-9g, 12 and 13 are the main path: launch counts are reset before
+Phases 4-6, 9, 9a-9g, 12, 13 and 13a are the main path: launch counts are reset before
 each and read after it. The command's wall time, the build included, is
 printed on a ``wall`` line. Any failed check raises, and the script then exits non-zero
 without printing a result. It needs a CUDA card and the repository around
@@ -1333,6 +1352,295 @@ def phase_times_models(err: dict, launches: dict, firsts: dict):
     return rows
 
 
+# ---------------------------------------------------------- slice 10: training
+
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 32, 2048, 8     # microbatches of the config's 16
+# The kill -> resume gate: RESUME_STEPS straight, then a kill before step
+# RESUME_KILL and a resume from the checkpoint of step RESUME_EVERY.
+RESUME_BATCH, RESUME_SEQ, RESUME_STEPS, RESUME_KILL, RESUME_EVERY = 8, 512, 6, 4, 4
+OPT_TWIN_GATE = 1e-6      # tests/test_optim.py:35-47, max |params| difference
+
+
+def train_config(mode: str = "taylor_pallas", param_dtype: str = "bfloat16"):
+    """paper_fpdiv at full width and depth, its own division in ``mode``."""
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config("paper_fpdiv"), param_dtype=param_dtype,
+                               division=dm_config(mode))
+
+
+def train_launches(cfg, n_micro: int, n_leaves: int) -> dict:
+    """Launches per step, from the code: per microbatch one softmax per
+    attention layer and two RMSNorms per block plus the final one, each
+    block's again in the backward pass when ``cfg.remat``; one reciprocal
+    per parameter leaf in AdamW."""
+    runs = 1 + cfg.remat
+    return {"softmax_f32": n_micro * cfg.n_layers * runs,
+            "rmsnorm_f32": n_micro * (2 * cfg.n_layers * runs + 1),
+            "tsdiv_recip": n_leaves}
+
+
+def bits_sum(t: torch.Tensor):
+    """(shape, the int64 sum of the bit patterns): a fingerprint of a tensor."""
+    ints = {4: torch.int32, 2: torch.int16}[t.element_size()]
+    return tuple(t.shape), int(t.reshape(-1).view(ints).sum(dtype=torch.int64))
+
+
+def phase_train(seed: int, launches: dict, err: dict):
+    """paper_fpdiv trained at full width and depth (bf16 params from
+    ``seed``) in taylor_pallas through ``train.loop.run``: TRAIN_STEPS steps
+    of TRAIN_BATCH x TRAIN_SEQ tokens of SyntheticLM from ``seed`` in
+    microbatches of the config's size, remat as configured. Gates: the
+    launches of every step (train_launches), the loss falling by 0.3
+    (tests/test_train_loop.py), then phase_train_calls' and the kill ->
+    resume run's. Returns AdamW's denominators of one step, for the times."""
+    from repro_torch import tree
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels import rmsnorm, softmax, tsdiv
+    from repro_torch.train.loop import LoopConfig, run
+
+    mods = (softmax, rmsnorm, tsdiv)
+    held = torch.cuda.memory_allocated() / 2**30
+    cfg = train_config()
+    n_micro = TRAIN_BATCH // cfg.train_microbatch_size
+    data_cfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, seed=seed)
+    stamps = []
+    torch.cuda.reset_peak_memory_stats()
+    for m in mods:
+        m.reset_launches()
+    t0 = time.perf_counter()
+    out = run(cfg, LoopConfig(total_steps=TRAIN_STEPS, n_micro=n_micro, log_every=1, seed=seed),
+              data_cfg, log=lambda line: stamps.append(time.perf_counter()), device=DEVICE)
+    sync()
+    wall = time.perf_counter() - t0
+    counts = {k: v for m in mods for k, v in m.LAUNCHES.items() if v}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for k, v in counts.items():
+        launches[k] += v
+    state, losses = out["state"], out["losses"]
+    n_leaves = len(tree.leaves(state.params))
+    per_step = train_launches(cfg, n_micro, n_leaves)
+    steps_s = np.diff(stamps)                    # each step after the first, batch to loss
+    step_ms = float(np.median(steps_s)) * 1e3
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    result = {"arch": cfg.name, "layers": cfg.n_layers, "params_dtype": cfg.param_dtype,
+              "n_params": sum(t.numel() for t in tree.leaves(state.params)),
+              "n_leaves": n_leaves, "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ,
+              "n_micro": n_micro, "remat": cfg.remat, "steps": TRAIN_STEPS,
+              "division": dataclasses.asdict(cfg.division), "seconds": wall,
+              "first_step_ms": (stamps[0] - t0) * 1e3, "step_ms": step_ms,
+              "step_ms_each": [float(s) * 1e3 for s in steps_s],
+              "tokens_per_s": tokens / (step_ms / 1e3), "peak_gib": peak,
+              "held_gib_at_start": held, "losses": losses,
+              "launches": counts, "launches_per_step": per_step}
+    check(counts == {k: v * TRAIN_STEPS for k, v in per_step.items()},
+          f"train launches {counts}, expected {per_step} x {TRAIN_STEPS} steps")
+    check(all(math.isfinite(x) for x in losses), f"train: a loss is not finite: {losses}")
+    check(losses[-1] < losses[0] - 0.3, f"train: no learning, {losses[0]} -> {losses[-1]}")
+    batch = {k: torch.from_numpy(v).to(DEVICE)
+             for k, v in SyntheticLM(data_cfg).batch(TRAIN_STEPS).items()}
+    recips = phase_train_calls(cfg, state, batch, n_micro, err, result)
+    del out, state, batch
+    torch.cuda.empty_cache()
+    result["resume"] = train_resume(cfg, seed)
+    say("train", **result)
+    return recips
+
+
+def phase_train_calls(cfg, state, batch, n_micro: int, err: dict, result: dict):
+    """One more step of the train phase's run through train_step with every
+    kernel call held bit for bit to its plain version on its own inputs:
+    every softmax and RMSNorm of both microbatches (forward and remat
+    recompute) and every AdamW reciprocal; each recompute's output held to
+    its forward's (the fingerprint bits_sum of input and output). Then, on
+    that step's own f32 grads and moments: AdamW in taylor_pallas against
+    the exact twin on f32 copies of the params (the gate of
+    tests/test_optim.py), AdamW's time in both modes, the exact twin's
+    step, and the grads of one microbatch against the exact twin's (f32
+    copies of the params; per-leaf relative L2). Adds its figures to
+    ``result``; returns AdamW's denominators."""
+    from repro_torch import tree
+    from repro_torch.core.seeds import compute_segments, rsqrt_seed_table
+    from repro_torch.kernels import common, rmsnorm, softmax, tsdiv
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as ts
+
+    rows, seen, recips, captured, repeats = [], {}, [], {}, [0]
+    real = (softmax.softmax, rmsnorm.rmsnorm, tsdiv.recip, adamw.update)
+
+    def remember(kind, x, got):
+        key, fp = (kind, bits_sum(x)), bits_sum(got)
+        if key in seen:
+            repeats[0] += 1
+            check(seen[key] == fp, f"{kind} {list(x.shape)}: the recompute gave other bits")
+        seen[key] = fp
+
+    def sm_spy(x, n_iters=2, precision_bits=24, schedule="factored"):
+        got = real[0](x, n_iters, precision_bits, schedule)
+        n_bad, e = rows_held(got, softmax.softmax_plain, x,
+                             compute_segments(n_iters, precision_bits), n_iters, schedule)
+        rows.append(("softmax_f32", list(x.shape), n_bad))
+        err["softmax_f32"] = max(err["softmax_f32"], e)
+        remember("softmax_f32", x, got)
+        return got
+
+    def rms_spy(x, w, eps=1e-6, newton_iters=2, n_segments=16):
+        got = real[1](x, w, eps, newton_iters, n_segments)
+        n_bad, e = rows_held(got, lambda xs: rmsnorm.rmsnorm_plain(
+            xs, w, eps, rsqrt_seed_table(n_segments), newton_iters), x)
+        rows.append(("rmsnorm_f32", list(x.shape), n_bad))
+        err["rmsnorm_f32"] = max(err["rmsnorm_f32"], e)
+        remember("rmsnorm_f32", x, got)
+        return got
+
+    def recip_spy(x, n_iters=2, precision_bits=24, schedule="factored"):
+        got = real[2](x, n_iters, precision_bits, schedule)
+        table = compute_segments(n_iters, precision_bits)
+        n_bad, e = held_to_plain(got, lambda v: common.recip_f32_bits(
+            v, table, n_iters, schedule), x)
+        rows.append(("tsdiv_recip", list(x.shape), n_bad))
+        err["tsdiv_recip"] = max(err["tsdiv_recip"], e)
+        recips.append(x.clone())
+        return got
+
+    def update_spy(grads, opt, params, opt_cfg, lr_scale=1.0):
+        captured.update(grads=grads, opt=opt, params=params, opt_cfg=opt_cfg)
+        return real[3](grads, opt, params, opt_cfg, lr_scale)
+
+    softmax.softmax, rmsnorm.rmsnorm, tsdiv.recip, adamw.update = (
+        sm_spy, rms_spy, recip_spy, update_spy)
+    try:
+        opt_cfg = adamw.AdamWConfig(state_dtype=cfg.opt_state_dtype, division=cfg.division)
+        ts.train_step(cfg, opt_cfg, state, batch, n_micro=n_micro)
+        sync()
+    finally:
+        softmax.softmax, rmsnorm.rmsnorm, tsdiv.recip, adamw.update = real
+    n_leaves = len(tree.leaves(state.params))
+    calls = {k: sum(1 for r in rows if r[0] == k) for k in ("softmax_f32", "rmsnorm_f32",
+                                                            "tsdiv_recip")}
+    want_repeats = n_micro * 3 * cfg.n_layers if cfg.remat else 0
+    say("train_calls", calls=calls, recomputed_calls=repeats[0],
+        shapes=sorted({(r[0], str(r[1])) for r in rows if r[0] != "tsdiv_recip"}),
+        recip_elements=sum(x.numel() for x in recips), mismatched_lanes=sum(r[2] for r in rows))
+    check(calls == train_launches(cfg, n_micro, n_leaves), f"train call sites per step: {calls}")
+    check(repeats[0] == want_repeats, f"{repeats[0]} recomputed calls, expected {want_repeats}")
+    check(all(r[2] == 0 for r in rows), f"a train call differs from the plain version: "
+          f"{[r for r in rows if r[2]]}")
+
+    # AdamW against its exact twin on this step's own grads and moments.
+    grads, opt, params = captured["grads"], captured["opt"], captured["params"]
+    p32 = tree.map_tree(lambda t: t.float(), params)
+    cfgs = {m: dataclasses.replace(opt_cfg, division=dm_config(m)) for m in ("taylor_pallas", "exact")}
+    new = {m: tree.leaves(adamw.update(grads, opt, p32, c)[0]) for m, c in cfgs.items()}
+    twin_diff = max(float((a - b).abs().max()) for a, b in zip(new["taylor_pallas"], new["exact"]))
+    del new, p32
+    adamw_ms = {m: event_ms(lambda c=c: adamw.update(grads, opt, params, c), 3)
+                for m, c in cfgs.items()}
+    exact_cfg = train_config("exact")
+    exact_opt = cfgs["exact"]
+    ts.train_step(exact_cfg, exact_opt, state, batch, n_micro=n_micro)     # warm-up
+    sync()
+    t0 = time.perf_counter()
+    ts.train_step(exact_cfg, exact_opt, state, batch, n_micro=n_micro)
+    sync()
+    exact_step_ms = (time.perf_counter() - t0) * 1e3
+    del grads, opt, captured
+    torch.cuda.empty_cache()
+
+    # One microbatch's grads against the exact twin's, on f32 copies.
+    p32 = tree.map_tree(lambda t: t.float(), params)
+    mb = {k: v[:TRAIN_BATCH // n_micro] for k, v in batch.items()}
+    g = {}
+    for m in ("taylor_pallas", "exact"):
+        loss, _, gm = ts.grads_fn(train_config(m, "float32"), p32, mb, 1)
+        g[m] = (float(loss), tree.leaves(gm))
+        del gm
+    rel = [float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+           for a, b in zip(g["taylor_pallas"][1], g["exact"][1])]
+    paths = tree.paths(params)
+    result.update(
+        adamw_ms=adamw_ms["taylor_pallas"], adamw_exact_ms=adamw_ms["exact"],
+        adamw_share=adamw_ms["taylor_pallas"] / result["step_ms"],
+        exact_step_ms=exact_step_ms,
+        optimizer_vs_exact_max_abs=twin_diff, optimizer_gate=OPT_TWIN_GATE,
+        grads_vs_exact={"loss": g["taylor_pallas"][0], "exact_loss": g["exact"][0],
+                        "rel_l2_max": max(rel), "rel_l2_median": float(np.median(rel)),
+                        "worst_leaf": paths[int(np.argmax(rel))],
+                        "microbatch": TRAIN_BATCH // n_micro})
+    check(twin_diff < OPT_TWIN_GATE,
+          f"AdamW differs from its exact twin by {twin_diff} >= {OPT_TWIN_GATE}")
+    return recips
+
+
+def train_resume(cfg, seed: int) -> dict:
+    """Kill -> resume at full width and depth on RESUME_BATCH x RESUME_SEQ
+    tokens (tests/test_train_loop.py's gate): RESUME_STEPS steps straight;
+    then a run killed by the injector before step RESUME_KILL and a run that
+    resumes from its checkpoint. Every leaf of the final state (params,
+    moments, steps) must equal the straight run's. The checkpoints go to a
+    temporary directory that is removed."""
+    import shutil
+    import tempfile
+
+    from repro_torch import tree
+    from repro_torch.data import DataConfig
+    from repro_torch.train import fault
+    from repro_torch.train.loop import LoopConfig, run
+
+    data_cfg = DataConfig(vocab=cfg.vocab, seq_len=RESUME_SEQ, global_batch=RESUME_BATCH,
+                          seed=seed)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    logs = []
+    lc = lambda d: LoopConfig(total_steps=RESUME_STEPS, ckpt_every=RESUME_EVERY, n_micro=2,
+                              ckpt_dir=d, log_every=RESUME_STEPS, seed=seed)
+    try:
+        straight = run(cfg, lc(None), data_cfg, log=lambda s: None, device=DEVICE)
+        killed = False
+        try:
+            run(cfg, lc(tmp), data_cfg, injector=fault.FailureInjector(RESUME_KILL),
+                log=lambda s: None, device=DEVICE)
+        except fault.FailureInjector.Injected:
+            killed = True
+        t0 = time.perf_counter()
+        resumed = run(cfg, lc(tmp), data_cfg, log=logs.append, device=DEVICE)
+        sync()
+        resume_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    diffs = [float((a.float() - b.float()).abs().max())
+             for a, b in zip(tree.leaves(resumed["state"]), tree.leaves(straight["state"]))]
+    out = {"batch": RESUME_BATCH, "seq_len": RESUME_SEQ, "steps": RESUME_STEPS,
+           "killed_at": RESUME_KILL, "ckpt_every": RESUME_EVERY, "n_micro": 2,
+           "resumed_run_s": resume_s, "leaves": len(diffs), "max_abs_diff": max(diffs),
+           "losses_straight": straight["losses"], "losses_resumed": resumed["losses"]}
+    check(killed, "the injector did not stop the run")
+    check(f"[resume] restored checkpoint at step {RESUME_EVERY}" in logs,
+          f"the resumed run did not restore step {RESUME_EVERY}: {logs}")
+    check(max(diffs) == 0.0, f"kill -> resume differs from the straight run by {max(diffs)}")
+    return out
+
+
+def phase_times_train(err: dict, launches: dict, recips: list):
+    """tsdiv_recip at AdamW's leaves: one step's denominators, one launch per
+    leaf, the paper_fpdiv config's paper schedule; beside its plain version
+    and torch.reciprocal on the same leaves (device times summed)."""
+    from repro_torch.core.seeds import compute_segments
+    from repro_torch.kernels import common, tsdiv
+
+    table, sched = compute_segments(2, 24), dm_config("taylor_pallas").schedule
+    kernel = lambda: [tsdiv.recip(x, 2, 24, sched) for x in recips]
+    plain = lambda: [common.recip_f32_bits(x, table, 2, sched) for x in recips]
+    library = lambda: [torch.reciprocal(x) for x in recips]
+    n = sum(x.numel() for x in recips)
+    row = kernel_row("tsdiv_recip", event_ms(kernel, 5), event_ms(plain, 2), event_ms(library, 5),
+                     2 * 4 * n, n, launches, err, shape=[len(recips), n], dtype="float32",
+                     step="train", site="adamw_leaves", model="train", schedule=sched,
+                     device_ms=device_ms(kernel, "elementwise_kernel", 5),
+                     library_device_ms=device_ms(library, None, 5))
+    say("times", **row)
+    return [row]
+
+
 def u32_mismatch(got: torch.Tensor, want: torch.Tensor):
     """mismatch() for uint32 lanes: (lanes differing, max |got - want|)."""
     from repro_torch.core.ilm import as_u32_lanes
@@ -1774,6 +2082,7 @@ def main(argv=None) -> int:
               for sv in (SWA, MOE, SSM, HYBRID, ENCDEC, VLM)}
     flash_in = phase_flash_serve(args.seed, err, launches)
     ilm_in = phase_ilm(args.seed, err, launches)
+    recips = phase_train(args.seed, launches, err)
     check(all(launches.values()), f"a kernel was not launched on the main path: {launches}")
     consumer_inputs = phase_serve_calls(args.seed, err)
     phase_flash(args.seed, err)
@@ -1781,6 +2090,7 @@ def main(argv=None) -> int:
     rows = phase_times(plane, err, launches, consumer_inputs)
     rows += phase_times_attention_ilm(err, launches, flash_in, ilm_in)
     rows += phase_times_models(err, launches, firsts)
+    rows += phase_times_train(err, launches, recips)
     result = {"kernels": rows}
     say("wall", seconds=time.perf_counter() - t_start)
     if args.json:

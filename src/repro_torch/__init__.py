@@ -2,9 +2,10 @@
 
 Beside the JAX reference in ``repro``: the division unit's recip / div /
 rsqrt and its consumers softmax / RMSNorm, with hand-written CUDA kernels
-for Hopper (``kernels/``); the K-Means and Givens-QR workloads on it; and
-dense LMs (``configs/``, ``models/``) served on it (``serving/``,
-``launch/serve.py``). Imports torch and numpy only.
+for Hopper (``kernels/``); the K-Means and Givens-QR workloads on it; the
+LMs of every architecture (``configs/``, ``models/``) served on it
+(``serving/``, ``launch/serve.py``) and trained on it (``optim/``,
+``train/``, ``data/``, ``launch/train.py``). Imports torch and numpy only.
 """
 from .core.division_modes import (EXACT, MODES, TAYLOR, DivisionConfig, div,
                                   recip, rsqrt)

@@ -4,9 +4,10 @@ The PyTorch counterpart of ``src/repro/configs/base.py``. ``ModelConfig``
 keeps the reference's fields that the ported models and the layer pattern
 read, with the same defaults and derived pattern (``layer_specs``,
 ``groups``, ``q_per_kv``), so a config means the same model in both
-packages. The sharding rules, shape cells and dry-run knobs arrive with the
-slices that read them; so do the training knobs ``remat`` and
-``train_microbatch_size`` (ROADMAP Queue 1 item 12).
+packages, the training fields (``opt_state_dtype``, ``remat``,
+``train_microbatch_size``) included. The sharding rules, shape cells and
+dry-run knobs arrive with the slices that read them (ROADMAP Queue 1 items
+13 and 14).
 
 The registry resolves every architecture of the reference.
 """
@@ -88,10 +89,13 @@ class ModelConfig:
     # --- io ---
     embed_inputs: bool = False     # vlm stub: prefill takes embeddings
     tie_embeddings: bool = False
-    # --- numerics ---
+    # --- numerics / training ---
     param_dtype: str = "bfloat16"
+    opt_state_dtype: str = "float32"
     norm_eps: float = 1e-6
     division: DivisionConfig = field(default_factory=lambda: DivisionConfig(mode="taylor"))
+    remat: bool = True              # recompute each block's activations in backward
+    train_microbatch_size: int = 4  # sequences per data-shard per microbatch
     attn_chunk: int = 2048          # query-chunked attention threshold/size
 
     def layer_specs(self) -> List[LayerSpec]:

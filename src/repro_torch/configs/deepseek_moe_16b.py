@@ -22,6 +22,7 @@ CONFIG = ModelConfig(
     n_shared_experts=2,
     d_ff_expert=1408,
     d_ff_dense=10_944,
+    train_microbatch_size=4,
 )
 
 SMOKE_CONFIG = ModelConfig(
@@ -38,4 +39,5 @@ SMOKE_CONFIG = ModelConfig(
     n_shared_experts=2,
     d_ff_expert=64,
     d_ff_dense=128,
+    remat=False,
 )

@@ -19,6 +19,7 @@ CONFIG = ModelConfig(
     global_every=6,
     rope_theta=1_000_000.0,
     tie_embeddings=True,
+    train_microbatch_size=2,
 )
 
 SMOKE_CONFIG = ModelConfig(
@@ -32,4 +33,5 @@ SMOKE_CONFIG = ModelConfig(
     sliding_window=16,
     global_every=3,
     tie_embeddings=True,
+    remat=False,
 )

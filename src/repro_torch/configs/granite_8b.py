@@ -12,6 +12,7 @@ CONFIG = ModelConfig(
     n_heads=32, n_kv_heads=8, head_dim=128,
     d_ff=14_336,
     vocab=49_152,
+    train_microbatch_size=4,
 )
 
 SMOKE_CONFIG = ModelConfig(
@@ -22,4 +23,5 @@ SMOKE_CONFIG = ModelConfig(
     n_heads=4, n_kv_heads=2, head_dim=16,
     d_ff=128,
     vocab=256,
+    remat=False,
 )

@@ -21,6 +21,8 @@ CONFIG = ModelConfig(
     n_experts=16, experts_per_tok=2,
     d_ff_expert=24_576,
     ssm_state=128, ssm_heads=128, ssm_head_dim=128, d_inner=16_384,
+    opt_state_dtype="bfloat16",
+    train_microbatch_size=1,
 )
 
 SMOKE_CONFIG = ModelConfig(
@@ -37,4 +39,5 @@ SMOKE_CONFIG = ModelConfig(
     d_ff_expert=128,
     ssm_state=16, ssm_heads=4, ssm_head_dim=16, d_inner=64,
     ssm_chunk=16,
+    remat=False,
 )

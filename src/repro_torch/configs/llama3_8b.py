@@ -13,6 +13,7 @@ CONFIG = ModelConfig(
     d_ff=14_336,
     vocab=128_256,
     rope_theta=500_000.0,
+    train_microbatch_size=4,
 )
 
 SMOKE_CONFIG = ModelConfig(
@@ -24,4 +25,5 @@ SMOKE_CONFIG = ModelConfig(
     d_ff=128,
     vocab=512,
     rope_theta=500_000.0,
+    remat=False,
 )

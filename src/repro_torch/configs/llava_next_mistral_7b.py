@@ -18,6 +18,7 @@ CONFIG = ModelConfig(
     d_ff=14_336,
     vocab=32_000,
     embed_inputs=True,
+    train_microbatch_size=4,
 )
 
 SMOKE_CONFIG = ModelConfig(
@@ -29,4 +30,5 @@ SMOKE_CONFIG = ModelConfig(
     d_ff=128,
     vocab=256,
     embed_inputs=True,
+    remat=False,
 )

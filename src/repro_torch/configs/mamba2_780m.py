@@ -21,6 +21,7 @@ CONFIG = ModelConfig(
     ssm_head_dim=64,
     d_inner=3072,
     tie_embeddings=True,
+    train_microbatch_size=8,
 )
 
 SMOKE_CONFIG = ModelConfig(
@@ -37,4 +38,5 @@ SMOKE_CONFIG = ModelConfig(
     d_inner=64,
     ssm_chunk=16,
     tie_embeddings=True,
+    remat=False,
 )

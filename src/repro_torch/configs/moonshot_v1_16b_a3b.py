@@ -23,6 +23,7 @@ CONFIG = ModelConfig(
     n_shared_experts=2,
     d_ff_expert=1408,
     d_ff_dense=11_264,
+    train_microbatch_size=4,
 )
 
 SMOKE_CONFIG = ModelConfig(
@@ -39,4 +40,5 @@ SMOKE_CONFIG = ModelConfig(
     n_shared_experts=2,
     d_ff_expert=64,
     d_ff_dense=128,
+    remat=False,
 )

@@ -15,6 +15,7 @@ CONFIG = ModelConfig(
     vocab=32_000,
     division=DivisionConfig(mode="taylor", precision_bits=24, n_iters=2,
                             schedule="paper"),
+    train_microbatch_size=16,
 )
 
 SMOKE_CONFIG = ModelConfig(
@@ -27,4 +28,5 @@ SMOKE_CONFIG = ModelConfig(
     vocab=256,
     division=DivisionConfig(mode="taylor", precision_bits=24, n_iters=2,
                             schedule="paper"),
+    remat=False,
 )

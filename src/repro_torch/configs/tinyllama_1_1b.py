@@ -12,6 +12,7 @@ CONFIG = ModelConfig(
     n_heads=32, n_kv_heads=4, head_dim=64,
     d_ff=5632,
     vocab=32_000,
+    train_microbatch_size=8,
 )
 
 SMOKE_CONFIG = ModelConfig(
@@ -22,4 +23,5 @@ SMOKE_CONFIG = ModelConfig(
     n_heads=8, n_kv_heads=2, head_dim=8,
     d_ff=128,
     vocab=256,
+    remat=False,
 )

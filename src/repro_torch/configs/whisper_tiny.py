@@ -21,6 +21,7 @@ CONFIG = ModelConfig(
     n_encoder_layers=4,
     encoder_seq=1500,
     tie_embeddings=True,
+    train_microbatch_size=16,
 )
 
 SMOKE_CONFIG = ModelConfig(
@@ -35,4 +36,5 @@ SMOKE_CONFIG = ModelConfig(
     n_encoder_layers=2,
     encoder_seq=32,
     tie_embeddings=True,
+    remat=False,
 )

@@ -12,7 +12,10 @@ encoder-decoder stacks its ``n_encoder_layers`` blocks the same way. Every
 leaf maps by its path, so MoE leaves (the f32 router, the ``(E, d, f)``
 expert weights, the shared experts), Mamba leaves (A_log, D, dt_bias and
 the norm in f32), the sliding-window layers' K/V rings, the SSM state and
-conv windows and the cross K/V move the same way.
+conv windows and the cross K/V move the same way. A training state moves
+the same way too: the reference's ``TrainState`` / ``AdamWState`` (numpy
+leaves; m and v mirror the parameters) become the port's, so a state the
+reference made can be stepped by the port.
 """
 from __future__ import annotations
 
@@ -22,9 +25,13 @@ import numpy as np
 import torch
 
 from repro_torch.core.division_modes import DivisionConfig
+from repro_torch.optim.adamw import AdamWState
+from repro_torch.train.step import TrainState
+from repro_torch.tree import map_tree
 
 __all__ = ["config_from_reference", "tensor_from_numpy", "tensors_from_numpy",
-           "params_from_reference", "cache_from_reference"]
+           "params_from_reference", "cache_from_reference", "opt_state_from_reference",
+           "train_state_from_reference"]
 
 
 def config_from_reference(fields: Dict) -> DivisionConfig:
@@ -47,14 +54,6 @@ def tensor_from_numpy(a, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def _tree(tree, fn):
-    if isinstance(tree, dict):
-        return {k: _tree(v, fn) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_tree(v, fn) for v in tree]
-    return fn(tree)
-
-
 def _unstack_groups(groups, shapes, device):
     """``groups`` of stacked layers, one ``(period, repeat)`` of ``shapes``
     each, as lists of ``repeat * period`` layers."""
@@ -64,8 +63,8 @@ def _unstack_groups(groups, shapes, device):
         for r in range(repeat):
             for i in range(period):
                 pick = (lambda a, r=r: a[r]) if repeat > 1 else (lambda a: a)
-                layers.append(_tree(gtree["layers"][i],
-                                    lambda a, pick=pick: tensor_from_numpy(pick(a), device)))
+                layers.append(map_tree(lambda a, pick=pick: tensor_from_numpy(pick(a), device),
+                                       gtree["layers"][i]))
         out.append({"layers": layers})
     return out
 
@@ -76,7 +75,7 @@ def _group_shapes(cfg):
 
 def params_from_reference(tree, cfg, device) -> Dict:
     """The port's parameters from the reference's as a numpy tree."""
-    out = {k: _tree(v, lambda a: tensor_from_numpy(a, device))
+    out = {k: map_tree(lambda a: tensor_from_numpy(a, device), v)
            for k, v in tree.items() if k not in ("groups", "encoder")}
     out["groups"] = _unstack_groups(tree["groups"], _group_shapes(cfg), device)
     if "encoder" in tree:
@@ -90,3 +89,19 @@ def params_from_reference(tree, cfg, device) -> Dict:
 def cache_from_reference(tree, cfg, device) -> Dict:
     """The port's decode cache from the reference's as a numpy tree."""
     return {"groups": _unstack_groups(tree["groups"], _group_shapes(cfg), device)}
+
+
+def opt_state_from_reference(opt, cfg, device):
+    """The port's ``AdamWState`` from the reference's (step, m, v) as a numpy
+    tree."""
+    return AdamWState(step=tensor_from_numpy(opt.step, device),
+                      m=params_from_reference(opt.m, cfg, device),
+                      v=params_from_reference(opt.v, cfg, device))
+
+
+def train_state_from_reference(state, cfg, device):
+    """The port's ``TrainState`` from the reference's (params, opt, step) as
+    a numpy tree."""
+    return TrainState(params=params_from_reference(state.params, cfg, device),
+                      opt=opt_state_from_reference(state.opt, cfg, device),
+                      step=tensor_from_numpy(state.step, device))

@@ -37,16 +37,30 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    add_division_args(ap)
+    return ap
+
+
+def add_division_args(ap: argparse.ArgumentParser) -> None:
+    """``--division-mode`` / ``--n-iters`` / ``--schedule``: the division
+    unit of the whole path (the launchers share them)."""
     ap.add_argument("--division-mode", default=None,
                     choices=["exact", "taylor", "taylor_pallas", "goldschmidt",
                              "goldschmidt_pallas", "ilm"],
-                    help="division unit for every softmax/rmsnorm on the path "
+                    help="division unit for every divide on the path "
                          "(default: the config's own mode)")
     ap.add_argument("--n-iters", type=int, default=None,
                     help="Taylor/Goldschmidt iteration count")
     ap.add_argument("--schedule", default=None, choices=["paper", "factored"],
                     help="Taylor evaluation schedule")
-    return ap
+
+
+def division_from_args(args, division):
+    """``division`` with the fields the division flags set; None when no
+    flag is given."""
+    repl = {k: v for k, v in (("mode", args.division_mode), ("n_iters", args.n_iters),
+                              ("schedule", args.schedule)) if v}
+    return dataclasses.replace(division, **repl) if repl else None
 
 
 def main(argv=None):
@@ -59,16 +73,7 @@ def main(argv=None):
     from repro_torch.serving import ServingEngine, alignment
 
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
-    division = None
-    if args.division_mode or args.n_iters or args.schedule:
-        repl = {}
-        if args.division_mode:
-            repl["mode"] = args.division_mode
-        if args.n_iters:
-            repl["n_iters"] = args.n_iters
-        if args.schedule:
-            repl["schedule"] = args.schedule
-        division = dataclasses.replace(cfg.division, **repl)
+    division = division_from_args(args, cfg.division)
     device = torch.device(args.device)
     params = init_params(cfg, torch.Generator(device=device).manual_seed(args.seed))
     align = alignment(cfg)

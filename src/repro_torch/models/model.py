@@ -12,12 +12,19 @@ cache). Sliding-window layers keep a W-slot ring cache: slot = position %
 W; attention K/V are updated in place (see :mod:`.attention`), a Mamba
 layer's state and conv window are replaced each step, and an
 encoder-decoder's cross K/V are computed at prefill and read as they are.
+
+In ``train`` with ``cfg.remat`` and autograd on, each decoder block runs
+under ``torch.utils.checkpoint`` (the reference checkpoints each scan body):
+the backward pass recomputes the block from its input, so its kernels run
+twice. The encoder and the final norm are not recomputed, as in the
+reference.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from .attention import (_proj, decode_attention, decode_positions, full_attention,
@@ -126,6 +133,13 @@ def block_forward(bp: Dict, x, spec: LayerSpec, cfg: ModelConfig, positions,
     return x, new_cache, aux
 
 
+def _remat_block(*args, **kw):
+    """block_forward whose activations the backward pass recomputes. A block
+    draws no random numbers, so the recompute needs no RNG state."""
+    return checkpoint(block_forward, *args, use_reentrant=False,
+                      preserve_rng_state=False, **kw)
+
+
 def encode(cfg: ModelConfig, enc_params, enc_embeds):
     """The encoder over stub frontend embeddings (b, s, d_model): attention
     and dense blocks, then the final norm. Its attention is causal: the
@@ -172,15 +186,17 @@ def forward(cfg: ModelConfig, params, *, tokens=None, embeds=None, cache=None, p
         if lengths is not None:
             lengths = torch.as_tensor(lengths, dtype=torch.int32, device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    block = (_remat_block if cfg.remat and mode == "train" and torch.is_grad_enabled()
+             else block_forward)
     new_groups = []
     for gi, group in enumerate(cfg.groups()):
         layers = params["groups"][gi]["layers"]
         caches = []
         for li, spec in enumerate(group_layers(group)):
             lc = cache["groups"][gi]["layers"][li] if mode == "decode" else None
-            x, nc, a = block_forward(layers[li], x, spec, cfg, positions,
-                                     mode=mode, cache=lc, pos=pos,
-                                     enc_out=enc_out, lengths=lengths)
+            x, nc, a = block(layers[li], x, spec, cfg, positions,
+                             mode=mode, cache=lc, pos=pos,
+                             enc_out=enc_out, lengths=lengths)
             caches.append(nc)
             aux = aux + a
         new_groups.append({"layers": caches})

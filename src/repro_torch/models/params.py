@@ -22,6 +22,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tree
 from repro_torch.configs.base import LayerSpec, ModelConfig
 
 __all__ = ["ParamSpec", "model_specs", "init_params", "param_count",
@@ -132,14 +133,6 @@ def model_specs(cfg: ModelConfig) -> Dict[str, Any]:
     return out
 
 
-def _map(tree, fn):
-    if isinstance(tree, ParamSpec):
-        return fn(tree)
-    if isinstance(tree, dict):
-        return {k: _map(v, fn) for k, v in tree.items()}
-    return [_map(v, fn) for v in tree]
-
-
 def init_params(cfg: ModelConfig, generator: torch.Generator, device=None):
     """Concrete init on the generator's device (or ``device``): normal(0, 1)
     in f32 times the spec's scale, then cast, as the reference does."""
@@ -156,13 +149,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None):
                         device=generator.device)
         return (x * np.float32(scale)).to(device=device, dtype=dt)
 
-    return _map(model_specs(cfg), leaf)
+    return tree.map_tree(leaf, model_specs(cfg))
 
 
 def _leaves(cfg: ModelConfig):
-    out = []
-    _map(model_specs(cfg), out.append)
-    return out
+    return tree.leaves(model_specs(cfg))
 
 
 def param_count(cfg: ModelConfig) -> int:

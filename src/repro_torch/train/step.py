@@ -1,0 +1,118 @@
+"""Loss and train step: microbatched gradients, AdamW through the unit.
+
+The port of ``src/repro/train/step.py``. A step splits the batch (B, ...)
+into ``n_micro`` microbatches and runs them one after another in a Python
+loop (the reference's ``lax.scan``), so only one microbatch's activations
+live at a time; with ``cfg.remat`` the model recomputes each block in the
+backward pass and keeps only the blocks' inputs. Each microbatch's
+gradients come out of autograd in the parameters' dtype, as the
+reference's ``value_and_grad`` gives them, and are cast to f32 and summed
+into an f32 accumulator that starts at zero; the sum is scaled by
+``1/n_micro``. The cross-pod compression hook (``compress_axis``) needs the
+port's device mesh (ROADMAP Queue 1 item 13).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple, Optional
+
+import torch
+
+from repro_torch import tree
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import forward
+from repro_torch.optim import adamw
+
+__all__ = ["TrainState", "init_state", "cross_entropy", "loss_fn", "grads_fn",
+           "train_step"]
+
+F32 = torch.float32
+
+
+class TrainState(NamedTuple):
+    params: Any
+    opt: adamw.AdamWState
+    step: torch.Tensor   # () int32
+
+
+def init_state(cfg: ModelConfig, params, opt_cfg: adamw.AdamWConfig) -> TrainState:
+    opt = adamw.init(params, opt_cfg)
+    return TrainState(params=params, opt=opt, step=torch.zeros_like(opt.step))
+
+
+def cross_entropy(logits, labels):
+    """Mean CE. logits f32 (B, S, V); labels (B, S) ints."""
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return torch.mean(lse - ll)
+
+
+def loss_fn(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]):
+    """(ce + aux, {"ce", "aux"}) of one batch: token inputs, or an
+    embedding-input model's ``embeds``, and an encoder-decoder's
+    ``enc_embeds``."""
+    kw = {}
+    if cfg.is_encoder_decoder:
+        kw["enc_embeds"] = batch["enc_embeds"]
+    if cfg.embed_inputs and not cfg.is_encoder_decoder:
+        kw["embeds"] = batch["embeds"]
+    else:
+        kw["tokens"] = batch["tokens"]
+    logits, _, aux = forward(cfg, params, mode="train", **kw)
+    ce = cross_entropy(logits, batch["labels"])
+    return ce + aux, {"ce": ce, "aux": aux}
+
+
+def _split_micro(batch, n_micro: int):
+    """(B, ...) -> n_micro microbatches of (B/n_micro, ...) per entry."""
+    for k, x in batch.items():
+        if x.shape[0] % n_micro:
+            raise ValueError(f"batch {k!r} of {x.shape[0]} rows does not split "
+                             f"into {n_micro} microbatches")
+    return [{k: x.reshape(n_micro, -1, *x.shape[1:])[i] for k, x in batch.items()}
+            for i in range(n_micro)]
+
+
+def grads_fn(cfg: ModelConfig, params, batch, n_micro: int):
+    """(loss, metrics, f32 grads) of the batch, accumulated over
+    ``n_micro`` microbatches."""
+    live = [p.detach().requires_grad_() for p in tree.leaves(params)]
+    lp = tree.unflatten(params, live)
+
+    def value_and_grad(mb):
+        loss, metrics = loss_fn(cfg, lp, mb)
+        gs = torch.autograd.grad(loss, live, allow_unused=True)
+        # A leaf the loss does not read (an embedding-input model's token
+        # table) gets zeros, as the reference's grad gives it.
+        gs = [torch.zeros_like(p) if g is None else g for g, p in zip(gs, live)]
+        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, gs
+
+    if n_micro <= 1:
+        loss, metrics, gs = value_and_grad(batch)
+        return loss, metrics, tree.unflatten(params, [g.to(F32) for g in gs])
+
+    g_sum = [torch.zeros(p.shape, dtype=F32, device=p.device) for p in live]
+    loss_sum = torch.zeros((), dtype=F32, device=live[0].device)
+    for mb in _split_micro(batch, n_micro):
+        loss, _, gs = value_and_grad(mb)
+        for acc, g in zip(g_sum, gs):
+            acc.add_(g.to(F32))
+        loss_sum = loss_sum + loss
+        del gs
+    inv = 1.0 / n_micro
+    loss = loss_sum * inv
+    grads = tree.unflatten(params, [g * inv for g in g_sum])
+    return loss, {"ce": loss, "aux": torch.zeros_like(loss)}, grads
+
+
+def train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, state: TrainState,
+               batch, *, n_micro: int = 1, lr_scale=1.0,
+               compress_axis: Optional[str] = None, err_tree=None):
+    """One optimizer step. Returns (new_state, metrics)."""
+    if compress_axis is not None:
+        raise NotImplementedError(
+            f"train_step(compress_axis={compress_axis!r}) needs the port's device "
+            "mesh (ROADMAP Queue 1 item 13)")
+    loss, metrics, grads = grads_fn(cfg, state.params, batch, n_micro)
+    new_params, new_opt = adamw.update(grads, state.opt, state.params, opt_cfg, lr_scale)
+    new_state = TrainState(params=new_params, opt=new_opt, step=state.step + 1)
+    return new_state, dict(metrics, loss=loss, step=state.step)

@@ -1,0 +1,77 @@
+"""Nested parameter trees: dicts, lists, tuples and named tuples of tensors.
+
+The port keeps parameters, optimizer moments and train states as plain
+nested containers. :func:`leaves` lists a tree's tensors in
+``jax.tree_util``'s order (depth first; dict keys sorted; list, tuple and
+named-tuple entries in order), which is the order AdamW walks and a
+checkpoint stores them in; :func:`unflatten` puts a list in that order back
+into a tree's structure, and :func:`map_tree` maps leaf by leaf over trees
+of one structure.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, List
+
+__all__ = ["leaves", "paths", "unflatten", "map_tree"]
+
+
+def _is_named_tuple(t) -> bool:
+    return isinstance(t, tuple) and hasattr(t, "_fields")
+
+
+def _items(t):
+    """(key, child) pairs of a container in leaf order; None for a leaf."""
+    if isinstance(t, dict):
+        return [(k, t[k]) for k in sorted(t)]
+    if _is_named_tuple(t):
+        return list(zip(t._fields, t))
+    if isinstance(t, (list, tuple)):
+        return list(enumerate(t))
+    return None
+
+
+def paths(tree, prefix: str = "") -> List[str]:
+    """Each leaf's path ("params/groups/0/layers/3/attn/wq"), in leaf order."""
+    items = _items(tree)
+    if items is None:
+        return [prefix]
+    return [p for k, c in items for p in paths(c, f"{prefix}/{k}" if prefix else str(k))]
+
+
+def leaves(tree) -> List[Any]:
+    items = _items(tree)
+    if items is None:
+        return [tree]
+    return [leaf for _, c in items for leaf in leaves(c)]
+
+
+def unflatten(like, new_leaves) -> Any:
+    """``like``'s structure holding ``new_leaves`` (in leaf order)."""
+    it = iter(new_leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            built = {k: build(t[k]) for k in sorted(t)}
+            return {k: built[k] for k in t}
+        if _is_named_tuple(t):
+            return type(t)(*[build(c) for c in t])
+        if isinstance(t, (list, tuple)):
+            return type(t)(build(c) for c in t)
+        return next(it)
+
+    out = build(like)
+    end = object()
+    if next(it, end) is not end:
+        raise ValueError("more leaves than the tree holds")
+    return out
+
+
+def map_tree(fn: Callable, tree, *rest) -> Any:
+    """``fn`` over the leaves of ``tree`` and the matching leaves of ``rest``."""
+    if isinstance(tree, dict):
+        return {k: map_tree(fn, tree[k], *(r[k] for r in rest)) for k in tree}
+    if _is_named_tuple(tree):
+        return type(tree)(*[map_tree(fn, *xs) for xs in zip(tree, *rest)])
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_tree(fn, *xs) for xs in zip(tree, *rest))
+    return fn(tree, *rest)

@@ -27,6 +27,7 @@ from repro_torch.core.seeds import compute_segments
 from repro_torch.kernels import common, flash_attention, ops, ref
 from repro_torch.models import attention as model_attention
 from test_torch_tsdiv import assert_bits_equal
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 MODES = [("exact", "factored"), ("taylor", "paper"), ("taylor", "factored"),
          ("taylor_pallas", "paper"), ("taylor_pallas", "factored"),

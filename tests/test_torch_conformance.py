@@ -11,6 +11,7 @@ over two files. What each cell must show is ``expected`` in
 import pytest
 
 from _conformance_common import check_cell, grid_keys, reports
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 OPS = ("recip", "div")
 

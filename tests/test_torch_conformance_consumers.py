@@ -11,6 +11,7 @@ import pytest
 
 from _conformance_common import check_cell, grid_keys, reports
 from repro_torch.eval import conformance
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 OPS = ("rsqrt", "softmax", "rmsnorm")
 

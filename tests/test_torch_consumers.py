@@ -33,6 +33,7 @@ from repro_torch.core import division_modes as dm
 from repro_torch.core.seeds import compute_segments, rsqrt_seed_table
 from repro_torch.eval import consumers, ulp
 from repro_torch.kernels import common, ops, ref, rmsnorm, softmax
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SCHEDULES = ["paper", "factored", "goldschmidt"]
 SOFTMAX_VS_REF_ULP = 16

@@ -4,6 +4,8 @@ Run on the machine with the card:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 This file imports no jax, so it runs where only torch is installed.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -455,3 +457,64 @@ def test_rmsnorm_modes_cast_a_weight_the_kernel_does_not_take(cuda, mode):
         got = dm.rmsnorm(x, w, cfg)
         assert rmsnorm.LAUNCHES == {"rmsnorm_f32": 1}
         assert _same_any(got, rmsnorm.rmsnorm_plain(x, w, 1e-6, table, cfg.rsqrt_newton))
+
+
+# ----------------------------------------------------------- training (slice 10)
+
+def test_adamw_kernel_mode_matches_its_plain_version(cuda):
+    """AdamW in taylor_pallas on the card: one tsdiv_recip launch per leaf,
+    and new params, m and v equal to the plain version's (the same update on
+    the CPU) bit for bit; unclipped, so no reduction order enters."""
+    from repro_torch import tree
+    from repro_torch.optim import adamw
+
+    gen = torch.Generator().manual_seed(0)
+    params = {"w": torch.randn(257, 33, generator=gen).to(torch.bfloat16),
+              "n": torch.randn(33, generator=gen),
+              "layers": [{"e": torch.randn(5, 7, 9, generator=gen)}]}
+    grads = tree.map_tree(lambda p: torch.randn(p.shape, generator=gen)
+                          * 10.0 ** torch.empty(p.shape).uniform_(-9, 1, generator=gen), params)
+    cfg = adamw.AdamWConfig(grad_clip=1e9, state_dtype="bfloat16",
+                            division=dm.DivisionConfig(mode="taylor_pallas", schedule="paper"))
+    outs = {}
+    for dev in ("cpu", cuda):
+        p = tree.map_tree(lambda t: t.to(dev), params)
+        g = tree.map_tree(lambda t: t.to(dev), grads)
+        state = adamw.init(p, cfg)
+        tsdiv.reset_launches()
+        for _ in range(3):
+            p, state = adamw.update(g, state, p, cfg)
+        torch.cuda.synchronize()
+        outs[str(dev)] = (tree.leaves(p) + tree.leaves(state), dict(tsdiv.LAUNCHES))
+    (want, none), (got, counted) = outs["cpu"], outs[str(cuda)]
+    assert none["tsdiv_recip"] == 0 and counted["tsdiv_recip"] == 3 * 3
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
+
+
+def test_training_resumes_bit_for_bit_on_the_card(cuda, tmp_path):
+    """The embedding gather's backward (index_put_ with accumulate, sorted
+    on CUDA) repeats its bits; so a killed and resumed run on the card ends
+    on an uninterrupted run's parameters exactly."""
+    from repro_torch import tree
+    from repro_torch.data import DataConfig
+    from repro_torch.train import fault
+    from repro_torch.train.loop import LoopConfig, run
+
+    embed = torch.randn(512, 64, device=cuda, dtype=torch.bfloat16, requires_grad=True)
+    toks = torch.randint(0, 8, (16, 2048), device=cuda)       # many repeats per row
+    g = torch.randn(16, 2048, 64, device=cuda, dtype=torch.bfloat16)
+    grads = [torch.autograd.grad(embed[toks], embed, g)[0] for _ in range(3)]
+    assert all(torch.equal(grads[0], x) for x in grads[1:])
+
+    cfg = dataclasses.replace(get_smoke_config("paper_fpdiv"),
+                              division=dm.DivisionConfig(mode="taylor_pallas", schedule="paper"))
+    dc = DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=8, seed=1)
+    lc = lambda d: LoopConfig(total_steps=8, ckpt_every=3, ckpt_dir=str(tmp_path / d))
+    with pytest.raises(fault.FailureInjector.Injected):
+        run(cfg, lc("cut"), dc, injector=fault.FailureInjector(5), log=lambda s: None)
+    resumed = run(cfg, lc("cut"), dc, log=lambda s: None)
+    straight = run(cfg, lc("straight"), dc, log=lambda s: None)
+    assert resumed["losses"] == straight["losses"][3:]
+    for a, b in zip(tree.leaves(resumed["state"]), tree.leaves(straight["state"])):
+        assert a.device.type == "cuda" and torch.equal(a, b)

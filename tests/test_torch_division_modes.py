@@ -16,6 +16,7 @@ from repro.core import division_modes as ref_dm
 from repro_torch import convert
 from repro_torch.core import division_modes as dm
 from test_torch_tsdiv import A, X, assert_bits_equal
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TWIN_MODES = ["taylor", "goldschmidt"]
 KERNEL_MODES = ["taylor_pallas", "goldschmidt_pallas"]

@@ -23,6 +23,7 @@ from repro_torch.core import fpparts
 from repro_torch.core.seeds import compute_segments, rsqrt_seed_table
 from repro_torch.kernels import common, flash_attention, ops, ref, tsdiv
 from test_torch_attention import CASES, RAGGED, _attention_f64
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TABLES = {f"recip/n{n}p{p}": compute_segments(n, p) for n, p in ((2, 24), (1, 12))}
 TABLES.update({f"rsqrt/{n}": rsqrt_seed_table(n) for n in (8, 16)})

@@ -17,6 +17,7 @@ from repro.core import division_modes as ref_dm
 from repro_torch.core import fpparts
 from repro_torch.core import division_modes as dm
 from repro_torch.kernels.common import fma
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 RNG_SEED = 1234
 

@@ -9,6 +9,7 @@ import pytest
 
 from repro.eval import golden as ref_golden
 from repro_torch.eval import golden, ulp
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _cells():

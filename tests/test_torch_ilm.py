@@ -27,6 +27,7 @@ from repro_torch.eval import ulp
 from repro_torch.kernels import ilm as ilm_k
 from repro_torch.kernels import ops, ref
 from test_torch_tsdiv import assert_bits_equal
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ILM = dm.DivisionConfig(mode="ilm")
 REF_ILM = ref_dm.DivisionConfig(mode="ilm")

@@ -25,6 +25,7 @@ from repro_torch import convert
 from repro_torch.configs import get_smoke_config
 from repro_torch.core.division_modes import DivisionConfig
 from repro_torch.models import mamba2
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 RTOL = 1e-5
 MODES = ["exact", "taylor_pallas"]

@@ -42,6 +42,7 @@ from repro_torch.models import (active_param_count, forward, init_params, layers
                                 param_count)
 from repro_torch.models.model import encode
 from repro_torch.serving import ServingEngine, pad_cache_to
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ARCHS = ["paper_fpdiv", "tinyllama_1_1b", "llama3_8b", "granite_8b", "gemma3_12b",
          "deepseek_moe_16b", "moonshot_v1_16b_a3b", "mamba2_780m", "jamba_1_5_large",

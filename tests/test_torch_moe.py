@@ -24,6 +24,7 @@ from repro_torch import convert
 from repro_torch.configs import get_smoke_config
 from repro_torch.core.division_modes import DivisionConfig
 from repro_torch.models import moe
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 DISPATCHES = ["cumsum", "sort", "local"]
 NON_ILM = ["exact", "taylor", "taylor_pallas", "goldschmidt", "goldschmidt_pallas"]

@@ -12,6 +12,7 @@ from repro.core import powering as ref_powering
 from repro.core import seeds as ref_seeds
 from repro_torch.core import powering, seeds
 from repro_torch.core.taylor import _paper_leaves
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 # (n, p) of the golden cells, the conformance dial and the paper's Table I.
 OPERATING_POINTS = [(2, 24), (1, 12), (1, 24), (3, 24), (2, 30), (5, 53)]

@@ -25,6 +25,7 @@ from repro_torch.core.division_modes import DivisionConfig
 from repro_torch.launch import serve as serve_cli
 from repro_torch.models import forward, init_params
 from repro_torch.serving import Request, ServingEngine, pad_cache_to
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ARCHS = ["gemma3_12b", "deepseek_moe_16b"]
 # One prompt exactly the gemma smoke model's window (16).

@@ -27,6 +27,7 @@ from repro_torch.core.division_modes import DivisionConfig
 from repro_torch.launch import serve as serve_cli
 from repro_torch.models import init_params
 from repro_torch.serving import Request, ServingEngine, alignment, pad_cache_to
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SSM = ["mamba2_780m", "jamba_1_5_large"]
 ARCHS = SSM + ["whisper_tiny", "llava_next_mistral_7b"]

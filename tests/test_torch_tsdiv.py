@@ -16,6 +16,7 @@ import torch
 from repro.eval import golden as ref_golden
 from repro.kernels import ops as ref_ops
 from repro_torch.kernels import ops, tsdiv
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SCHEDULES = ["paper", "factored", "goldschmidt"]
 EDGES = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 1.0, -1.0, 2.0 ** -126,

@@ -18,6 +18,7 @@ from repro_torch import convert
 from repro_torch.core import division_modes as dm
 from repro_torch.eval import workload_metrics as wm
 from repro_torch.workloads import kmeans, qr
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 KM_MODES = ["exact", "taylor", "taylor_pallas", "goldschmidt_pallas"]
 
