@@ -123,6 +123,26 @@ source, in parallel), then runs, each phase printing one line:
                  full width on 8 x 512 tokens: 6 steps straight against a
                  run killed before step 4 and resumed from its step-4
                  checkpoint, every leaf of the state equal;
+ 13c. mesh     — 2 ranks on the one card (spawned processes of one gloo
+                 process group, launch.mesh.run_ranks), against this
+                 process's single-process runs: the tiled ops
+                 (ops.tsdiv_divide / recip / rsqrt) on a DTensor of the
+                 K-Means plane's shape (10^6, 1024) split over 'data', one
+                 launch a rank on its (500000, 1024) shard, no collective
+                 (CommDebugMode), held to the plain version, the
+                 single-process launch's bits (per-chunk checksums);
+                 kmeans_sharded on the K-Means cell (assignments equal,
+                 centroids within 1 int ulp, inertia within 1e-6, the
+                 centroid divides held to plain); qr_givens_sharded on
+                 4096 x 64 x 64 both ways, bit-equal to the batched run
+                 (position-weighted fingerprints of Q and R a rank);
+                 paper_fpdiv trained on a ("pod", "data") = (2, 1) mesh
+                 with compress_axis="pod", 3 steps of 16 x 2048 tokens a
+                 rank: the ranks' parameters bit-equal after every step,
+                 step 1's int8 mean within max|g'|/127 + 1e-6 of the
+                 exact f32 mean (the max over the reference's tensor: a
+                 stack of layers shares one scale), 24 softmax / 49 RMSNorm / 111 reciprocal
+                 launches a step and rank, every reciprocal held to plain;
  14. ilm serve — paper_fpdiv at full width in mode="ilm", teacher-forced
                  against the exact twin in f32 (reported, not gated);
  15. times     — each kernel, its plain version and the torch yardstick: the
@@ -139,7 +159,9 @@ source, in parallel), then runs, each phase printing one line:
                  (8192, 16384), bf16 with an f32 weight; softmax on jamba's
                  router rows (8192, 16) and whisper's 1500-key encoder and
                  cross rows; and tsdiv_recip on one train step's 111
-                 AdamW denominators (134.1 M lanes) beside torch.reciprocal.
+                 AdamW denominators (134.1 M lanes) beside torch.reciprocal;
+                 and the tiled kernels at the mesh phase's shard shape
+                 (rank 0, the other rank idle).
                  Times are CUDA events over back-to-back wrapper calls
                  (``ms``, which holds the wrapper's host time where a kernel
                  is shorter); softmax, RMSNorm, flash attention and the ILM
@@ -147,7 +169,7 @@ source, in parallel), then runs, each phase printing one line:
                  from torch.profiler, and ``library_device_ms`` (flash: also
                  ``library_kernels``, the device kernels of the SDPA call).
 
-Phases 4-6, 9, 9a-9g, 12, 13 and 13a are the main path: launch counts are reset before
+Phases 4-6, 9, 9a-9g, 12, 13, 13a and 13c are the main path: launch counts are reset before
 each and read after it. The command's wall time, the build included, is
 printed on a ``wall`` line. Any failed check raises, and the script then exits non-zero
 without printing a result. It needs a CUDA card and the repository around
@@ -353,17 +375,17 @@ def held_to_plain(got: torch.Tensor, plain, *operands: torch.Tensor):
     return n_bad, err
 
 
-def kmeans_data(seed: int):
+def kmeans_data(seed: int, n: int = N_PLANE, d: int = D, k: int = K, device: str = "cuda"):
     from repro_torch.workloads import kmeans
 
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    x = kmeans.make_blobs(gen, N_PLANE, D, K, device="cuda")
-    return x, x[torch.randperm(N_PLANE, generator=gen, device="cuda")[:K]].clone()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = kmeans.make_blobs(gen, n, d, k, device=device)
+    return x, x[torch.randperm(n, generator=gen, device=device)[:k]].clone()
 
 
-def qr_data(seed: int):
-    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
-    return torch.randn((4096, 64, 64), generator=gen, device="cuda")
+def qr_data(seed: int, shape=(4096, 64, 64), device: str = "cuda"):
+    gen = torch.Generator(device=device).manual_seed(seed + 3)
+    return torch.randn(shape, generator=gen, device=device)
 
 
 def event_ms(fn, reps: int = 10) -> float:
@@ -1641,6 +1663,503 @@ def phase_times_train(err: dict, launches: dict, recips: list):
     return [row]
 
 
+# ------------------------------------------------------------------ mesh
+# The mesh phase: MESH_RANKS ranks on the one card (launch.mesh.run_ranks,
+# gloo: NCCL takes one GPU per rank), each its own process of one process
+# group, against this process's single-process runs.
+MESH_RANKS = 2
+MESH_PLANE = (N_PLANE, 1024)    # the K-Means distance plane
+MESH_CHUNK_ROWS = 15625         # the plane in 64 chunks of 15625 x 1024, 32 a rank
+MESH_KM_ITERS = 10              # the K-Means cell (N_PLANE, D, K)
+MESH_QR = (4096, 64, 64)
+MESH_TRAIN_STEPS = 3            # the train phase's 32 x 2048 step, 16 x 2048 a rank
+MESH_TIMEOUT_S = 600.0
+
+
+def plane_rows(seed: int, chunks) -> tuple:
+    """The plane's operands (a, b) at the rows of ``chunks``: chunk c from a
+    generator seeded with (seed, c), so a rank makes only its own rows."""
+    rows, cols = MESH_CHUNK_ROWS, MESH_PLANE[1]
+    a = torch.empty((len(chunks) * rows, cols), device="cuda")
+    b = torch.empty_like(a)
+    for i, c in enumerate(chunks):
+        g = torch.Generator(device="cuda").manual_seed(seed * 1000 + c)
+        torch.randn((rows, cols), generator=g, device="cuda", out=a[i * rows:(i + 1) * rows])
+        torch.rand((rows, cols), generator=g, device="cuda", out=b[i * rows:(i + 1) * rows])
+    a.mul_(4.0)
+    b.mul_(9.9).add_(0.1)
+    return a, b
+
+
+def plane_cases():
+    """{kernel: (entry point on (a, b), plain version on (a, b), operands)}:
+    the tiled ops at the main path's default config."""
+    from repro_torch.core.seeds import compute_segments, rsqrt_seed_table
+    from repro_torch.kernels import common, ops
+
+    table = compute_segments(2, 24)
+    return {"tsdiv_divide": (lambda a, b: ops.tsdiv_divide(a, b),
+                             lambda a, b: common.divide_f32_bits(a, b, table, 2, "factored"),
+                             (0, 1)),
+            "tsdiv_recip": (lambda a, b: ops.tsdiv_recip(a),
+                            lambda a: common.recip_f32_bits(a, table, 2, "factored"), (0,)),
+            "tsdiv_rsqrt": (lambda a, b: ops.tsdiv_rsqrt(b),
+                            lambda b: common.rsqrt_f32_bits(b, rsqrt_seed_table(16), 2), (1,))}
+
+
+def chunk_sums(y: torch.Tensor) -> list:
+    return [bits_sum(y[i:i + MESH_CHUNK_ROWS]) for i in range(0, y.shape[0], MESH_CHUNK_ROWS)]
+
+
+def fingerprint(t: torch.Tensor) -> tuple:
+    """bits_sum and a position-weighted sum of the bit patterns."""
+    ints = t.detach().reshape(-1).view({4: torch.int32, 2: torch.int16}[t.element_size()])
+    w = torch.arange(ints.numel(), device=t.device) % 65521 + 1
+    return bits_sum(t) + (int((ints.long() * w).sum()),)
+
+
+def rank_plane(seed: int, mesh, rank: int, want: dict) -> dict:
+    """The tiled dispatch on this rank's rows of the plane: one launch per
+    op, no collective, held to the plain version, the parent's chunk
+    checksums; then the kernels' times at the shard shape, one rank at a
+    time."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.kernels import tsdiv
+    from repro_torch.sharding import rules as shr
+
+    per = MESH_PLANE[0] // MESH_CHUNK_ROWS // MESH_RANKS
+    al, bl = plane_rows(seed, range(rank * per, (rank + 1) * per))
+    pl = shr.batch_sharding(mesh, shr.batch_partition(mesh, MESH_PLANE[0]), 2).placements
+    A, B = (DTensor.from_local(t, mesh, pl, run_check=False) for t in (al, bl))
+    out = {}
+    for name, (entry, plain, which) in plane_cases().items():
+        tsdiv.reset_launches()
+        with shr.use_mesh(mesh), CommDebugMode() as comm:
+            y = entry(A, B)
+        torch.cuda.synchronize()
+        yl = y.to_local()
+        n_bad, e = held_to_plain(yl, plain, *((al, bl)[i] for i in which))
+        out[name] = {"launches": dict(tsdiv.LAUNCHES), "collectives": comm.get_total_counts(),
+                     "placements": str(tuple(y.placements)), "mismatched_lanes": n_bad,
+                     "max_abs_err": e, "shard_shape": list(yl.shape),
+                     "checksums_equal": chunk_sums(yl) == want[name][rank * per:(rank + 1) * per]}
+        del y, yl
+    times = {}
+    torch.cuda.synchronize()
+    dist.barrier()                 # the other rank's checks are off the card
+    for turn in range(MESH_RANKS):
+        if turn == rank:
+            times = plane_times(mesh, A, B)
+        dist.barrier()
+    return {"ops": out, "times": times}
+
+
+def plane_times(mesh, A, B) -> dict:
+    """Each tsdiv kernel at the shard shape: events and device time of the
+    raw kernel on the rank's block, events of the ops entry point on the
+    DTensors (the mesh dispatch around that launch), the plain version on
+    PLAIN_ELEMENTS lanes, the torch call."""
+    from repro_torch.kernels import tsdiv
+    from repro_torch.sharding import rules as shr
+
+    a, b = A.to_local(), B.to_local()
+    xs, bs = a.view(-1)[:PLAIN_ELEMENTS].clone(), b.view(-1)[:PLAIN_ELEMENTS].clone()
+    out = {}
+    library = {"tsdiv_divide": lambda: torch.div(a, b), "tsdiv_recip": lambda: torch.reciprocal(a),
+               "tsdiv_rsqrt": lambda: torch.rsqrt(b)}
+    kernels = {"tsdiv_divide": lambda: tsdiv.divide(a, b), "tsdiv_recip": lambda: tsdiv.recip(a),
+               "tsdiv_rsqrt": lambda: tsdiv.rsqrt(b)}
+    for name, (entry, plain, which) in plane_cases().items():
+        ops_ = [(xs, bs)[i] for i in which]
+        with shr.use_mesh(mesh):
+            dispatch_ms = event_ms(lambda: entry(A, B))
+        out[name] = {"ms": event_ms(kernels[name]), "dispatch_ms": dispatch_ms,
+                     "device_ms": device_ms(kernels[name], "elementwise_kernel"),
+                     "plain_ms": event_ms(lambda: plain(*ops_), 3),
+                     "library_ms": event_ms(library[name]),
+                     "library_device_ms": device_ms(library[name])}
+    return out
+
+
+def rank_kmeans(seed: int, mesh, want: dict) -> dict:
+    """kmeans_sharded on the K-Means cell, its centroid divides held to the
+    plain version, against the parent's single-process run."""
+    from repro_torch.core import division_modes as dm
+    from repro_torch.core.seeds import compute_segments
+    from repro_torch.kernels import common, tsdiv
+    from repro_torch.sharding import rules as shr
+    from repro_torch.workloads import kmeans
+
+    n, d, k = N_PLANE, D, K
+    x, init = kmeans_data(seed, n, d, k)
+    cfg = dm.DivisionConfig(mode="taylor_pallas")
+    held, real = [], tsdiv.divide
+
+    def spy(a, b, n_iters=2, precision_bits=24, schedule="factored"):
+        got = real(a, b, n_iters, precision_bits, schedule)
+        if a.numel() == k * d:                     # the centroid update
+            table = compute_segments(n_iters, precision_bits)
+            held.append(held_to_plain(got, lambda u, v: common.divide_f32_bits(
+                u, v, table, n_iters, schedule), a, b))
+        return got
+
+    with shr.use_mesh(mesh):
+        kmeans.kmeans_sharded(x, cfg=cfg, init=init, n_iters=1)  # warm-up
+        torch.cuda.synchronize()
+        tsdiv.reset_launches()
+        tsdiv.divide = spy
+        try:
+            t0 = time.perf_counter()
+            res = kmeans.kmeans_sharded(x, cfg=cfg, init=init, n_iters=MESH_KM_ITERS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            tsdiv.divide = real
+    launches = dict(tsdiv.LAUNCHES)
+    lo = shr.local_offset(shr.batch_sharding(mesh, shr.batch_partition(mesh, n), 2), 0, n)
+    assign = res.assignments.to_local().cpu()
+    c = res.centroids.cpu()
+    ulps = (c.view(torch.int32).long() - want["centroids"].view(torch.int32).long()).abs()
+    return {"ms": wall * 1e3, "launches": launches, "rows": assign.numel(),
+            "assignments_differing": int((assign != want["assign"][lo:lo + assign.numel()]).sum()),
+            "centroid_max_ulp": int(ulps.max()), "centroid_lanes_differing": int((ulps > 0).sum()),
+            "inertia": float(res.inertia),
+            "inertia_rel": abs(float(res.inertia) - want["inertia"]) / abs(want["inertia"]),
+            "centroid_divides_held": len(held), "held_mismatched_lanes": sum(h[0] for h in held),
+            "held_max_abs_err": max((h[1] for h in held), default=0.0)}
+
+
+def rank_qr(seed: int, mesh, rank: int, want: dict) -> dict:
+    """qr_givens_sharded on this rank's matrices, both ways, against the
+    parent's batched run's fingerprints."""
+    from repro_torch.core import division_modes as dm
+    from repro_torch.kernels import tsdiv
+    from repro_torch.sharding import rules as shr
+    from repro_torch.workloads import qr
+
+    a = qr_data(seed, MESH_QR)
+    out = {}
+    for via in ("div", "rsqrt"):
+        tsdiv.reset_launches()
+        t0 = time.perf_counter()
+        with shr.use_mesh(mesh):
+            q, r = qr.qr_givens_sharded(a, dm.DivisionConfig(mode="taylor_pallas"), via=via)
+        torch.cuda.synchronize()
+        out[via] = {"seconds": time.perf_counter() - t0, "launches": dict(tsdiv.LAUNCHES),
+                    "matrices": q.to_local().shape[0],
+                    "bits_equal": [fingerprint(q.to_local()), fingerprint(r.to_local())]
+                    == want[via][rank]}
+    return out
+
+
+def rank_train(seed: int) -> dict:
+    """paper_fpdiv trained on a ("pod", "data") = (2, 1) mesh with the
+    gradients' cross-pod mean int8-compressed: every reciprocal held to
+    its plain version, step 1's compressed mean against the exact f32 mean
+    of the same grads, the ranks' parameters compared after every step."""
+    import torch.distributed as dist
+
+    from repro_torch import tree
+    from repro_torch.core.seeds import compute_segments
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels import common, rmsnorm, softmax, tsdiv
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw, compress
+    from repro_torch.sharding import comm
+    from repro_torch.sharding import rules as shr
+    from repro_torch.train import step as ts
+
+    cfg = train_config()
+    mesh = make_mesh((MESH_RANKS, 1), ("pod", "data"), "cuda")
+    dev = "cuda"
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed))
+    opt_cfg = adamw.AdamWConfig(state_dtype=cfg.opt_state_dtype, division=cfg.division)
+    state = ts.init_state(cfg, params, opt_cfg)
+    err_tree = compress.init_error_tree(params)
+    del params
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                  global_batch=TRAIN_BATCH, seed=seed))
+    n_micro = max(1, TRAIN_BATCH // MESH_RANKS // cfg.train_microbatch_size)
+    mods = (softmax, rmsnorm, tsdiv)
+    real_recip, real_psum = tsdiv.recip, compress.psum_compressed
+    held, hold_s, gate = [], [0.0], {}
+
+    def recip_spy(x, n_iters=2, precision_bits=24, schedule="factored"):
+        got = real_recip(x, n_iters, precision_bits, schedule)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        table = compute_segments(n_iters, precision_bits)
+        held.append(held_to_plain(got, lambda v: common.recip_f32_bits(
+            v, table, n_iters, schedule), x))
+        torch.cuda.synchronize()
+        hold_s[0] += time.perf_counter() - t0
+        return got
+
+    def psum_spy(grads, errs, axis_name):
+        mean, new = real_psum(grads, errs, axis_name)
+        if not gate:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            worst = 0.0
+            gps = [g.float() + e for g, e in zip(tree.leaves(grads), tree.leaves(errs))]
+            means = tree.leaves(mean)
+            for group in compress.stacks(grads):      # one scale a stack of layers
+                top = comm.all_reduce(torch.stack([gps[i].abs().max() for i in group]).max(),
+                                      mesh, [axis_name], op="max")
+                bound = float(top) / 127.0 + 1e-6
+                for i in group:
+                    exact = comm.all_reduce(gps[i], mesh, [axis_name]) / MESH_RANKS
+                    worst = max(worst, float((means[i] - exact).abs().max()) / bound)
+            gate.update(worst_over_bound=worst, leaves=len(means))
+            torch.cuda.synchronize()
+            hold_s[0] += time.perf_counter() - t0
+        return mean, new
+
+    torch.cuda.reset_peak_memory_stats()
+    free_gib = torch.cuda.mem_get_info()[0] / 2**30
+    steps = []
+    tsdiv.recip, compress.psum_compressed = recip_spy, psum_spy
+    try:
+        for s in range(MESH_TRAIN_STEPS):
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in data.batch(s).items()}
+            for m in mods:
+                m.reset_launches()
+            held.clear()
+            hold_s[0] = 0.0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with shr.use_mesh(mesh):
+                state, metrics, err_tree = ts.train_step(cfg, opt_cfg, state, batch,
+                                                         n_micro=n_micro, compress_axis="pod",
+                                                         err_tree=err_tree)
+            loss = float(metrics["loss"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            prints = [fingerprint(p) for p in tree.leaves(state.params)]
+            every = [None] * MESH_RANKS
+            dist.all_gather_object(every, prints)
+            steps.append({"ms": wall * 1e3, "hold_ms": hold_s[0] * 1e3,
+                          "net_ms": (wall - hold_s[0]) * 1e3, "loss": loss,
+                          "launches": {k: v for m in mods for k, v in m.LAUNCHES.items() if v},
+                          "recips_held": len(held), "held_mismatched_lanes": sum(h[0] for h in held),
+                          "held_max_abs_err": max((h[1] for h in held), default=0.0),
+                          "ranks_bit_equal": all(p == every[0] for p in every)})
+    finally:
+        tsdiv.recip, compress.psum_compressed = real_recip, real_psum
+    return {"arch": cfg.name, "layers": cfg.n_layers, "params_dtype": cfg.param_dtype,
+            "n_leaves": len(tree.leaves(state.params)), "n_micro": n_micro,
+            "remat": cfg.remat, "batch_per_rank": TRAIN_BATCH // MESH_RANKS,
+            "seq_len": TRAIN_SEQ, "steps": steps, "compressed_mean_gate": gate,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "peak_reserved_gib": torch.cuda.max_memory_reserved() / 2**30,
+            "card_free_gib_at_start": free_gib}
+
+
+def mesh_rank(rank: int, seed: int, want: dict) -> dict:
+    """One rank of the mesh phase: the tiled dispatch, K-Means, QR, then the
+    cross-pod trainer; returns its readings (the parent checks them)."""
+    from repro_torch.launch.mesh import make_host_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    # Two ranks and this phase's parent share one card: segments that grow
+    # in place leave less reserved but unused.
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    mesh = make_host_mesh(device_type="cuda")                # (data 2, model 1)
+    parts = (("plane", lambda: rank_plane(seed, mesh, rank, want["plane"])),
+             ("kmeans", lambda: rank_kmeans(seed, mesh, want["kmeans"])),
+             ("qr", lambda: rank_qr(seed, mesh, rank, want["qr"])),
+             ("train", lambda: rank_train(seed)))
+    out = {}
+    for part, run in parts:
+        t0 = time.perf_counter()
+        out[part] = run()
+        torch.cuda.synchronize()
+        out[part]["part_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_want(seed: int) -> dict:
+    """This process's single-process runs, as the ranks compare with them:
+    the plane's chunk checksums of each op (one launch over the whole
+    plane), K-Means' centroids, assignments and inertia, QR's fingerprints
+    per rank block."""
+    from repro_torch.core import division_modes as dm
+    from repro_torch.workloads import kmeans, qr
+
+    a, b = plane_rows(seed, range(MESH_PLANE[0] // MESH_CHUNK_ROWS))
+    plane = {}
+    for name, (entry, _, _) in plane_cases().items():
+        y = entry(a, b)
+        plane[name] = chunk_sums(y)
+        del y
+    del a, b
+    x, init = kmeans_data(seed)
+    cfg = dm.DivisionConfig(mode="taylor_pallas")
+    res = kmeans.kmeans(x, cfg=cfg, init=init, n_iters=MESH_KM_ITERS)
+    km = {"centroids": res.centroids.cpu(), "assign": res.assignments.cpu(),
+          "inertia": float(res.inertia)}
+    del x, init, res
+    a = qr_data(seed, MESH_QR)
+    per = MESH_QR[0] // MESH_RANKS
+    qrs = {}
+    for via in ("div", "rsqrt"):
+        q, r = qr.qr_givens_batched(a, cfg, via=via)
+        qrs[via] = [[fingerprint(q[i * per:(i + 1) * per]), fingerprint(r[i * per:(i + 1) * per])]
+                    for i in range(MESH_RANKS)]
+        del q, r
+    torch.cuda.empty_cache()
+    return {"plane": plane, "kmeans": km, "qr": qrs}
+
+
+TILED_SITES = {"tsdiv_divide": "src/repro/kernels/tsdiv.py:199",
+               "tsdiv_recip": "src/repro/kernels/tsdiv.py:225",
+               "tsdiv_rsqrt": "src/repro/kernels/tsdiv.py:252"}
+
+
+def phase_mesh(seed: int, launches: dict, err: dict) -> dict:
+    """The mesh phase: MESH_RANKS ranks on the one card (2 processes share it,
+    so times are not a scaling figure). Gates: each tiled op one launch a
+    rank on its shard, no collective, held to its plain version, its chunk
+    checksums the single-process launch's; kmeans_sharded's assignments the
+    single-process run's, centroids within 1 int ulp (the lanes that differ
+    reported), inertia within 1e-6, its centroid divides held to plain; QR
+    sharded bit-equal to batched (position-weighted fingerprints per rank
+    block); the cross-pod trainer's ranks bit-equal
+    after every step, step 1's compressed mean within max|g'|/127 + 1e-6 of
+    the exact f32 mean, its launches a step and every reciprocal held to
+    plain. Returns the tiled kernels' times at the shard shape (rank 0's,
+    the other rank idle) for phase_times_mesh."""
+    from repro_torch.launch.mesh import run_ranks
+
+    import gc
+
+    t0 = time.perf_counter()
+    want = mesh_want(seed)
+    want_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    parent = {"allocated_gib": torch.cuda.memory_allocated() / 2**30,
+              "reserved_gib": torch.cuda.memory_reserved() / 2**30,
+              "card_free_gib": torch.cuda.mem_get_info()[0] / 2**30}
+    t0 = time.perf_counter()
+    ranks = run_ranks(mesh_rank, MESH_RANKS, seed, want, device_type="cuda",
+                      timeout_s=MESH_TIMEOUT_S)
+    ranks_s = time.perf_counter() - t0
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    # The tiled dispatch on the plane.
+    plane = [r["plane"]["ops"] for r in ranks]
+    say("mesh", part="plane", shape=list(MESH_PLANE), ranks=MESH_RANKS, ops=plane,
+        single_process_s=want_s, ranks_s=ranks_s, part_s=[r["plane"]["part_s"] for r in ranks],
+        parent_memory=parent)
+    for name in plane_cases():
+        for ops_ in plane:
+            o = ops_[name]
+            add(o["launches"])
+            err[name] = max(err[name], o["max_abs_err"])
+            want_l = {k: int(k == name) for k in o["launches"]}
+            check(o["launches"] == want_l, f"mesh {name}: launches {o['launches']}, want {want_l}")
+            check(o["collectives"] == 0, f"mesh {name}: {o['collectives']} collectives")
+            check(o["mismatched_lanes"] == 0, f"mesh {name}: {o['mismatched_lanes']} lanes differ")
+            check(o["checksums_equal"], f"mesh {name}: not the single-process launch's bits")
+
+    # kmeans_sharded.
+    km = [r["kmeans"] for r in ranks]
+    say("mesh", part="kmeans", n=N_PLANE, d=D, k=K, n_iters=MESH_KM_ITERS,
+        mode="taylor_pallas", note="2 ranks share one card: not a scaling figure", ranks=km)
+    for o in km:
+        add(o["launches"])
+        err["tsdiv_divide"] = max(err["tsdiv_divide"], o["held_max_abs_err"])
+        want_d = 3 * MESH_KM_ITERS + 2
+        check(o["launches"].get("tsdiv_divide", 0) == want_d,
+              f"mesh kmeans: {o['launches']}, want {want_d} divides")
+        check(o["assignments_differing"] == 0, f"mesh kmeans: {o['assignments_differing']} "
+              "assignments differ from the single-process run")
+        check(o["centroid_max_ulp"] <= 1, f"mesh kmeans: centroids {o['centroid_max_ulp']} ulp off")
+        check(o["inertia_rel"] <= 1e-6, f"mesh kmeans: inertia {o['inertia_rel']} relative")
+        check(o["centroid_divides_held"] == MESH_KM_ITERS and o["held_mismatched_lanes"] == 0,
+              f"mesh kmeans: centroid divides held {o['centroid_divides_held']}, "
+              f"{o['held_mismatched_lanes']} lanes differ")
+
+    # qr_givens_sharded.
+    q = [r["qr"] for r in ranks]
+    say("mesh", part="qr", shape=list(MESH_QR), ranks=q)
+    rotations = MESH_QR[1] * (MESH_QR[1] - 1) // 2
+    for o in q:
+        for via, name, n in (("div", "tsdiv_divide", 2 * rotations),
+                             ("rsqrt", "tsdiv_rsqrt", rotations)):
+            add(o[via]["launches"])
+            check(o[via]["launches"].get(name, 0) == n,
+                  f"mesh qr via={via}: {o[via]['launches']}")
+            check(o[via]["bits_equal"], f"mesh qr via={via}: not the batched run's bits")
+
+    # The cross-pod trainer.
+    tr = [r["train"] for r in ranks]
+    per_step = None
+    for o in tr:
+        L, n_micro = o["layers"], o["n_micro"]
+        per_step = {"softmax_f32": n_micro * L * (1 + o["remat"]),
+                    "rmsnorm_f32": n_micro * (2 * L * (1 + o["remat"]) + 1),
+                    "tsdiv_recip": o["n_leaves"]}
+        for s in o["steps"]:
+            add(s["launches"])
+            err["tsdiv_recip"] = max(err["tsdiv_recip"], s["held_max_abs_err"])
+            check(s["launches"] == per_step,
+                  f"mesh train: launches {s['launches']} a step, want {per_step}")
+            check(s["recips_held"] == o["n_leaves"] and s["held_mismatched_lanes"] == 0,
+                  f"mesh train: {s['recips_held']} reciprocals held, "
+                  f"{s['held_mismatched_lanes']} lanes differ")
+            check(s["ranks_bit_equal"], "mesh train: the ranks' parameters differ")
+            check(math.isfinite(s["loss"]), f"mesh train: loss {s['loss']}")
+        g = o["compressed_mean_gate"]
+        check(g.get("leaves") == o["n_leaves"] and g["worst_over_bound"] <= 1.0,
+              f"mesh train: compressed mean off by {g} of max|g'|/127 + 1e-6")
+    step_ms = [float(np.median([s["net_ms"] for s in o["steps"][1:]] or [o["steps"][0]["net_ms"]]))
+               for o in tr]
+    say("mesh", part="train", arch=tr[0]["arch"], layers=tr[0]["layers"],
+        params_dtype=tr[0]["params_dtype"], mesh={"pod": MESH_RANKS, "data": 1},
+        compress_axis="pod", batch_per_rank=tr[0]["batch_per_rank"], seq_len=tr[0]["seq_len"],
+        n_micro=tr[0]["n_micro"], remat=tr[0]["remat"], launches_per_step=per_step,
+        step_ms_net_of_holds=step_ms, peak_gib=[o["peak_gib"] for o in tr],
+        peak_reserved_gib=[o["peak_reserved_gib"] for o in tr],
+        card_free_gib_at_start=[o["card_free_gib_at_start"] for o in tr],
+        note="2 ranks share one card: not a scaling figure",
+        ranks=[{k: o[k] for k in ("steps", "compressed_mean_gate", "part_s")} for o in tr])
+
+    return {"shard_shape": plane[0]["tsdiv_divide"]["shard_shape"],
+            "times": ranks[0]["plane"]["times"]}
+
+
+def phase_times_mesh(err: dict, launches: dict, mesh: dict) -> list:
+    """The tiled kernels at the mesh phase's shard shape (rank 0's times,
+    taken while the other rank waited): ``ms`` and ``device_ms`` of the raw
+    kernel on the rank's block, ``dispatch_ms`` of the ops entry point on
+    the DTensors (the dispatch with its launch), beside the plain versions
+    and the torch calls."""
+    rows = []
+    n = mesh["shard_shape"][0] * mesh["shard_shape"][1]
+    for name, t in mesh["times"].items():
+        rows.append(kernel_row(name, t["ms"], t["plain_ms"], t["library_ms"],
+                               (12 if name == "tsdiv_divide" else 8) * n, n, launches, err,
+                               replaces=TILED_SITES[name], site="mesh_shard", model="mesh",
+                               ranks=MESH_RANKS, shape=mesh["shard_shape"],
+                               plain_elements=PLAIN_ELEMENTS, device_ms=t["device_ms"],
+                               dispatch_ms=t["dispatch_ms"],
+                               library_device_ms=t["library_device_ms"]))
+        say("times", **rows[-1])
+    return rows
+
+
 def u32_mismatch(got: torch.Tensor, want: torch.Tensor):
     """mismatch() for uint32 lanes: (lanes differing, max |got - want|)."""
     from repro_torch.core.ilm import as_u32_lanes
@@ -2083,6 +2602,11 @@ def main(argv=None) -> int:
     flash_in = phase_flash_serve(args.seed, err, launches)
     ilm_in = phase_ilm(args.seed, err, launches)
     recips = phase_train(args.seed, launches, err)
+    # The mesh phase's two ranks need room on the card: the distance plane
+    # (4 GB, for the times phase) waits on the host meanwhile.
+    plane = plane.cpu()
+    mesh = phase_mesh(args.seed, launches, err)
+    plane = plane.cuda()
     check(all(launches.values()), f"a kernel was not launched on the main path: {launches}")
     consumer_inputs = phase_serve_calls(args.seed, err)
     phase_flash(args.seed, err)
@@ -2091,6 +2615,7 @@ def main(argv=None) -> int:
     rows += phase_times_attention_ilm(err, launches, flash_in, ilm_in)
     rows += phase_times_models(err, launches, firsts)
     rows += phase_times_train(err, launches, recips)
+    rows += phase_times_mesh(err, launches, mesh)
     result = {"kernels": rows}
     say("wall", seconds=time.perf_counter() - t_start)
     if args.json:

@@ -5,7 +5,9 @@ rsqrt and its consumers softmax / RMSNorm, with hand-written CUDA kernels
 for Hopper (``kernels/``); the K-Means and Givens-QR workloads on it; the
 LMs of every architecture (``configs/``, ``models/``) served on it
 (``serving/``, ``launch/serve.py``) and trained on it (``optim/``,
-``train/``, ``data/``, ``launch/train.py``). Imports torch and numpy only.
+``train/``, ``data/``, ``launch/train.py``), and data parallel over a
+device mesh of ranks (``sharding/``, ``launch/mesh.py``). Imports torch and
+numpy only.
 """
 from .core.division_modes import (EXACT, MODES, TAYLOR, DivisionConfig, div,
                                   recip, rsqrt)

@@ -5,9 +5,10 @@ keeps the reference's fields that the ported models and the layer pattern
 read, with the same defaults and derived pattern (``layer_specs``,
 ``groups``, ``q_per_kv``), so a config means the same model in both
 packages, the training fields (``opt_state_dtype``, ``remat``,
-``train_microbatch_size``) included. The sharding rules, shape cells and
-dry-run knobs arrive with the slices that read them (ROADMAP Queue 1 items
-13 and 14).
+``train_microbatch_size``) and the sharding rules (``sharding_rules``
+over :data:`DEFAULT_RULES`, resolved by :func:`rules_for`) included. The
+shape cells and dry-run knobs arrive with the slice that reads them
+(ROADMAP Queue 1 item 14).
 
 The registry resolves every architecture of the reference.
 """
@@ -15,12 +16,13 @@ from __future__ import annotations
 
 import importlib
 from dataclasses import dataclass, field
-from typing import List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 from repro_torch.core.division_modes import DivisionConfig
 
 __all__ = ["MIXERS", "FFNS", "LayerSpec", "Group", "ModelConfig", "ARCH_IDS",
-           "PORTED_ARCHS", "canon", "get_config", "get_smoke_config"]
+           "PORTED_ARCHS", "canon", "get_config", "get_smoke_config", "DEFAULT_RULES",
+           "rules_for"]
 
 MIXERS = ("attn", "swa", "mamba")
 FFNS = ("dense", "moe", "none")
@@ -74,7 +76,7 @@ class ModelConfig:
     d_ff_dense: int = 0            # dense-FFN width when it differs
     capacity_factor: float = 1.25
     router_aux_weight: float = 0.01
-    moe_dispatch: str = "cumsum"   # cumsum | sort | local (one shard here)
+    moe_dispatch: str = "cumsum"   # cumsum | sort | local (per batch shard)
     # --- ssm (mamba2 / SSD) ---
     ssm_state: int = 0
     ssm_heads: int = 0
@@ -94,6 +96,7 @@ class ModelConfig:
     opt_state_dtype: str = "float32"
     norm_eps: float = 1e-6
     division: DivisionConfig = field(default_factory=lambda: DivisionConfig(mode="taylor"))
+    sharding_rules: Dict[str, Optional[str]] = field(default_factory=dict)
     remat: bool = True              # recompute each block's activations in backward
     train_microbatch_size: int = 4  # sequences per data-shard per microbatch
     attn_chunk: int = 2048          # query-chunked attention threshold/size
@@ -168,3 +171,28 @@ def get_config(arch: str) -> ModelConfig:
 
 def get_smoke_config(arch: str) -> ModelConfig:
     return _module(arch).SMOKE_CONFIG
+
+
+# Default logical-axis -> mesh-axis rules; an arch's ``sharding_rules``
+# override them axis by axis.
+DEFAULT_RULES: Dict[str, Optional[str]] = {
+    "embed": None,
+    "heads": "model",
+    "kv_heads": "model",      # dropped automatically when not divisible
+    "head_dim": None,
+    "mlp": "model",
+    "vocab": "model",
+    "experts": "model",
+    "expert_mlp": None,
+    "ssm_inner": "model",
+    "ssm_heads": "model",
+    "ssm_state": None,
+    "conv": None,
+    "layers": None,
+}
+
+
+def rules_for(cfg: ModelConfig) -> Dict[str, Optional[str]]:
+    rules = dict(DEFAULT_RULES)
+    rules.update(cfg.sharding_rules)
+    return rules

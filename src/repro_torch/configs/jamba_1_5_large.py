@@ -22,6 +22,11 @@ CONFIG = ModelConfig(
     d_ff_expert=24_576,
     ssm_state=128, ssm_heads=128, ssm_head_dim=128, d_inner=16_384,
     opt_state_dtype="bfloat16",
+    sharding_rules={
+        "embed": "data", "experts": "data", "expert_mlp": "model",
+        "mlp": "model", "heads": "model", "vocab": "model",
+        "ssm_inner": "model", "ssm_heads": "model",
+    },
     train_microbatch_size=1,
 )
 

@@ -24,6 +24,7 @@ CONFIG = ModelConfig(
     d_ff_expert=1408,
     d_ff_dense=11_264,
     train_microbatch_size=4,
+    sharding_rules={"experts": "data", "expert_mlp": "model"},
 )
 
 SMOKE_CONFIG = ModelConfig(

@@ -13,10 +13,11 @@ as (100)_2 << k with no decoder.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Tuple
 
-__all__ = ["schedule", "eval_powers", "HwCost", "hw_cost"]
+__all__ = ["schedule", "eval_powers", "op_counts", "HwCost", "hw_cost"]
 
 Op = Tuple[str, Any, int]  # (kind, operand(s), result power)
 
@@ -49,6 +50,28 @@ def eval_powers(x, n: int, *, mul: Callable, square: Callable) -> Dict[int, Any]
             a, b = src
             powers[dst] = mul(powers[a], powers[b])
     return powers
+
+
+def op_counts(n: int, sched: str = "paper") -> Dict[str, int]:
+    """Multiplies, squares, adds, cycles and series terms needed to evaluate
+    sum_{k<=n} m^k in the §6 (``paper``) or the ``factored`` schedule."""
+    if sched == "paper":
+        ops = schedule(n)
+        sq = sum(1 for o in ops if o[0] == "square")
+        mu = sum(1 for o in ops if o[0] == "mul")
+        # one odd + even pair per cycle after the initial square (§6)
+        cycles = 1 + max(0, (n - 2 + 1) // 2) if n >= 2 else 0
+        return {"mul": mu, "square": sq, "add": max(0, n), "cycles": cycles,
+                "terms": n + 1}
+    if sched == "factored":
+        if n <= 0:
+            return {"mul": 0, "square": 0, "add": 0, "cycles": 0, "terms": 1}
+        j = max(1, math.ceil(math.log2(n + 1)))
+        # t starts at m^2 (one square); each further factor costs a square
+        # and a multiply.
+        return {"mul": j - 1, "square": j - 1, "add": j, "cycles": j,
+                "terms": 2**j}
+    raise ValueError(sched)
 
 
 @dataclass(frozen=True)

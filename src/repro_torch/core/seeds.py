@@ -20,7 +20,12 @@ from functools import lru_cache
 
 import numpy as np
 
-__all__ = ["SeedTable", "compute_segments", "rsqrt_seed_table"]
+__all__ = ["SeedTable", "linear_seed_coeffs", "seed_max_m", "seed_error_bound",
+           "iterations_required", "compute_segments", "rsqrt_seed_table",
+           "PAPER_TABLE_I"]
+
+# Paper Table I (n = 5, 53-bit precision): reproduced by compute_segments(5, 53).
+PAPER_TABLE_I = [1.09811, 1.20835, 1.3269, 1.45709, 1.59866, 1.75616, 1.92922, 2.12392]
 
 
 def linear_seed_coeffs(a: float, b: float) -> tuple[float, float]:
@@ -29,10 +34,25 @@ def linear_seed_coeffs(a: float, b: float) -> tuple[float, float]:
     return (-1.0 / (p * p), 2.0 / p)
 
 
+def seed_max_m(a: float, b: float) -> float:
+    """max_x |1 - x*y0(x)| over [a, b] for the optimal seed: ((b-a)/(a+b))^2."""
+    return ((b - a) / (a + b)) ** 2
+
+
 def seed_error_bound(a: float, b: float, n: int) -> float:
     """Eq. 17: bound on the reciprocal error after n Taylor terms."""
     amp = (a + b) ** 2 / (4.0 * a * b)
-    return amp ** (n + 2) * (((b - a) / (a + b)) ** 2) ** (n + 1)
+    return amp ** (n + 2) * seed_max_m(a, b) ** (n + 1)
+
+
+def iterations_required(a: float, b: float, precision_bits: int, n_max: int = 64) -> int:
+    """Smallest n with seed_error_bound(a, b, n) <= 2^-precision_bits; the
+    paper's §3 claim (1, 2, 53 bits) -> 17 iterations."""
+    target = 2.0 ** (-precision_bits)
+    for n in range(n_max + 1):
+        if seed_error_bound(a, b, n) <= target:
+            return n
+    raise ValueError(f"no n <= {n_max} meets 2^-{precision_bits} on [{a},{b}]")
 
 
 def _next_boundary(a: float, n: int, precision_bits: int, b_cap: float = 16.0) -> float:
@@ -79,6 +99,13 @@ class SeedTable:
         x = np.asarray(x)
         idx = np.sum(x[..., None] >= self.inner_boundaries, axis=-1)
         return self.slopes[idx] * x + self.intercepts[idx]
+
+    def max_error_bound(self, n: int | None = None) -> float:
+        """The largest eq. 17 bound over the segments after n terms
+        (the table's own n_iters by default)."""
+        n = self.n_iters if n is None else n
+        return max(seed_error_bound(float(a), float(b), n)
+                   for a, b in zip(self.boundaries[:-1], self.boundaries[1:]))
 
 
 @lru_cache(maxsize=None)

@@ -6,6 +6,7 @@ division unit run through the port's modes on a chosen device:
 
     PYTHONPATH=src python -m repro_torch.eval.conformance --quick --device cpu
     PYTHONPATH=src python -m repro_torch.eval.conformance --json out.json
+    PYTHONPATH=src python -m repro_torch.eval.conformance --quick --fanout 2
 
 On the card (the default device) the kernel modes run the tsdiv, softmax
 and RMSNorm kernels; on the CPU they run the kernels' plain versions. The
@@ -50,6 +51,9 @@ DIAL = ((1, 12), (2, 24), (3, 30))
 # <= 2 max ULP (the paper's gate); n=1 @ 12-bit is the loose end of the
 # dial by design and is not ULP-gated. ILM is ~12-bit by construction.
 GATE_MAX_ULP = 2.0
+
+# Seconds a --fanout worker may take (the full grid takes ~3 min on the CPU).
+FANOUT_WORKER_TIMEOUT_S = 1800.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -464,6 +468,86 @@ def _emit(report: Dict, json_path: Optional[str]) -> int:
     return 0
 
 
+def _worker_cmd(args, k: int, n: int, json_path: str) -> List[str]:
+    """The command line of fanout worker ``k`` of ``n``."""
+    cmd = [sys.executable, "-m", "repro_torch.eval.conformance", "--seed",
+           str(args.seed), "--device", args.device, "--shard", f"{k}/{n}",
+           "--json", json_path]
+    if args.quick:
+        cmd.append("--quick")
+    if args.modes:
+        cmd += ["--modes", args.modes]
+    return cmd
+
+
+def _run_fanout(args, n: int) -> int:
+    """Run the grid as ``n`` worker subprocesses, ``--shard k/n`` each, and
+    merge their reports, as the reference's ``--fanout`` does.
+
+    Worker k takes the interleaved slice ``cells[k::n]``, so ``merged[k::n]
+    = shard_k`` restores the single process's cell order. A worker that
+    writes no report, exits with a code its report does not explain (0 when
+    its cells pass, 1 when one fails its gate) or outlives
+    ``FANOUT_WORKER_TIMEOUT_S`` fails the run and is named; the others are
+    then stopped.
+    """
+    import os
+    import subprocess
+    import tempfile
+
+    src_root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = src_root + os.pathsep + env.get("PYTHONPATH", "")
+    with tempfile.TemporaryDirectory() as td:
+        paths = [os.path.join(td, f"shard{k}.json") for k in range(n)]
+        logs = [open(os.path.join(td, f"shard{k}.log"), "w+") for k in range(n)]
+        procs = [subprocess.Popen(_worker_cmd(args, k, n, paths[k]), env=env,
+                                  stdout=subprocess.DEVNULL, stderr=logs[k])
+                 for k in range(n)]
+        deadline = time.monotonic() + FANOUT_WORKER_TIMEOUT_S
+        rcs: List[Optional[int]] = [None] * n
+        try:
+            for k, p in enumerate(procs):
+                try:
+                    rcs[k] = p.wait(timeout=max(0.0, deadline - time.monotonic()))
+                except subprocess.TimeoutExpired:
+                    pass
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        shards, bad = [], []
+        for k, path in enumerate(paths):
+            report = None
+            if os.path.exists(path):
+                with open(path) as f:
+                    report = json.load(f)
+            if rcs[k] is None:
+                bad.append(f"shard {k}/{n} did not finish within {FANOUT_WORKER_TIMEOUT_S} s")
+            elif report is None:
+                bad.append(f"shard {k}/{n} wrote no report (exit {rcs[k]})")
+            elif rcs[k] != int(any(not c.get("pass", True) for c in report["cells"])):
+                bad.append(f"shard {k}/{n} exited {rcs[k]}")
+            else:
+                shards.append(report)
+                continue
+            logs[k].seek(0)
+            tail = logs[k].read()[-2000:].strip()
+            if tail:
+                bad[-1] += ":\n" + tail
+        for f in logs:
+            f.close()
+    if bad:
+        for line in bad:
+            print(f"# fanout {line}")
+        return 1
+    merged: List = [None] * sum(len(s["cells"]) for s in shards)
+    for k, s in enumerate(shards):
+        merged[k::n] = s["cells"]
+    return _emit({"meta": {**shards[0]["meta"], "fanout": n}, "cells": merged}, args.json)
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -478,13 +562,15 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="where the division unit runs (default: cuda)")
     ap.add_argument("--fanout", type=int, default=0, metavar="N",
-                    help="not ported yet: fanning the grid out over N --shard "
-                         "processes waits for the port's sharding (ROADMAP "
-                         "Queue 1 item 13); run --shard K/N yourself")
+                    help="fan the grid out over N --shard subprocesses and "
+                         "merge their reports")
     args = ap.parse_args(argv)
-    if args.fanout:
-        ap.error("--fanout is not ported yet (ROADMAP Queue 1 item 13); "
-                 "run one process per --shard K/N instead")
+    if args.fanout and args.shard:
+        ap.error("--fanout and --shard are mutually exclusive")
+    if args.fanout < 0:
+        ap.error(f"--fanout needs N >= 1, got {args.fanout}")
+    if args.fanout > 1:
+        return _run_fanout(args, args.fanout)
 
     cells = default_grid(quick=args.quick)
     if args.modes:

@@ -23,7 +23,23 @@ return ``torch.uint32``.
 
 Which device does the work follows the tensors: CPU tensors run the
 kernels' plain versions, CUDA tensors launch the kernels (see
-:mod:`.tsdiv`). The mesh-aware dispatch of the reference is not ported yet.
+:mod:`.tsdiv`).
+
+Mesh dispatch (the reference's ``_row_shard_axes`` / ``_shard_rows``): a
+``DTensor`` plays the part of a sharded global ``jax.Array``. When
+:func:`tsdiv_recip`, :func:`tsdiv_divide` or :func:`tsdiv_rsqrt` gets a rank
+>= 2 DTensor on the active mesh (``sharding.rules.use_mesh``) whose dim 0
+is split over the mesh's batch axes (``rules.batch_partition`` of that
+dim's size: the largest divisible prefix of ('pod', 'data')) and that is
+replicated over every other mesh axis, each rank launches the kernel once
+on its own block (``to_local()``, viewed as (rows/n, N)) and the result is
+rewrapped with the same placements: no collective, and the bits of the
+unsharded launch. The analytic VJPs run on each block. Any other DTensor
+raises ValueError, naming its placements and mesh: it is never gathered
+(``full_tensor()``), which would be the silent all-gather the reference's
+dispatch exists to avoid. A plain tensor is the rank's own tensor and
+takes its one launch, mesh or not; ``rules.suspend_mesh()`` hides the mesh
+inside the sharded workloads, which divide plain blocks.
 """
 from __future__ import annotations
 
@@ -48,6 +64,48 @@ __all__ = ["kernel_applicable", "tsdiv_recip", "tsdiv_divide", "tsdiv_rsqrt",
 def kernel_applicable(x: torch.Tensor) -> bool:
     """The kernels take f32 and bf16 tensors with at least one element."""
     return x.dtype in (torch.float32, torch.bfloat16) and x.numel() >= 1
+
+
+def _is_dtensor(t) -> bool:
+    if not torch.distributed.is_available():
+        return False
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
+def _where(t) -> str:
+    if _is_dtensor(t):
+        return f"placements {tuple(t.placements)} on {t.device_mesh}"
+    return "a plain tensor"
+
+
+def _on_blocks(name: str, fn, *operands):
+    """``fn`` on each rank's own block of DTensor ``operands`` (dim 0 split
+    over the batch axes, every other mesh axis replicated), rewrapped with
+    their placements; raises ValueError for any other placement."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.sharding import rules as shr
+
+    x = operands[0]
+    mesh, pl = x.device_mesh, tuple(x.placements)
+    for t in operands[1:]:
+        if not _is_dtensor(t) or t.device_mesh != mesh or tuple(t.placements) != pl:
+            raise ValueError(f"{name}: the operands are placed differently ({_where(x)} "
+                             f"vs {_where(t)}); redistribute them first")
+    axes = shr.batch_partition(mesh, x.shape[0]) if x.ndim >= 2 else ()
+    want = shr.batch_sharding(mesh, axes, x.ndim).placements if axes else None
+    active = shr.active_mesh()
+    if (active != mesh or shr.axes_size(mesh, axes) <= 1
+            or not shr.same_placements(mesh, pl, want)):
+        why = ("no active mesh: register it with sharding.rules.use_mesh" if active is None
+               else "the active mesh is another" if active != mesh
+               else "a rank >= 2 tensor with dim 0 split over the batch axes "
+                    f"{axes or ''} and replicated elsewhere is wanted")
+        raise ValueError(f"{name}: cannot launch on a DTensor of shape {tuple(x.shape)} "
+                         f"with {_where(x)}: {why}. It is not gathered.")
+    out = fn(*(t.to_local() for t in operands))
+    return DTensor.from_local(out, mesh, pl, run_check=False)
 
 
 def _flat_f32(x: torch.Tensor) -> torch.Tensor:
@@ -125,6 +183,9 @@ class _Rsqrt(torch.autograd.Function):
 def tsdiv_recip(x: torch.Tensor, n_iters: int = 2, precision_bits: int = 24,
                 schedule: str = "factored") -> torch.Tensor:
     """Kernel reciprocal with d(1/x) = -r^2 dx, reusing the kernel's r."""
+    if _is_dtensor(x):
+        return _on_blocks("tsdiv_recip", lambda xl: _Recip.apply(
+            xl, n_iters, precision_bits, schedule), x)
     return _Recip.apply(x, n_iters, precision_bits, schedule)
 
 
@@ -140,12 +201,20 @@ def tsdiv_divide(a: torch.Tensor, b: torch.Tensor, n_iters: int = 2,
         raise ValueError(
             f"tsdiv_divide requires equal shapes, got {tuple(a.shape)} vs "
             f"{tuple(b.shape)}; broadcast the operands first")
+    if _is_dtensor(a) or _is_dtensor(b):
+        if not _is_dtensor(a):
+            raise ValueError(f"tsdiv_divide: the operands are placed differently "
+                             f"({_where(a)} vs {_where(b)}); redistribute them first")
+        return _on_blocks("tsdiv_divide", lambda al, bl: _Divide.apply(
+            al, bl, n_iters, precision_bits, schedule), a, b)
     return _Divide.apply(a, b, n_iters, precision_bits, schedule)
 
 
 def tsdiv_rsqrt(x: torch.Tensor, newton_iters: int = 2,
                 n_segments: int = 16) -> torch.Tensor:
     """Fused full-edge rsqrt with d(x^-1/2) = -r^3/2 dx."""
+    if _is_dtensor(x):
+        return _on_blocks("tsdiv_rsqrt", lambda xl: _Rsqrt.apply(xl, newton_iters, n_segments), x)
     return _Rsqrt.apply(x, newton_iters, n_segments)
 
 

@@ -12,9 +12,14 @@ first come first served in token order; tokens over capacity drop to the
 residual path. ``moe_dispatch`` picks how the positions are found:
 ``cumsum`` (a one-hot running count) or ``sort`` (a stable sort by expert,
 the rank within the expert's run); both give the same positions. ``local``
-is the reference's shard-local gather dispatch, whose capacity floors at
-min(T*k, 4); with one card it runs as one shard (its mesh part waits for
-the port's sharding, ROADMAP Queue 1 item 13).
+is the reference's shard-local dispatch: capacity floors at min(T*k, 4)
+and counts per batch shard. Under an active mesh each rank is one shard of
+the reference's D = pod x data shards (``_local_shard_count``): it
+dispatches its own Tl = T/D tokens at the per-shard capacity
+max(ceil(Tl*k/E * cf), min(Tl*k, 4)), and the expert counts and
+router-probability sums behind the aux loss are all-reduced over the batch
+axes, so the aux loss is the global batch's, as GSPMD makes the
+reference's. Without a mesh, D = 1.
 
 Capacity depends on the whole batch, so in a padded prefill the pad tokens
 take capacity as they do in the reference. Load-balance aux loss (Switch
@@ -77,6 +82,46 @@ def _experts(p: Dict, buf: torch.Tensor) -> torch.Tensor:
     return torch.bmm(g.to(h.dtype) * h, p["wo"])
 
 
+def _local_shard_count():
+    """(mesh, batch axes, D) of ``moe_dispatch='local'`` under the active
+    mesh; (None, (), 1) without one."""
+    from repro_torch.sharding import rules as shr
+
+    mesh = shr.active_mesh()
+    if mesh is None:
+        return None, (), 1
+    axes = shr.batch_axes(mesh)
+    return mesh, axes, shr.axes_size(mesh, axes)
+
+
+def _dispatch(p: Dict, xt: torch.Tensor, gates: torch.Tensor, idx: torch.Tensor,
+              cfg: ModelConfig):
+    """The routed experts' output (T, d) for these T tokens and each
+    expert's count of kept (token, choice) pairs (E,) f32."""
+    T, d = xt.shape
+    E, k = cfg.n_experts, cfg.experts_per_tok
+    C = capacity(cfg, T)
+    flat_e = idx.reshape(T * k)
+    flat_g = gates.reshape(T * k)
+    pos = _positions(flat_e, E, "cumsum" if cfg.moe_dispatch == "cumsum" else "sort")
+    keep = (pos >= 0) & (pos < C)
+    pos = pos.clamp(0, C - 1)
+
+    # Dispatch: each kept (token, choice) owns one (expert, slot), so writing
+    # the kept rows gives the reference's scatter-add of zeros for the rest.
+    src = torch.arange(T * k, device=xt.device) // k
+    buf = torch.zeros((E, C, d), dtype=xt.dtype, device=xt.device)
+    buf[flat_e[keep], pos[keep]] = xt[src[keep]]
+    eo = _experts(p, buf)
+
+    tok_out = eo[flat_e, pos]                                          # (T*k, d)
+    tok_out = tok_out * (flat_g * keep).to(tok_out.dtype)[:, None]
+    out = tok_out.reshape(T, k, d).sum(dim=1)
+    counts = torch.zeros((E,), dtype=torch.float32, device=xt.device).index_add_(
+        0, flat_e, keep.to(torch.float32))
+    return out, counts
+
+
 def moe_ffn(p: Dict, x: torch.Tensor, cfg: ModelConfig):
     """x: (b, s, d) -> (out (b, s, d), aux loss f32 scalar)."""
     if cfg.moe_dispatch not in DISPATCHES:
@@ -92,29 +137,20 @@ def moe_ffn(p: Dict, x: torch.Tensor, cfg: ModelConfig):
     denom = torch.sum(gate_vals, dim=-1, keepdim=True)
     gates = gate_vals * dm.recip(denom, cfg.division)                  # (T, k)
 
-    C = capacity(cfg, T)
-    flat_e = idx.reshape(T * k)
-    flat_g = gates.reshape(T * k)
-    pos = _positions(flat_e, E, "cumsum" if cfg.moe_dispatch == "cumsum" else "sort")
-    keep = (pos >= 0) & (pos < C)
-    pos = pos.clamp(0, C - 1)
-
-    # Dispatch: each kept (token, choice) owns one (expert, slot), so writing
-    # the kept rows gives the reference's scatter-add of zeros for the rest.
-    src = torch.arange(T * k, device=x.device) // k
-    buf = torch.zeros((E, C, d), dtype=x.dtype, device=x.device)
-    buf[flat_e[keep], pos[keep]] = xt[src[keep]]
-    eo = _experts(p, buf)
-
-    tok_out = eo[flat_e, pos]                                          # (T*k, d)
-    tok_out = tok_out * (flat_g * keep).to(tok_out.dtype)[:, None]
-    out = tok_out.reshape(T, k, d).sum(dim=1)
+    out, counts = _dispatch(p, xt, gates, idx, cfg)
     if cfg.n_shared_experts:
         out = out + gated_mlp(p["shared"], xt)
 
-    counts = torch.zeros((E,), dtype=torch.float32, device=x.device).index_add_(
-        0, flat_e, keep.to(torch.float32))
-    f_e = counts / (T * k) * E
-    P_e = torch.mean(probs, dim=0)
+    mesh, axes, D = _local_shard_count() if cfg.moe_dispatch == "local" else (None, (), 1)
+    if D > 1:
+        from repro_torch.sharding import comm
+
+        # The global batch's aux: counts and probability sums over every
+        # shard (the sum carries its gradient back to each shard's router).
+        counts = comm.all_reduce(counts, mesh, axes)
+        P_e = comm.all_reduce_sum_grad(torch.sum(probs, dim=0), mesh, axes) / (T * D)
+    else:
+        P_e = torch.mean(probs, dim=0)
+    f_e = counts / (T * D * k) * E
     aux = E * torch.sum(f_e * P_e) * cfg.router_aux_weight
     return out.reshape(b, s, d), aux

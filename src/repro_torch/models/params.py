@@ -7,7 +7,9 @@ plain dict tree with the reference's grouping, ``{"embed", "groups":
 "final_norm"}}``, except that a group's ``repeat`` copies are separate
 entries of ``layers`` (index ``r * period + i``) instead of leaves stacked
 on a leading axis: the port loops over layers where the reference scans.
-``convert.params_from_reference`` maps one layout onto the other.
+``convert.params_from_reference`` maps one layout onto the other. Each
+spec carries the leaf's logical axes (``axes``, read by
+``sharding/rules.py``): the reference's, less its stacked ``layers`` axis.
 
 ``init_params`` draws from a ``torch.Generator`` with the reference's scales
 and dtypes. The two packages' random streams differ (and the reference's
@@ -25,17 +27,26 @@ import torch
 from repro_torch import tree
 from repro_torch.configs.base import LayerSpec, ModelConfig
 
-__all__ = ["ParamSpec", "model_specs", "init_params", "param_count",
+__all__ = ["ParamSpec", "model_specs", "logical_axes", "init_params", "param_count",
            "active_param_count", "torch_dtype"]
 
 
 @dataclass(frozen=True)
 class ParamSpec:
     shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]   # logical axes (sharding/rules.py)
     init: str = "normal"           # normal | zeros | ones
     scale: Optional[float] = None  # stddev for normal; default 1/sqrt(shape[0])
     dtype: Optional[str] = None    # overrides cfg.param_dtype
-    expert: bool = False           # a routed expert's leaf (the 'experts' axis)
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} and axes {self.axes} differ in rank")
+
+    @property
+    def expert(self) -> bool:
+        """A routed expert's leaf (it carries the 'experts' axis)."""
+        return "experts" in self.axes
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -45,26 +56,27 @@ def torch_dtype(name: str) -> torch.dtype:
 def _attn_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     s_in, s_out = 1.0 / np.sqrt(d), 1.0 / np.sqrt(H * hd)
-    return {"wq": ParamSpec((d, H, hd), scale=s_in),
-            "wk": ParamSpec((d, KV, hd), scale=s_in),
-            "wv": ParamSpec((d, KV, hd), scale=s_in),
-            "wo": ParamSpec((H, hd, d), scale=s_out)}
+    return {"wq": ParamSpec((d, H, hd), ("embed", "heads", "head_dim"), scale=s_in),
+            "wk": ParamSpec((d, KV, hd), ("embed", "kv_heads", "head_dim"), scale=s_in),
+            "wv": ParamSpec((d, KV, hd), ("embed", "kv_heads", "head_dim"), scale=s_in),
+            "wo": ParamSpec((H, hd, d), ("heads", "head_dim", "embed"), scale=s_out)}
 
 
 def _mlp_specs(cfg: ModelConfig, d_ff: int) -> Dict[str, ParamSpec]:
     d = cfg.d_model
-    return {"wi": ParamSpec((d, d_ff), scale=1.0 / np.sqrt(d)),
-            "wg": ParamSpec((d, d_ff), scale=1.0 / np.sqrt(d)),
-            "wo": ParamSpec((d_ff, d), scale=1.0 / np.sqrt(d_ff))}
+    return {"wi": ParamSpec((d, d_ff), ("embed", "mlp"), scale=1.0 / np.sqrt(d)),
+            "wg": ParamSpec((d, d_ff), ("embed", "mlp"), scale=1.0 / np.sqrt(d)),
+            "wo": ParamSpec((d_ff, d), ("mlp", "embed"), scale=1.0 / np.sqrt(d_ff))}
 
 
 def _moe_specs(cfg: ModelConfig) -> Dict[str, Any]:
     d, E, f = cfg.d_model, cfg.n_experts, cfg.d_ff_expert
     out: Dict[str, Any] = {
-        "router": ParamSpec((d, E), scale=1.0 / np.sqrt(d), dtype="float32"),
-        "wi": ParamSpec((E, d, f), scale=1.0 / np.sqrt(d), expert=True),
-        "wg": ParamSpec((E, d, f), scale=1.0 / np.sqrt(d), expert=True),
-        "wo": ParamSpec((E, f, d), scale=1.0 / np.sqrt(f), expert=True)}
+        "router": ParamSpec((d, E), ("embed", None), scale=1.0 / np.sqrt(d),
+                            dtype="float32"),
+        "wi": ParamSpec((E, d, f), ("experts", "embed", "expert_mlp"), scale=1.0 / np.sqrt(d)),
+        "wg": ParamSpec((E, d, f), ("experts", "embed", "expert_mlp"), scale=1.0 / np.sqrt(d)),
+        "wo": ParamSpec((E, f, d), ("experts", "expert_mlp", "embed"), scale=1.0 / np.sqrt(f))}
     if cfg.n_shared_experts:
         out["shared"] = _mlp_specs(cfg, cfg.n_shared_experts * cfg.d_ff_expert)
     return out
@@ -73,23 +85,23 @@ def _moe_specs(cfg: ModelConfig) -> Dict[str, Any]:
 def _mamba_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     d, din, n, h, w = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.conv_width
     s = 1.0 / np.sqrt(d)
-    return {"wz": ParamSpec((d, din), scale=s),
-            "wx": ParamSpec((d, din), scale=s),
-            "wB": ParamSpec((d, n), scale=s),
-            "wC": ParamSpec((d, n), scale=s),
-            "wdt": ParamSpec((d, h), scale=s),
-            "conv_x": ParamSpec((w, din), scale=1.0 / np.sqrt(w)),
-            "conv_B": ParamSpec((w, n), scale=1.0 / np.sqrt(w)),
-            "conv_C": ParamSpec((w, n), scale=1.0 / np.sqrt(w)),
-            "A_log": ParamSpec((h,), init="zeros", dtype="float32"),
-            "D": ParamSpec((h,), init="ones", dtype="float32"),
-            "dt_bias": ParamSpec((h,), init="zeros", dtype="float32"),
-            "norm": ParamSpec((din,), init="ones", dtype="float32"),
-            "wout": ParamSpec((din, d), scale=1.0 / np.sqrt(din))}
+    return {"wz": ParamSpec((d, din), ("embed", "ssm_inner"), scale=s),
+            "wx": ParamSpec((d, din), ("embed", "ssm_inner"), scale=s),
+            "wB": ParamSpec((d, n), ("embed", "ssm_state"), scale=s),
+            "wC": ParamSpec((d, n), ("embed", "ssm_state"), scale=s),
+            "wdt": ParamSpec((d, h), ("embed", "ssm_heads"), scale=s),
+            "conv_x": ParamSpec((w, din), ("conv", "ssm_inner"), scale=1.0 / np.sqrt(w)),
+            "conv_B": ParamSpec((w, n), ("conv", "ssm_state"), scale=1.0 / np.sqrt(w)),
+            "conv_C": ParamSpec((w, n), ("conv", "ssm_state"), scale=1.0 / np.sqrt(w)),
+            "A_log": ParamSpec((h,), ("ssm_heads",), init="zeros", dtype="float32"),
+            "D": ParamSpec((h,), ("ssm_heads",), init="ones", dtype="float32"),
+            "dt_bias": ParamSpec((h,), ("ssm_heads",), init="zeros", dtype="float32"),
+            "norm": ParamSpec((din,), ("ssm_inner",), init="ones", dtype="float32"),
+            "wout": ParamSpec((din, d), ("ssm_inner", "embed"), scale=1.0 / np.sqrt(din))}
 
 
 def _norm(cfg: ModelConfig) -> ParamSpec:
-    return ParamSpec((cfg.d_model,), init="ones", dtype="float32")
+    return ParamSpec((cfg.d_model,), ("embed",), init="ones", dtype="float32")
 
 
 def _block_specs(cfg: ModelConfig, spec: LayerSpec, cross: bool = False) -> Dict[str, Any]:
@@ -118,13 +130,13 @@ def model_specs(cfg: ModelConfig) -> Dict[str, Any]:
     d, V = cfg.d_model, cfg.vocab
     out: Dict[str, Any] = {}
     if not cfg.embed_inputs or cfg.is_encoder_decoder or cfg.family == "vlm":
-        out["embed"] = ParamSpec((V, d), scale=1.0)
+        out["embed"] = ParamSpec((V, d), ("vocab", "embed"), scale=1.0)
     out["groups"] = [{"layers": [_block_specs(cfg, s, cross=cfg.is_encoder_decoder)
                                  for _ in range(g.repeat) for s in g.period]}
                      for g in cfg.groups()]
     out["final_norm"] = _norm(cfg)
     if not cfg.tie_embeddings:
-        out["lm_head"] = ParamSpec((d, V), scale=1.0 / np.sqrt(d))
+        out["lm_head"] = ParamSpec((d, V), ("embed", "vocab"), scale=1.0 / np.sqrt(d))
     if cfg.is_encoder_decoder:
         enc = LayerSpec("attn", "dense")
         out["encoder"] = {"groups": [{"layers": [_block_specs(cfg, enc)
@@ -150,6 +162,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None):
         return (x * np.float32(scale)).to(device=device, dtype=dt)
 
     return tree.map_tree(leaf, model_specs(cfg))
+
+
+def logical_axes(cfg: ModelConfig):
+    """Each parameter's logical axes, in the port's tree layout: the
+    reference's with its stacked ``layers`` axis left out."""
+    return tree.map_tree(lambda p: p.axes, model_specs(cfg))
 
 
 def _leaves(cfg: ModelConfig):

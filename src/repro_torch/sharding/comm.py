@@ -1,0 +1,76 @@
+"""The collectives of the sharded paths, over a mesh's axes.
+
+Each moves its operand through a CPU copy and the gloo process group of
+each mesh axis in turn, and returns the result on the operand's device:
+the same code runs on the CPU tests' gloo ranks and on ranks that share one
+card (gloo carries CUDA tensors only through host copies of its own, and
+NCCL takes one GPU per rank). The operands are small (counts, block
+partials, scalars) except the train step's gradients.
+
+Reductions over several axes run one axis after another, in the order
+given; every rank ends with the same bits. :func:`all_gather` concatenates
+the ranks' blocks in mesh order, the first axis major (pod-major over
+('pod', 'data'), as JAX orders a dim split over both).
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from .rules import mesh_shape
+
+__all__ = ["all_reduce", "all_gather", "all_reduce_sum_grad"]
+
+
+def _live(mesh, axes: Sequence[str]):
+    sizes = mesh_shape(mesh)
+    return [ax for ax in axes if sizes[ax] > 1]
+
+
+def all_reduce(t: torch.Tensor, mesh, axes: Sequence[str], op: str = "sum") -> torch.Tensor:
+    """``t`` reduced (``sum``, ``max`` or ``min``) over the ranks along
+    ``axes``; ``t`` itself when they hold one rank."""
+    import torch.distributed as dist
+
+    live = _live(mesh, axes)
+    if not live:
+        return t
+    red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}[op]
+    buf = t.detach().to("cpu", copy=True).contiguous()
+    for ax in live:
+        dist.all_reduce(buf, op=red, group=mesh.get_group(ax))
+    return buf.to(t.device)
+
+
+def all_gather(t: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
+    """Every rank's ``t`` along ``axes``, concatenated on dim 0 in mesh
+    order (the first axis major)."""
+    import torch.distributed as dist
+
+    buf = t.detach().to("cpu", copy=True).contiguous()
+    for ax in reversed(_live(mesh, axes)):
+        group = mesh.get_group(ax)
+        parts = [torch.empty_like(buf) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, buf, group=group)
+        buf = torch.cat(parts, 0)
+    return buf.to(t.device)
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return all_reduce(t, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        # Each rank's loss reads the sum, so the input's gradient is the sum
+        # of every rank's output gradient.
+        return all_reduce(g, ctx.mesh, ctx.axes), None, None
+
+
+def all_reduce_sum_grad(t: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
+    """:func:`all_reduce` (sum) that autograd differentiates: the backward
+    pass sums the output's gradient over the same ranks."""
+    return _AllReduceSum.apply(t, mesh, tuple(axes))

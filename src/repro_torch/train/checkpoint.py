@@ -15,7 +15,11 @@ first, dict keys sorted, list and named-tuple entries in order (a
   or not at all. It keeps the newest ``keep``.
 * ``latest_step`` ignores directories without the marker.
 * ``restore`` reads into the structure of ``like`` and places each tensor
-  on ``device`` (by default the device of ``like``'s leaf).
+  on ``device`` (by default the device of ``like``'s leaf). With
+  ``shardings`` (a tree of ``sharding.rules.NamedSharding`` matching
+  ``like``, e.g. from ``rules.param_shardings``) each leaf becomes a
+  DTensor so placed on the current mesh, each rank keeping its own block:
+  the elastic resume, since the files hold logical values, not placements.
 
 Each package reads the other's checkpoint of the same tree. The one
 difference on disk: the reference writes a 0-d leaf's shape as [1] (numpy's
@@ -98,9 +102,13 @@ def latest_step(path: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore(path: str, step: int, like: Any, device=None) -> Any:
+def restore(path: str, step: int, like: Any, device=None, shardings: Any = None) -> Any:
     """Checkpoint ``step`` in the structure of ``like``, each tensor on
-    ``device`` (by default where ``like``'s leaf is)."""
+    ``device`` (by default where ``like``'s leaf is); where ``shardings``
+    gives a leaf a NamedSharding, a DTensor so placed (the values are
+    unchanged)."""
+    from repro_torch.sharding import rules as shr
+
     final = _dir(path, step)
     if not os.path.exists(os.path.join(final, _MARKER)):
         raise FileNotFoundError(f"incomplete or missing checkpoint: {final}")
@@ -109,6 +117,10 @@ def restore(path: str, step: int, like: Any, device=None) -> Any:
     refs = tree.leaves(like)
     if meta["n_leaves"] != len(refs):
         raise ValueError(f"checkpoint has {meta['n_leaves']} leaves, the state {len(refs)}")
+    # A NamedSharding is a leaf of the tree helpers, as None is.
+    places = [None] * len(refs) if shardings is None else tree.leaves(shardings)
+    if len(places) != len(refs):
+        raise ValueError(f"shardings has {len(places)} leaves, the state {len(refs)}")
     out = []
     with np.load(os.path.join(final, "arrays.npz")) as data:
         for i, ref in enumerate(refs):
@@ -119,12 +131,14 @@ def restore(path: str, step: int, like: Any, device=None) -> Any:
                     tuple(ref.shape), (1,) * (ref.dim() == 0)):
                 raise ValueError(f"leaf {i}: checkpoint shape {meta['shapes'][i]}, "
                                  f"state {tuple(ref.shape)}")
-            out.append(t.reshape(ref.shape).to(ref.device if device is None else device))
+            t = t.reshape(ref.shape).to(ref.device if device is None else device)
+            out.append(t if places[i] is None else shr.distribute(t, places[i]))
     return tree.unflatten(like, out)
 
 
-def restore_latest(path: str, like: Any, device=None) -> Tuple[Optional[int], Any]:
+def restore_latest(path: str, like: Any, device=None,
+                   shardings: Any = None) -> Tuple[Optional[int], Any]:
     step = latest_step(path)
     if step is None:
         return None, like
-    return step, restore(path, step, like, device)
+    return step, restore(path, step, like, device, shardings)

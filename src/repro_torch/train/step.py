@@ -8,8 +8,20 @@ backward pass and keeps only the blocks' inputs. Each microbatch's
 gradients come out of autograd in the parameters' dtype, as the
 reference's ``value_and_grad`` gives them, and are cast to f32 and summed
 into an f32 accumulator that starts at zero; the sum is scaled by
-``1/n_micro``. The cross-pod compression hook (``compress_axis``) needs the
-port's device mesh (ROADMAP Queue 1 item 13).
+``1/n_micro``.
+
+Under an active mesh (``sharding.rules.use_mesh``) the step is data
+parallel: each rank takes its block of the batch along the batch axes
+(``rules.data_spec``: the largest prefix of ('pod', 'data') that divides
+the batch) and computes its own gradients as above; the gradients are then
+meaned over the batch axes other than ``compress_axis`` (an f32 all-reduce
+of the sum, times 1/n, as the reference's ``inv``) and over
+``compress_axis`` through ``optim.compress.psum_compressed`` (int8 with
+error feedback). Every rank then holds the same gradients, runs the same
+AdamW (its ``tsdiv_recip`` per leaf) and keeps the same replicated
+parameters. The reported loss and metrics are meaned over the batch axes:
+the global batch's, as the reference's. Parameters are not sharded over
+the ``model`` axis here (ROADMAP).
 """
 from __future__ import annotations
 
@@ -104,15 +116,48 @@ def grads_fn(cfg: ModelConfig, params, batch, n_micro: int):
     return loss, {"ce": loss, "aux": torch.zeros_like(loss)}, grads
 
 
+def _mean_over(t: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """The mean of ``t`` over the ranks along ``axes``: an f32 sum, times 1/n."""
+    from repro_torch.sharding import comm
+    from repro_torch.sharding import rules as shr
+
+    n = shr.axes_size(mesh, axes)
+    if n == 1:
+        return t
+    return comm.all_reduce(t, mesh, axes) * (1.0 / n)
+
+
 def train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, state: TrainState,
                batch, *, n_micro: int = 1, lr_scale=1.0,
                compress_axis: Optional[str] = None, err_tree=None):
-    """One optimizer step. Returns (new_state, metrics)."""
-    if compress_axis is not None:
-        raise NotImplementedError(
-            f"train_step(compress_axis={compress_axis!r}) needs the port's device "
-            "mesh (ROADMAP Queue 1 item 13)")
+    """One optimizer step. Returns (new_state, metrics), and the new error
+    tree as a third item when ``compress_axis`` is given."""
+    from repro_torch.optim import compress
+    from repro_torch.sharding import rules as shr
+
+    mesh = shr.active_mesh()
+    if compress_axis is not None and mesh is None:
+        raise ValueError(f"train_step(compress_axis={compress_axis!r}) needs an active mesh "
+                         "with that axis (sharding.rules.use_mesh); there is none")
+    axes: tuple = ()
+    if mesh is not None:
+        size = next(iter(batch.values())).shape[0]
+        axes = shr.batch_partition(mesh, size)
+        if axes:
+            batch = {k: shr.batch_local(v, shr.batch_sharding(mesh, axes, v.ndim))
+                     for k, v in batch.items()}
     loss, metrics, grads = grads_fn(cfg, state.params, batch, n_micro)
+    new_err = None
+    if mesh is not None:
+        plain = tuple(ax for ax in axes if ax != compress_axis)
+        grads = tree.map_tree(lambda g: _mean_over(g, mesh, plain), grads)
+        if compress_axis is not None:
+            grads, new_err = compress.psum_compressed(grads, err_tree, compress_axis)
+        loss = _mean_over(loss, mesh, axes)
+        metrics = {k: _mean_over(v, mesh, axes) for k, v in metrics.items()}
     new_params, new_opt = adamw.update(grads, state.opt, state.params, opt_cfg, lr_scale)
     new_state = TrainState(params=new_params, opt=new_opt, step=state.step + 1)
-    return new_state, dict(metrics, loss=loss, step=state.step)
+    metrics = dict(metrics, loss=loss, step=state.step)
+    if compress_axis is not None:
+        return new_state, metrics, new_err
+    return new_state, metrics

@@ -15,6 +15,7 @@ The rotation sequence is data-independent (column-major, top-down). Every
 rotation is applied to a whole batch of matrices at once, so each division
 site is one launch over the batch. Unlike the reference's functional
 updates, the rows of R and Q^T are updated in place.
+:func:`qr_givens_sharded` splits the batch over the active mesh.
 """
 from __future__ import annotations
 
@@ -22,7 +23,8 @@ import torch
 
 from repro_torch.core import division_modes as dm
 
-__all__ = ["givens_operands", "givens_coeffs", "qr_givens", "qr_givens_batched"]
+__all__ = ["givens_operands", "givens_coeffs", "qr_givens", "qr_givens_batched",
+           "qr_givens_sharded"]
 
 
 def givens_operands(a, b):
@@ -91,3 +93,34 @@ def qr_givens(a, cfg: dm.DivisionConfig = dm.TAYLOR, *, via: str = "div",
     if a.ndim != 2:
         raise ValueError(f"qr_givens expects a 2D matrix, got shape {tuple(a.shape)}")
     return qr_givens_batched(a, cfg, via=via, device=device)
+
+
+def qr_givens_sharded(a, cfg: dm.DivisionConfig = dm.TAYLOR, *, via: str = "div",
+                      device="cuda"):
+    """Batched Givens QR with the batch dim split over the active mesh.
+
+    ``a`` is (B, M, N): a DTensor whose dim 0 is split over the batch axes
+    (the largest divisible prefix of ('pod', 'data'),
+    ``rules.batch_partition``), or the global batch, the same on every
+    rank, of which each rank takes its block. Each rank decomposes its own
+    matrices with :func:`qr_givens_batched` (under ``rules.suspend_mesh()``);
+    the rotations never leave a matrix, so nothing is communicated and the
+    result is the batched run's, bit for bit. Returns (Q, R) as DTensors
+    split like ``a``. Without an active mesh, or when no batch-axis prefix
+    divides B, this is :func:`qr_givens_batched`.
+    """
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.sharding import rules as shr
+
+    if a.ndim != 3:
+        raise ValueError(f"qr_givens_sharded wants (B, M, N), got {tuple(a.shape)}")
+    mesh = shr.active_mesh()
+    axes = shr.batch_partition(mesh, a.shape[0]) if mesh is not None else ()
+    if not axes or shr.axes_size(mesh, axes) <= 1:
+        return qr_givens_batched(a, cfg, via=via, device=device)
+    sharding = shr.batch_sharding(mesh, axes, 3)
+    with shr.suspend_mesh():
+        q, r = qr_givens_batched(shr.batch_local(a, sharding), cfg, via=via, device=device)
+    return tuple(DTensor.from_local(t, mesh, sharding.placements, run_check=False)
+                 for t in (q, r))

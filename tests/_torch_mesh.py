@@ -1,0 +1,236 @@
+"""Rank functions of the port's multi-rank tests (``launch.mesh.run_ranks``).
+
+Each runs on every rank of a gloo group (4 ranks on the CPU; 2 on one card
+for ``test_torch_cuda.py``) and returns plain tensors and numbers, which
+the test process holds against the unsharded port and the reference. No
+JAX here: the ranks import torch and the port only.
+"""
+import os
+
+import torch
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().contiguous().view({4: torch.int32, 2: torch.int16}[t.element_size()])
+
+
+def _raises(fn, *words) -> bool:
+    try:
+        fn()
+    except ValueError as e:
+        return all(w in str(e) for w in words)
+    return False
+
+
+def _dispatch(mesh, a, b, dev):
+    """The three mesh-dispatched ops on a DTensor of the global (a, b): local
+    outputs, gradients, collective counts, launches, and the unsharded
+    port's outputs and gradients at this rank's block."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.kernels import ops, tsdiv
+    from repro_torch.sharding import rules as shr
+
+    a, b = a.to(dev), b.to(dev)
+    sh = shr.batch_sharding(mesh, shr.batch_partition(mesh, a.shape[0]), a.ndim)
+    al = shr.local_block(a, sh).clone().requires_grad_()
+    bl = shr.local_block(b, sh).clone().requires_grad_()
+    A = DTensor.from_local(al, mesh, sh.placements, run_check=False)
+    B = DTensor.from_local(bl, mesh, sh.placements, run_check=False)
+    g = torch.linspace(-2.0, 3.0, a.numel(), device=dev).reshape(a.shape)
+    gl = shr.local_block(g, sh)
+    out = {"placements_kept": True}
+    tsdiv.reset_launches()
+    with shr.use_mesh(mesh), CommDebugMode() as comm:
+        ys = {"divide": ops.tsdiv_divide(A, B), "recip": ops.tsdiv_recip(A),
+              "rsqrt": ops.tsdiv_rsqrt(B)}
+        out["launches"] = dict(tsdiv.LAUNCHES)
+        grads = {}
+        for name, y in ys.items():
+            out["placements_kept"] &= tuple(y.placements) == tuple(A.placements)
+            ins = (al, bl) if name == "divide" else (al,) if name == "recip" else (bl,)
+            grads[name] = torch.autograd.grad(y.to_local(), ins, gl)
+    out["collectives"] = comm.get_total_counts()
+    out["local"] = {k: y.to_local().detach().cpu() for k, y in ys.items()}
+    af, bf = a.clone().requires_grad_(), b.clone().requires_grad_()
+    full = {"divide": (ops.tsdiv_divide(af, bf), (af, bf)),
+            "recip": (ops.tsdiv_recip(af), (af,)), "rsqrt": (ops.tsdiv_rsqrt(bf), (bf,))}
+    out["same_bits"], out["same_grads"] = {}, {}
+    for name, (y, ins) in full.items():
+        gf = torch.autograd.grad(y, ins, g)
+        out["same_bits"][name] = torch.equal(_bits(shr.local_block(y, sh)),
+                                             _bits(ys[name].to_local()))
+        out["same_grads"][name] = all(
+            torch.equal(_bits(shr.local_block(x, sh)), _bits(w))
+            for x, w in zip(gf, grads[name]))
+    with shr.use_mesh(mesh):
+        plain = ops.tsdiv_recip(al.detach())
+    out["plain_under_mesh"] = torch.equal(_bits(plain), _bits(ops.tsdiv_recip(al.detach())))
+    return out
+
+
+def _refusals(mesh):
+    """The DTensors the dispatch must refuse, each with a ValueError."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.kernels import ops
+    from repro_torch.sharding import rules as shr
+
+    x = torch.ones((8, 16))
+    rep = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    cols = DTensor.from_local(x[:, :4].contiguous(), mesh, [Shard(1)] * mesh.ndim,
+                              run_check=False)
+    rows = shr.distribute(x, shr.batch_sharding(mesh, shr.batch_axes(mesh), 2))
+    with shr.use_mesh(mesh):
+        out = {"replicated": _raises(lambda: ops.tsdiv_recip(rep), "not gathered"),
+               "columns": _raises(lambda: ops.tsdiv_rsqrt(cols), "not gathered"),
+               "mixed": _raises(lambda: ops.tsdiv_divide(rows, rep), "placed differently"),
+               "plain_and_dtensor": _raises(lambda: ops.tsdiv_divide(x, rows),
+                                            "placed differently")}
+    out["no_mesh"] = _raises(lambda: ops.tsdiv_recip(rows), "no active mesh")
+    with shr.use_mesh(mesh), shr.suspend_mesh():
+        out["suspended"] = _raises(lambda: ops.tsdiv_recip(rows), "no active mesh")
+    return out
+
+
+def _kmeans(mesh, x, init, cfg, as_dtensor: bool):
+    from repro_torch.sharding import rules as shr
+    from repro_torch.workloads import kmeans
+
+    if as_dtensor:
+        x = shr.distribute(x, shr.batch_sharding(mesh, shr.batch_partition(mesh, x.shape[0]), 2))
+    with shr.use_mesh(mesh):
+        res = kmeans.kmeans_sharded(x, cfg=cfg, init=init, n_iters=3, device="cpu")
+    return {"centroids": res.centroids, "assign": res.assignments.to_local(),
+            "inertia": res.inertia, "trace": res.inertia_trace,
+            "assign_placements": str(tuple(res.assignments.placements))}
+
+
+def paths_rank(rank: int, inp: dict) -> dict:
+    """Every multi-rank check of tests/test_torch_sharded_paths.py, on one of
+    4 CPU ranks."""
+    import torch.distributed as dist
+
+    from repro_torch.core.division_modes import DivisionConfig
+    from repro_torch.launch.mesh import make_host_mesh, make_mesh
+    from repro_torch.models import moe
+    from repro_torch.optim import adamw, compress
+    from repro_torch.sharding import comm
+    from repro_torch.sharding import rules as shr
+    from repro_torch.train import checkpoint, step
+    from repro_torch import tree
+    from repro_torch.workloads import qr
+
+    pd = make_mesh((2, 2), ("pod", "data"), "cpu")
+    d4 = make_host_mesh(device_type="cpu")            # (data 4, model 1)
+    out = {"coord": pd.get_coordinate()}
+    rows = shr.distribute(torch.arange(8.0)[:, None],
+                          shr.batch_sharding(pd, ("pod", "data"), 2))
+    out["rows"] = rows.to_local()[:, 0].tolist()
+    out["dispatch"] = [_dispatch(pd, a, b, "cpu") for a, b in inp["dispatch"]]
+    out["refusals"] = _refusals(pd)
+
+    cfg = DivisionConfig(mode="taylor_pallas")
+    x, init = inp["kmeans"]
+    out["kmeans"] = {"d4": _kmeans(d4, x, init, cfg, True),
+                     "d4_global": _kmeans(d4, x, init, cfg, False),
+                     "pd": _kmeans(pd, x, init, cfg, True),
+                     "d4_unblocked": _kmeans(d4, x[:inp["unblocked_n"]], init, cfg, True)}
+
+    a = inp["qr"]
+    with shr.use_mesh(d4):
+        out["qr"] = {via: [t.to_local() for t in qr.qr_givens_sharded(a, cfg, via=via,
+                                                                      device="cpu")]
+                     for via in ("div", "rsqrt")}
+
+    m = inp["moe"]
+    r = d4.get_coordinate()[0]
+    T = m["xt"].shape[0] // 4
+    blk = slice(r * T, (r + 1) * T)
+    got, counts = moe._dispatch(m["p"], m["xt"][blk], m["gates"][blk], m["idx"][blk], m["cfg"])
+    p = {k: (v.clone().requires_grad_() if k == "router" else v) for k, v in m["p"].items()}
+    with shr.use_mesh(d4):
+        y, aux = moe.moe_ffn(p, m["x"][r:r + 1], m["cfg"])
+        (g_router,) = torch.autograd.grad(aux, p["router"])
+    out["moe"] = {"dispatch": got, "counts": comm.all_reduce(counts, d4, ["data"]),
+                  "ffn": y.detach(), "aux": float(aux), "router_grad": g_router}
+
+    c = inp["compress"]
+    p_, d_ = pd.get_coordinate()
+    pick = lambda t: {k: v[p_, d_] for k, v in t.items()}
+    with shr.use_mesh(pd):
+        mean, err = compress.psum_compressed(pick(c["g"]), pick(c["err"]), "pod")
+    out["compress"] = {"mean": mean, "err": err}
+
+    t = inp["train"]
+    leaves = lambda x: [v.detach().clone() for v in tree.leaves(x)]
+    with shr.use_mesh(pd):
+        new_state, metrics, new_err = step.train_step(
+            t["cfg"], t["opt_cfg"], t["state"], t["batch"], compress_axis="pod",
+            err_tree=compress.init_error_tree(t["state"].params))
+        mean_state, mean_metrics = step.train_step(t["cfg"], t["unclipped_cfg"], t["state"],
+                                                   t["batch"])
+    out["train"] = {"loss": float(metrics["loss"]), "params": leaves(new_state.params),
+                    "m": leaves(new_state.opt.m), "v": leaves(new_state.opt.v),
+                    "err": leaves(new_err)}
+    out["train_mean"] = {"loss": float(mean_metrics["loss"]),
+                         "params": leaves(mean_state.params), "m": leaves(mean_state.opt.m),
+                         "v": leaves(mean_state.opt.v)}
+
+    d41 = make_mesh((4, 1), ("data", "model"), "cpu")
+    d22 = make_mesh((2, 2), ("data", "model"), "cpu")
+    with shr.use_mesh(d41):
+        if rank == 0:
+            checkpoint.save(inp["ckpt_dir"], 1, t["state"])
+        dist.barrier()
+    ps = shr.param_shardings(t["cfg"], d22)
+    state_sh = step.TrainState(params=ps, opt=adamw.AdamWState(step=None, m=ps, v=ps),
+                               step=None)
+    got = checkpoint.restore(inp["ckpt_dir"], 1, t["state"], shardings=state_sh)
+    want_pl = [sh.placements for sh in tree.leaves(state_sh) if sh is not None]
+    sharded = [v for v in tree.leaves(got) if hasattr(v, "placements")]
+    out["restore"] = {
+        "n_dtensors": len(sharded),
+        "n_split": sum(any(pl.is_shard() for pl in v.placements) for v in sharded),
+        "placements_as_specified": all(tuple(v.placements) == w
+                                       for v, w in zip(sharded, want_pl)),
+        "values_equal": all(torch.equal(_bits(v.full_tensor() if hasattr(v, "placements")
+                                              else v), _bits(w))
+                            for v, w in zip(tree.leaves(got), tree.leaves(t["state"])))}
+    return out
+
+
+def failing_rank(rank: int, bad_rank: int) -> int:
+    """Rank ``bad_rank`` raises at once; the others wait at a barrier, which
+    never completes."""
+    import torch.distributed as dist
+
+    if rank == bad_rank:
+        raise RuntimeError(f"planted failure on rank {rank}")
+    dist.barrier()
+    return rank
+
+
+def cuda_dispatch_rank(rank: int, a: torch.Tensor, b: torch.Tensor) -> dict:
+    """The mesh dispatch on a card shared by 2 ranks: one launch per op and
+    rank, no collective, the unsharded launch's bits, the plain versions'
+    bits on this rank's block."""
+    from repro_torch.core.seeds import compute_segments, rsqrt_seed_table
+    from repro_torch.kernels import common
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding import rules as shr
+
+    mesh = make_host_mesh(device_type="cuda")
+    out = _dispatch(mesh, a, b, "cuda")
+    sh = shr.batch_sharding(mesh, ("data",), a.ndim)
+    al, bl = (shr.local_block(t, sh).cuda().contiguous() for t in (a, b))
+    table = compute_segments(2, 24)
+    plain = {"divide": common.divide_f32_bits(al, bl, table, 2, "factored"),
+             "recip": common.recip_f32_bits(al, table, 2, "factored"),
+             "rsqrt": common.rsqrt_f32_bits(bl, rsqrt_seed_table(16), 2)}
+    out["plain_bits"] = {k: torch.equal(_bits(v.cpu()), _bits(out["local"][k]))
+                         for k, v in plain.items()}
+    out["pid"] = os.getpid()
+    del out["local"]
+    return out

@@ -6,6 +6,7 @@ merging, the exit code on a failing cell). The recip and div cells are in
 import contextlib
 import io
 import json
+import sys
 
 import pytest
 
@@ -64,13 +65,45 @@ def test_main_exits_nonzero_on_a_failing_cell(monkeypatch):
 
 def test_cli_refuses_what_it_cannot_do():
     for bad in (["--shard", "3/3"], ["--shard", "x"], ["--modes", "bogus"],
-                ["--fanout", "2"]):
+                ["--fanout", "2", "--shard", "0/2"], ["--fanout", "-1"]):
         with pytest.raises(SystemExit):
             _main(bad)
     out = io.StringIO()
     with contextlib.redirect_stdout(out), pytest.raises(SystemExit):
         conformance.main(["--help"])
-    assert "Queue 1 item 13" in " ".join(out.getvalue().split())
+    assert "merge their reports" in " ".join(out.getvalue().split())
+
+
+FANOUT_MODES = ["--quick", "--modes", "taylor,goldschmidt", "--device", "cpu"]
+
+
+def test_fanout_merges_to_the_single_process_report(tmp_path):
+    """--fanout 2: two --shard workers, merged interleaved, equal to one
+    process's report cell for cell."""
+    rc, text = _main([*FANOUT_MODES, "--json", str(tmp_path / "one.json")])
+    assert rc == 0
+    rc, text = _main([*FANOUT_MODES, "--fanout", "2", "--json", str(tmp_path / "two.json")])
+    assert rc == 0 and "FAIL" not in text
+    one = json.loads((tmp_path / "one.json").read_text())
+    two = json.loads((tmp_path / "two.json").read_text())
+    strip = lambda cells: [{f: v for f, v in c.items() if f != "seconds"} for c in cells]
+    assert strip(two["cells"]) == strip(one["cells"])
+    assert two["meta"]["fanout"] == 2 and two["meta"]["device"] == "cpu"
+
+
+def test_fanout_fails_and_names_a_failing_worker(monkeypatch):
+    """A worker that exits non-zero without a report fails the run."""
+    real = conformance._worker_cmd
+
+    def planted(args, k, n, path):
+        if k == 1:
+            return [sys.executable, "-c", "import sys; sys.exit(7)"]
+        return real(args, k, n, path)
+
+    monkeypatch.setattr(conformance, "_worker_cmd", planted)
+    rc, text = _main([*FANOUT_MODES, "--fanout", "2"])
+    assert rc == 1
+    assert "# fanout shard 1/2 wrote no report (exit 7)" in text
 
 
 def test_the_grid_is_the_reference_grid():

@@ -518,3 +518,26 @@ def test_training_resumes_bit_for_bit_on_the_card(cuda, tmp_path):
     assert resumed["losses"] == straight["losses"][3:]
     for a, b in zip(tree.leaves(resumed["state"]), tree.leaves(straight["state"])):
         assert a.device.type == "cuda" and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("shape", [(1992, 300), (8, 36, 130)])
+def test_mesh_dispatch_on_two_ranks_sharing_the_card(cuda, shape):
+    """2 gloo ranks on the one card: each tiled op launches once a rank on
+    its block with no collective, the bits are the unsharded launch's and
+    the plain version's, and the gradients are the unsharded ones."""
+    import _torch_mesh
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import run_ranks
+
+    _build.build_all()           # before the ranks load the libraries
+    rng = np.random.default_rng(9)
+    a = torch.from_numpy(rng.normal(size=shape).astype(np.float32) * 3.0)
+    b = torch.from_numpy(rng.uniform(0.1, 10.0, size=shape).astype(np.float32))
+    outs = run_ranks(_torch_mesh.cuda_dispatch_rank, 2, a, b, device_type="cuda",
+                     timeout_s=300.0)
+    assert outs[0]["pid"] != outs[1]["pid"]
+    for out in outs:
+        assert out["launches"] == {"tsdiv_recip": 1, "tsdiv_divide": 1, "tsdiv_rsqrt": 1}
+        assert out["collectives"] == 0 and out["placements_kept"]
+        assert all(out["same_bits"].values()) and all(out["same_grads"].values())
+        assert all(out["plain_bits"].values())

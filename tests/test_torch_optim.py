@@ -30,6 +30,7 @@ from repro.core import division_modes as ref_dm
 from repro.optim import adamw as ref_adamw
 from repro.optim import compress as ref_compress
 from repro.optim import schedule as ref_schedule
+from repro_torch import tree
 from repro_torch.core import division_modes as dm
 from repro_torch.kernels import tsdiv
 from repro_torch.optim import adamw, compress, schedule
@@ -249,10 +250,33 @@ def test_error_feedback_is_the_references_and_unbiased():
     np.testing.assert_allclose((acc / 200).numpy(), g, atol=np.abs(g).max() / 127.0)
 
 
-def test_error_tree_and_cross_pod_mean():
+def test_error_tree_and_cross_pod_mean(tmp_path):
     params = _torch(_params())
     errs = compress.init_error_tree(params)
     for e, p in zip(jax.tree_util.tree_leaves(errs), jax.tree_util.tree_leaves(params)):
         assert e.dtype == torch.float32 and e.shape == p.shape and not e.any()
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(ValueError, match="needs an active mesh"):
         compress.psum_compressed(params, errs, "pod")
+    # The working mean over a one-rank 'pod' axis is the round trip: the
+    # int8 values summed over one rank, times the scale, over 1 (the
+    # 4-rank mean is in test_torch_sharded_paths.py).
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.sharding import rules as shr
+
+    grads = tree.map_tree(lambda p: (p.float() * 0.01 + 1e-3), params)
+    store = tmp_path / "store"
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=0, world_size=1)
+    try:
+        with shr.use_mesh(make_mesh((1,), ("pod",), "cpu")):
+            mean, new_err = compress.psum_compressed(grads, errs, "pod")
+    finally:
+        dist.destroy_process_group()
+    for m, e, g in zip(tree.leaves(mean), tree.leaves(new_err), tree.leaves(grads)):
+        deq, want_err = compress.quantize_roundtrip(g, torch.zeros_like(g))
+        assert torch.equal(m, deq)
+        # g' - q*s is one fused rounding here (as XLA fuses it); the round
+        # trip, whose product has another use, rounds q*s first: they
+        # differ by at most that rounding, half an ulp of q*s.
+        ulp = torch.nextafter(deq.abs(), torch.tensor(float("inf"))) - deq.abs()
+        assert bool(((e - want_err).abs() <= ulp / 2).all())

@@ -203,7 +203,7 @@ def test_compress_axis_waits_for_the_mesh():
     cfg = get_smoke_config("paper_fpdiv")
     params = init_params(cfg, torch.Generator().manual_seed(0))
     state = step.init_state(cfg, params, adamw.AdamWConfig())
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(ValueError, match="needs an active mesh"):
         step.train_step(cfg, adamw.AdamWConfig(), state, _batch_for(cfg), compress_axis="pod")
 
 
