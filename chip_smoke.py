@@ -123,6 +123,16 @@ source, in parallel), then runs, each phase printing one line:
                  full width on 8 x 512 tokens: 6 steps straight against a
                  run killed before step 4 and resumed from its step-4
                  checkpoint, every leaf of the state equal;
+ 13b'. roofline — the train cell on the H100's roofline: the one-rank dry
+                 run (launch/dryrun.py, fake CUDA tensors) of 13a's cell
+                 gives FLOPs, HBM bytes, the roofline terms and the memory
+                 estimate; exact gates: its FlopCounterMode count equals a
+                 real step's on the card, its unit calls equal 13a's
+                 launches a step (48 / 98 / 111), abstract_params' bytes the
+                 parameters'; reports train_mfu (6ND over 989 TFLOP/s x the
+                 measured step), roofline_share (t_step over the measured
+                 step), bound, t_step, and the memory estimate beside the
+                 measured peak;
  13c. mesh     — 2 ranks on the one card (spawned processes of one gloo
                  process group, launch.mesh.run_ranks), against this
                  process's single-process runs: the tiled ops
@@ -1415,7 +1425,9 @@ def phase_train(seed: int, launches: dict, err: dict):
     microbatches of the config's size, remat as configured. Gates: the
     launches of every step (train_launches), the loss falling by 0.3
     (tests/test_train_loop.py), then phase_train_calls' and the kill ->
-    resume run's. Returns AdamW's denominators of one step, for the times."""
+    resume run's. Returns AdamW's denominators of one step, for the times,
+    and the phase's result (its step time and peak memory, for the roofline
+    phase)."""
     from repro_torch import tree
     from repro_torch.data import DataConfig, SyntheticLM
     from repro_torch.kernels import rmsnorm, softmax, tsdiv
@@ -1466,7 +1478,7 @@ def phase_train(seed: int, launches: dict, err: dict):
     torch.cuda.empty_cache()
     result["resume"] = train_resume(cfg, seed)
     say("train", **result)
-    return recips
+    return recips, result
 
 
 def phase_train_calls(cfg, state, batch, n_micro: int, err: dict, result: dict):
@@ -1661,6 +1673,100 @@ def phase_times_train(err: dict, launches: dict, recips: list):
                      library_device_ms=device_ms(library, None, 5))
     say("times", **row)
     return [row]
+
+
+# -------------------------------------------------------------- roofline
+
+def phase_roofline(seed: int, train: dict, smi: str) -> dict:
+    """The train phase's cell on the H100's roofline (launch/roofline.py).
+    The one-rank dry run of that cell (launch/dryrun.py: train_config() at
+    TRAIN_BATCH x TRAIN_SEQ, its microbatches, remat; fake CUDA tensors, no
+    launch) gives the FLOPs, the HBM bytes, the roofline terms and the memory
+    estimate. Exact gates: the fake step's FlopCounterMode count equals one
+    real step's on the card (counted around train_step in this phase); the
+    fake step's unit calls equal train_launches (as the real step's
+    launches do); abstract_params' bytes equal the real parameters'.
+    Reported: train_mfu (model FLOPs over 989e12 x the train phase's measured
+    step; also without the input embedding's parameters) and roofline_share (the roofline's t_step over that step), the dry
+    run's total_hbm_bytes beside the measured peak, the card and its limit.
+    The real step's launches are a measurement's, not the main path's."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch import tree
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels import rmsnorm, softmax, tsdiv
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import roofline as rl
+    from repro_torch.models import abstract_params, init_params
+    from repro_torch.models.params import active_param_count
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import init_state, train_step
+
+    cfg = train_config()
+    n_micro = train["n_micro"]
+    shape = ShapeConfig("train_smoke", "train", TRAIN_SEQ, TRAIN_BATCH)
+    t_phase = t0 = time.perf_counter()
+    cell = dryrun.run_cell(cfg.name, one_rank=True, shape=shape, cfg=cfg, n_micro=n_micro,
+                           device=DEVICE)
+    dry_s = time.perf_counter() - t0
+
+    params = init_params(cfg, torch.Generator(device=DEVICE).manual_seed(seed))
+    opt_cfg = adamw.AdamWConfig(state_dtype=cfg.opt_state_dtype, division=cfg.division)
+    state = init_state(cfg, params, opt_cfg)
+    data_cfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, seed=seed)
+    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in SyntheticLM(data_cfg).batch(0).items()}
+    mods = (softmax, rmsnorm, tsdiv)
+    for m in mods:
+        m.reset_launches()
+    with FlopCounterMode(display=False) as fc:
+        train_step(cfg, opt_cfg, state, batch, n_micro=n_micro)
+    sync()
+    real_launches = {k: v for m in mods for k, v in m.LAUNCHES.items() if v}
+    n_leaves = len(tree.leaves(params))
+    per_step = train_launches(cfg, n_micro, n_leaves)
+    nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)
+    real_bytes = nbytes(tree.leaves(params))
+    abstract_bytes = nbytes(tree.leaves(abstract_params(cfg)))
+    real_flops = fc.get_total_flops()
+    del params, state, batch
+    torch.cuda.empty_cache()
+
+    roof = cell["roofline"]
+    step_s = train["step_ms"] / 1e3
+    # 6ND counts the input embedding's parameters, which a step gathers
+    # and multiplies by nothing; the MFU without them is reported beside.
+    n_params = active_param_count(cfg)
+    n_embed = 0 if cfg.tie_embeddings else cfg.vocab * cfg.d_model
+    train_mfu = rl.measured_mfu(roof["model_flops"], step_s)
+    result = {"arch": cfg.name, "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ, "n_micro": n_micro,
+              "remat": cfg.remat, "nvidia_smi": smi, "dry_run_s": dry_s,
+              "model_flops": roof["model_flops"], "flops": roof["flops"],
+              "real_step_flops": real_flops, "t_compute": roof["t_compute"],
+              "t_memory": roof["t_memory"], "t_collective": roof["t_collective"],
+              "bound": roof["bound"], "t_step": roof["t_step"],
+              "step_ms": train["step_ms"], "train_mfu": train_mfu,
+              "train_mfu_without_embedding": train_mfu * (n_params - n_embed) / n_params,
+              "n_params": n_params, "n_embedding_params": n_embed,
+              "roofline_share": roof["t_step"] / step_s, "roofline_mfu": roof["mfu"],
+              "flops_efficiency": roof["flops_efficiency"],
+              "hbm_traffic_model": cell["hbm_traffic_model"], "memory": cell["memory"],
+              "total_hbm_gib": cell["memory"]["total_hbm_bytes"] / 2**30,
+              "peak_gib": train["peak_gib"], "unit_calls": cell["unit_calls"],
+              "launches_per_step": per_step, "real_step_launches": real_launches,
+              "param_bytes": real_bytes, "abstract_param_bytes": abstract_bytes,
+              "constants": {"PEAK_FLOPS": rl.PEAK_FLOPS, "HBM_BW": rl.HBM_BW},
+              "seconds": time.perf_counter() - t_phase}
+    check(roof["flops"] == real_flops,
+          f"roofline: the fake step counts {roof['flops']} FLOPs, the real step {real_flops}")
+    check(cell["unit_calls"] == per_step,
+          f"roofline: the fake step's unit calls {cell['unit_calls']}, expected {per_step}")
+    check(real_launches == per_step,
+          f"roofline: the real step launched {real_launches}, expected {per_step}")
+    check(abstract_bytes == real_bytes,
+          f"roofline: abstract_params holds {abstract_bytes} bytes, the parameters {real_bytes}")
+    say("roofline", **result)
+    return result
 
 
 # ------------------------------------------------------------------ mesh
@@ -2601,7 +2707,8 @@ def main(argv=None) -> int:
               for sv in (SWA, MOE, SSM, HYBRID, ENCDEC, VLM)}
     flash_in = phase_flash_serve(args.seed, err, launches)
     ilm_in = phase_ilm(args.seed, err, launches)
-    recips = phase_train(args.seed, launches, err)
+    recips, train = phase_train(args.seed, launches, err)
+    phase_roofline(args.seed, train, smi)
     # The mesh phase's two ranks need room on the card: the distance plane
     # (4 GB, for the times phase) waits on the host meanwhile.
     plane = plane.cpu()

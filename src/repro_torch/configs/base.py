@@ -6,9 +6,12 @@ read, with the same defaults and derived pattern (``layer_specs``,
 ``groups``, ``q_per_kv``), so a config means the same model in both
 packages, the training fields (``opt_state_dtype``, ``remat``,
 ``train_microbatch_size``) and the sharding rules (``sharding_rules``
-over :data:`DEFAULT_RULES`, resolved by :func:`rules_for`) included. The
-shape cells and dry-run knobs arrive with the slice that reads them
-(ROADMAP Queue 1 item 14).
+over :data:`DEFAULT_RULES`, resolved by :func:`rules_for`) included, and the
+dry run's knobs (``use_flash_kernel``, ``notes``).
+
+Shapes are the reference's four (seq_len, global_batch) cells
+(:data:`LM_SHAPES`); :func:`shapes_for` lists an architecture's cells,
+the 500k-token decode only where :func:`long_context_ok`.
 
 The registry resolves every architecture of the reference.
 """
@@ -20,9 +23,10 @@ from typing import Dict, List, Optional, Tuple
 
 from repro_torch.core.division_modes import DivisionConfig
 
-__all__ = ["MIXERS", "FFNS", "LayerSpec", "Group", "ModelConfig", "ARCH_IDS",
-           "PORTED_ARCHS", "canon", "get_config", "get_smoke_config", "DEFAULT_RULES",
-           "rules_for"]
+__all__ = ["MIXERS", "FFNS", "LayerSpec", "Group", "ModelConfig", "ShapeConfig",
+           "LM_SHAPES", "SUBQUADRATIC_FAMILIES", "long_context_ok", "shapes_for",
+           "ARCH_IDS", "PORTED_ARCHS", "canon", "get_config", "get_smoke_config",
+           "DEFAULT_RULES", "rules_for"]
 
 MIXERS = ("attn", "swa", "mamba")
 FFNS = ("dense", "moe", "none")
@@ -100,6 +104,9 @@ class ModelConfig:
     remat: bool = True              # recompute each block's activations in backward
     train_microbatch_size: int = 4  # sequences per data-shard per microbatch
     attn_chunk: int = 2048          # query-chunked attention threshold/size
+    # --- dry run (launch/dryrun.py, launch/memmodel.py) ---
+    use_flash_kernel: bool = False  # fused attention: the HBM model counts no scores
+    notes: str = ""
 
     def layer_specs(self) -> List[LayerSpec]:
         specs = []
@@ -143,6 +150,39 @@ class ModelConfig:
     @property
     def q_per_kv(self) -> int:
         return self.n_heads // self.n_kv_heads
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    kind: str          # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+LM_SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", "train", 4_096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32_768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524_288, 1),
+}
+
+# Architectures whose every attention layer is full attention skip
+# long_500k; SSM, hybrid and mostly-sliding-window ones run it.
+SUBQUADRATIC_FAMILIES = ("ssm", "hybrid")
+
+
+def long_context_ok(cfg: ModelConfig) -> bool:
+    if cfg.family in SUBQUADRATIC_FAMILIES:
+        return True
+    return cfg.sliding_window > 0 and cfg.global_every > 0
+
+
+def shapes_for(cfg: ModelConfig) -> List[ShapeConfig]:
+    out = [LM_SHAPES["train_4k"], LM_SHAPES["prefill_32k"], LM_SHAPES["decode_32k"]]
+    if long_context_ok(cfg):
+        out.append(LM_SHAPES["long_500k"])
+    return out
 
 
 ARCH_IDS = [

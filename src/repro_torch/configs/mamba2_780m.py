@@ -22,6 +22,8 @@ CONFIG = ModelConfig(
     d_inner=3072,
     tie_embeddings=True,
     train_microbatch_size=8,
+    notes="attn-free; long_500k runs (O(1) state); vocab 50280 not divisible "
+          "by 16 -> embedding replicated (77M bf16, 154MB).",
 )
 
 SMOKE_CONFIG = ModelConfig(

@@ -22,6 +22,8 @@ CONFIG = ModelConfig(
     encoder_seq=1500,
     tie_embeddings=True,
     train_microbatch_size=16,
+    notes="heads=6 not divisible by model axis 16 -> attention replicated "
+          "over 'model'; mlp dim 1536 shards (96/shard).",
 )
 
 SMOKE_CONFIG = ModelConfig(

@@ -45,8 +45,8 @@ On a CPU tensor the wrapper runs the plain version of the kernel that its
 dtype routes to; on a CUDA tensor it launches that kernel or raises (head
 sizes 16, 32, 64 and 128, ``block_k`` at most 128, f32 or bf16, contiguous;
 the bf16 kernel also wants q/k/v on 16-byte boundaries). There is no fallback
-from one kernel to the other. ``LAUNCHES`` counts launches, as in
-:mod:`.tsdiv`.
+from one kernel to the other. Fake tensors take :mod:`.fake`'s path.
+``LAUNCHES`` counts launches, as in :mod:`.tsdiv`.
 """
 from __future__ import annotations
 
@@ -56,7 +56,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.seeds import SeedTable, compute_segments
-from . import _build, common
+from . import _build, common, fake
 from .softmax import DTYPES
 from .tsdiv import SCHEDULES, _check, _check_schedule, _ptr, _stream, _table_c
 
@@ -292,7 +292,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     table = compute_segments(n_iters, precision_bits)
     kw = dict(causal=causal, block_k=block_k, sk_real=sk_real, skip_masked_k=skip_masked_k)
     name = kernel_for(q.dtype)
-    if not _on_card(q, k, v):
+    on_card = _on_card(q, k, v)
+    if fake.is_fake(q, k, v):
+        return fake.call(name, torch.empty_like(q))
+    if not on_card:
         return PLAIN[name](q, k, v, table, n_iters, schedule, **kw)
     _check_schedule(schedule, n_iters)
     bh, sq, hd = q.shape

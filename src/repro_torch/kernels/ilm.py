@@ -16,15 +16,15 @@ tensor (one flat launch over the lanes, any rank).
 On a CPU tensor the wrapper runs the plain version (:func:`ilm_mul_plain`,
 :func:`ilm_square_plain`: the torch twin of ``core/ilm.py`` on int64 lanes,
 which touches the uint32 storage only through an int32 view); on a CUDA
-tensor it launches the kernel or raises. ``LAUNCHES`` counts launches, as
-in :mod:`.tsdiv`.
+tensor it launches the kernel or raises; fake tensors take :mod:`.fake`'s
+path. ``LAUNCHES`` counts launches, as in :mod:`.tsdiv`.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core import ilm as ilm_core
-from . import _build
+from . import _build, fake
 from .tsdiv import _check, _ptr, _stream
 
 __all__ = ["LAUNCHES", "reset_launches", "to_u32", "ilm_mul_plain",
@@ -70,7 +70,10 @@ def _on_card(*ts: torch.Tensor) -> bool:
 
 def ilm_mul(a: torch.Tensor, b: torch.Tensor, iters: int = 16) -> torch.Tensor:
     """ILM products of uint32 lanes (operands < 2^16), ``iters`` stages."""
-    if not _on_card(a, b):
+    on_card = _on_card(a, b)
+    if fake.is_fake(a, b):
+        return fake.call("ilm_mul_u32", torch.empty_like(a))
+    if not on_card:
         return ilm_mul_plain(a, b, iters)
     out = torch.empty_like(a)
     if a.numel():
@@ -84,7 +87,10 @@ def ilm_mul(a: torch.Tensor, b: torch.Tensor, iters: int = 16) -> torch.Tensor:
 
 def ilm_square(a: torch.Tensor, iters: int = 16) -> torch.Tensor:
     """ILM squares of uint32 lanes, ``iters`` stages (exact below 2^16 at 16)."""
-    if not _on_card(a):
+    on_card = _on_card(a)
+    if fake.is_fake(a):
+        return fake.call("ilm_square_u32", torch.empty_like(a))
+    if not on_card:
         return ilm_square_plain(a, iters)
     out = torch.empty_like(a)
     if a.numel():

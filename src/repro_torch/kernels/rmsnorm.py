@@ -13,8 +13,8 @@ upcast to f32 is exact, so nothing is cast on the host); rows are not
 padded, so ``d`` is the row's own length.
 
 On a CPU tensor the wrapper runs :func:`rmsnorm_plain`; on a CUDA tensor it
-launches the kernel or raises. ``LAUNCHES`` counts launches, as in
-:mod:`.tsdiv`.
+launches the kernel or raises; fake tensors take :mod:`.fake`'s path.
+``LAUNCHES`` counts launches, as in :mod:`.tsdiv`.
 """
 from __future__ import annotations
 
@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.seeds import SeedTable, rsqrt_seed_table
-from . import _build, common
+from . import _build, common, fake
 from .softmax import DTYPES, rows_on_card
 from .tsdiv import _check, _ptr, _stream, _table_c
 
@@ -61,7 +61,10 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6,
     if w.shape != x.shape[-1:]:
         raise ValueError(f"weight {tuple(w.shape)} does not match rows of "
                          f"{x.shape[-1]}")
-    if not rows_on_card(x, w):
+    on_card = rows_on_card(x, w)
+    if fake.is_fake(x, w):
+        return fake.call("rmsnorm_f32", torch.empty_like(x))
+    if not on_card:
         return rmsnorm_plain(x, w, eps, table, newton_iters)
     if not takes_weight(w):
         raise TypeError(f"the RMSNorm kernel takes a contiguous float32/bfloat16 "

@@ -11,15 +11,15 @@ its sum follows ``common.row_sum``'s order, which :func:`softmax_plain`
 repeats.
 
 On a CPU tensor the wrapper runs :func:`softmax_plain`; on a CUDA tensor it
-launches the kernel or raises. ``LAUNCHES`` counts launches, as in
-:mod:`.tsdiv`.
+launches the kernel or raises; fake tensors take :mod:`.fake`'s path.
+``LAUNCHES`` counts launches, as in :mod:`.tsdiv`.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.seeds import SeedTable, compute_segments
-from . import _build, common
+from . import _build, common, fake
 from .tsdiv import SCHEDULES, _check, _check_schedule, _ptr, _stream, _table_c
 
 __all__ = ["LAUNCHES", "reset_launches", "softmax_plain", "softmax",
@@ -66,7 +66,10 @@ def softmax(x: torch.Tensor, n_iters: int = 2, precision_bits: int = 24,
             schedule: str = "factored") -> torch.Tensor:
     """Softmax over the last axis of contiguous (M, D) f32/bf16 rows."""
     table = compute_segments(n_iters, precision_bits)
-    if not rows_on_card(x):
+    on_card = rows_on_card(x)
+    if fake.is_fake(x):
+        return fake.call("softmax_f32", torch.empty_like(x))
+    if not on_card:
         return softmax_plain(x, table, n_iters, schedule)
     _check_schedule(schedule, n_iters)
     out = torch.empty_like(x)

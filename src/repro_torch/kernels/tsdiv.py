@@ -4,7 +4,8 @@ Each wrapper takes contiguous f32 tensors of one shape and returns a new
 tensor. On a CPU tensor it runs the kernel's plain version
 (:mod:`.common`); on a CUDA tensor it launches the CUDA kernel
 (``csrc/tsdiv.cu``) on the current stream, or raises. There is no fallback
-from the card to the plain version.
+from the card to the plain version. Fake tensors (the dry run's trace) take
+:mod:`.fake`'s path: an empty output, counted in ``fake.CALLS``.
 
 ``LAUNCHES`` counts kernel launches per kernel; a wrapper adds one where it
 launches and nowhere else, so a run can show that its path went through
@@ -19,7 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.seeds import SeedTable, compute_segments, rsqrt_seed_table
-from . import _build, common
+from . import _build, common, fake
 
 __all__ = ["LAUNCHES", "reset_launches", "recip", "divide", "rsqrt"]
 
@@ -97,7 +98,10 @@ def recip(x: torch.Tensor, n_iters: int = 2, precision_bits: int = 24,
           schedule: str = "factored") -> torch.Tensor:
     """1/x elementwise through the fused reciprocal (FTZ)."""
     table = compute_segments(n_iters, precision_bits)
-    if not _on_card(x):
+    on_card = _on_card(x)
+    if fake.is_fake(x):
+        return fake.call("tsdiv_recip", torch.empty_like(x))
+    if not on_card:
         return common.recip_f32_bits(x, table, n_iters, schedule)
     _check_schedule(schedule, n_iters)
     out = torch.empty_like(x)
@@ -115,7 +119,10 @@ def divide(a: torch.Tensor, b: torch.Tensor, n_iters: int = 2,
            precision_bits: int = 24, schedule: str = "factored") -> torch.Tensor:
     """a/b elementwise through the fused exponent-separated divide (FTZ)."""
     table = compute_segments(n_iters, precision_bits)
-    if not _on_card(a, b):
+    on_card = _on_card(a, b)
+    if fake.is_fake(a, b):
+        return fake.call("tsdiv_divide", torch.empty_like(a))
+    if not on_card:
         return common.divide_f32_bits(a, b, table, n_iters, schedule)
     _check_schedule(schedule, n_iters)
     out = torch.empty_like(a)
@@ -133,7 +140,10 @@ def rsqrt(x: torch.Tensor, newton_iters: int = 2,
           n_segments: int = 16) -> torch.Tensor:
     """x^-1/2 elementwise through the fused full-edge rsqrt (FTZ)."""
     table = rsqrt_seed_table(n_segments)
-    if not _on_card(x):
+    on_card = _on_card(x)
+    if fake.is_fake(x):
+        return fake.call("tsdiv_rsqrt", torch.empty_like(x))
+    if not on_card:
         return common.rsqrt_f32_bits(x, table, newton_iters)
     out = torch.empty_like(x)
     if x.numel():

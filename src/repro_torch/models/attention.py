@@ -23,13 +23,14 @@ from typing import Dict
 
 import torch
 
+from repro_torch import tree
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import division_modes as dm
 from repro_torch.kernels.flash_attention import NEG_INF
 from .layers import rope
 
 __all__ = ["NEG_INF", "rope_apply", "full_attention", "sliding_attention",
-           "init_cache_attn", "decode_positions", "decode_attention"]
+           "init_cache_attn", "abstract_cache_attn", "decode_positions", "decode_attention"]
 
 
 def _proj(x, w):
@@ -152,13 +153,25 @@ def sliding_attention(p, x, positions, cfg: ModelConfig, *,
     return (out, (k, v)) if return_kv else out
 
 
+def _cache_shape(cfg: ModelConfig, batch: int, max_len: int, window: int):
+    return (batch, window if window > 0 else max_len, cfg.n_kv_heads, cfg.head_dim)
+
+
 def init_cache_attn(cfg: ModelConfig, batch: int, max_len: int, window: int = 0,
                     dtype=torch.bfloat16, device=None) -> Dict[str, torch.Tensor]:
     """Zero K/V: ``max_len`` slots, or a ``window``-slot ring when > 0."""
-    shape = (batch, window if window > 0 else max_len, cfg.n_kv_heads,
-             cfg.head_dim)
+    shape = _cache_shape(cfg, batch, max_len, window)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def abstract_cache_attn(cfg: ModelConfig, batch: int, max_len: int, window: int = 0,
+                        dtype=torch.bfloat16, device=None, fake_mode=None):
+    """:func:`init_cache_attn`'s tree as stand-ins that allocate nothing
+    (``repro_torch.tree.abstract``)."""
+    shape = _cache_shape(cfg, batch, max_len, window)
+    return {"k": tree.abstract(shape, dtype, device, fake_mode),
+            "v": tree.abstract(shape, dtype, device, fake_mode)}
 
 
 def decode_positions(pos, batch: int, device=None) -> torch.Tensor:

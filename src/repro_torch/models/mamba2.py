@@ -23,10 +23,11 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tree
 from repro_torch.configs.base import ModelConfig
 from .layers import rms_norm
 
-__all__ = ["mamba_mixer", "init_cache_mamba", "decode_mamba"]
+__all__ = ["mamba_mixer", "init_cache_mamba", "abstract_cache_mamba", "decode_mamba"]
 
 
 def _softplus(x):
@@ -153,14 +154,29 @@ def mamba_mixer(p: Dict, x, cfg: ModelConfig, *, initial_state=None,
                  "conv_C": _tail(C_raw, wm1, lengths)}
 
 
-def init_cache_mamba(cfg: ModelConfig, batch: int, dtype=torch.float32, device=None):
-    """A zero decode cache: the f32 state and the conv windows in ``dtype``."""
+def _cache_leaves(cfg: ModelConfig, batch: int, dtype):
+    """{name: (shape, dtype)} of the decode cache: the f32 state and the
+    conv windows in ``dtype``."""
     h, pdim, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
     wm1 = cfg.conv_width - 1
-    return {"state": torch.zeros((batch, h, pdim, n), dtype=torch.float32, device=device),
-            "conv_x": torch.zeros((batch, wm1, cfg.d_inner), dtype=dtype, device=device),
-            "conv_B": torch.zeros((batch, wm1, n), dtype=dtype, device=device),
-            "conv_C": torch.zeros((batch, wm1, n), dtype=dtype, device=device)}
+    return {"state": ((batch, h, pdim, n), torch.float32),
+            "conv_x": ((batch, wm1, cfg.d_inner), dtype),
+            "conv_B": ((batch, wm1, n), dtype),
+            "conv_C": ((batch, wm1, n), dtype)}
+
+
+def init_cache_mamba(cfg: ModelConfig, batch: int, dtype=torch.float32, device=None):
+    """A zero decode cache: the f32 state and the conv windows in ``dtype``."""
+    return {k: torch.zeros(shape, dtype=dt, device=device)
+            for k, (shape, dt) in _cache_leaves(cfg, batch, dtype).items()}
+
+
+def abstract_cache_mamba(cfg: ModelConfig, batch: int, dtype=torch.float32, device=None,
+                         fake_mode=None):
+    """:func:`init_cache_mamba`'s tree as stand-ins that allocate nothing
+    (``repro_torch.tree.abstract``)."""
+    return {k: tree.abstract(shape, dt, device, fake_mode)
+            for k, (shape, dt) in _cache_leaves(cfg, batch, dtype).items()}
 
 
 def _conv_step(u_new, conv_state, w):

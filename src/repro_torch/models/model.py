@@ -26,11 +26,12 @@ from typing import Any, Dict, List
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import tree
 from repro_torch.configs.base import LayerSpec, ModelConfig
-from .attention import (_proj, decode_attention, decode_positions, full_attention,
-                        init_cache_attn, sliding_attention)
+from .attention import (_proj, abstract_cache_attn, decode_attention, decode_positions,
+                        full_attention, init_cache_attn, sliding_attention)
 from .layers import embed_tokens, gated_mlp, lm_logits, rms_norm
-from .mamba2 import decode_mamba, init_cache_mamba, mamba_mixer
+from .mamba2 import abstract_cache_mamba, decode_mamba, init_cache_mamba, mamba_mixer
 from .moe import moe_ffn
 from .params import torch_dtype
 
@@ -206,25 +207,35 @@ def forward(cfg: ModelConfig, params, *, tokens=None, embeds=None, cache=None, p
     return logits, new_cache, aux
 
 
-def make_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
+def make_cache(cfg: ModelConfig, batch: int, max_len: int, device=None,
+               abstract: bool = False, fake_mode=None):
     """Zero decode cache in the parameters' grouped layout: ``max_len`` slots
     for full-attention layers, W-slot rings for sliding-window layers, the
     SSM state and conv windows for Mamba layers, and an encoder-decoder's
-    ``encoder_seq``-long cross K/V."""
+    ``encoder_seq``-long cross K/V. ``abstract``: the same tree as stand-ins
+    that allocate nothing (``repro_torch.tree.abstract``; ``fake_mode``'s
+    fake tensors on ``device``, or ``meta`` tensors)."""
     dt = torch_dtype(cfg.param_dtype)
+    if abstract:
+        attn = lambda *a: abstract_cache_attn(*a, device=device, fake_mode=fake_mode)
+        mamba = lambda *a: abstract_cache_mamba(*a, device=device, fake_mode=fake_mode)
+        zeros = lambda shape: tree.abstract(shape, dt, device, fake_mode)
+    else:
+        attn = lambda *a: init_cache_attn(*a, device=device)
+        mamba = lambda *a: init_cache_mamba(*a, device=device)
+        zeros = lambda shape: torch.zeros(shape, dtype=dt, device=device)
     groups = []
     for g in cfg.groups():
         layers = []
         for spec in group_layers(g):
             if spec.mixer == "mamba":
-                lc = {"mamba": init_cache_mamba(cfg, batch, dt, device)}
+                lc = {"mamba": mamba(cfg, batch, dt)}
             else:
                 window = cfg.sliding_window if spec.mixer == "swa" else 0
-                lc = {"attn": init_cache_attn(cfg, batch, max_len, window, dt, device)}
+                lc = {"attn": attn(cfg, batch, max_len, window, dt)}
             if cfg.is_encoder_decoder:
                 shape = (batch, cfg.encoder_seq, cfg.n_kv_heads, cfg.head_dim)
-                lc["cross"] = {"ck": torch.zeros(shape, dtype=dt, device=device),
-                               "cv": torch.zeros(shape, dtype=dt, device=device)}
+                lc["cross"] = {"ck": zeros(shape), "cv": zeros(shape)}
             layers.append(lc)
         groups.append({"layers": layers})
     return {"groups": groups}

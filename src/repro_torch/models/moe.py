@@ -107,12 +107,17 @@ def _dispatch(p: Dict, xt: torch.Tensor, gates: torch.Tensor, idx: torch.Tensor,
     keep = (pos >= 0) & (pos < C)
     pos = pos.clamp(0, C - 1)
 
-    # Dispatch: each kept (token, choice) owns one (expert, slot), so writing
-    # the kept rows gives the reference's scatter-add of zeros for the rest.
+    # Dispatch: each kept (token, choice) owns one (expert, slot) row of the
+    # (E*C, d) buffer, so writing the kept rows gives the reference's
+    # scatter-add of zeros for the rest. The dropped ones all write a spare
+    # row past the buffer's end, which no expert reads: no shape depends on
+    # the routing (no mask selection, which would sync the host and which a
+    # fake tensor cannot size).
     src = torch.arange(T * k, device=xt.device) // k
-    buf = torch.zeros((E, C, d), dtype=xt.dtype, device=xt.device)
-    buf[flat_e[keep], pos[keep]] = xt[src[keep]]
-    eo = _experts(p, buf)
+    rows = torch.where(keep, flat_e * C + pos, E * C)
+    buf = torch.zeros((E * C + 1, d), dtype=xt.dtype, device=xt.device)
+    buf[rows] = xt[src]
+    eo = _experts(p, buf[:E * C].view(E, C, d))
 
     tok_out = eo[flat_e, pos]                                          # (T*k, d)
     tok_out = tok_out * (flat_g * keep).to(tok_out.dtype)[:, None]

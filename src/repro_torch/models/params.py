@@ -11,8 +11,11 @@ on a leading axis: the port loops over layers where the reference scans.
 spec carries the leaf's logical axes (``axes``, read by
 ``sharding/rules.py``): the reference's, less its stacked ``layers`` axis.
 
-``init_params`` draws from a ``torch.Generator`` with the reference's scales
-and dtypes. The two packages' random streams differ (and the reference's
+``abstract_params`` gives the tree's stand-ins (shape and dtype, no
+storage: ``meta`` tensors, or a ``FakeTensorMode``'s on a device) that the
+dry run traces the programs on, as the reference's ``ShapeDtypeStruct``
+tree. ``init_params`` draws from a ``torch.Generator`` with the
+reference's scales and dtypes. The two packages' random streams differ (and the reference's
 per-leaf key hashes the leaf's path with a per-process salt), so equal
 parameters come from the converter, never from equal seeds.
 """
@@ -27,8 +30,8 @@ import torch
 from repro_torch import tree
 from repro_torch.configs.base import LayerSpec, ModelConfig
 
-__all__ = ["ParamSpec", "model_specs", "logical_axes", "init_params", "param_count",
-           "active_param_count", "torch_dtype"]
+__all__ = ["ParamSpec", "model_specs", "logical_axes", "init_params", "abstract_params",
+           "param_count", "active_param_count", "torch_dtype"]
 
 
 @dataclass(frozen=True)
@@ -162,6 +165,14 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None):
         return (x * np.float32(scale)).to(device=device, dtype=dt)
 
     return tree.map_tree(leaf, model_specs(cfg))
+
+
+def abstract_params(cfg: ModelConfig, device=None, fake_mode=None):
+    """The parameter tree as stand-ins that allocate nothing
+    (:func:`repro_torch.tree.abstract`): ``meta`` tensors, or ``fake_mode``'s
+    fake tensors on ``device``."""
+    return tree.map_tree(lambda p: tree.abstract(p.shape, torch_dtype(p.dtype or cfg.param_dtype),
+                                                 device, fake_mode), model_specs(cfg))
 
 
 def logical_axes(cfg: ModelConfig):

@@ -26,8 +26,8 @@ import torch
 from repro_torch import tree
 from repro_torch.core import division_modes as dm
 
-__all__ = ["AdamWConfig", "AdamWState", "init", "bias_corrections", "sqrt_f32",
-           "global_norm", "update"]
+__all__ = ["AdamWConfig", "AdamWState", "init", "abstract_state", "bias_corrections",
+           "sqrt_f32", "global_norm", "update"]
 
 F32 = torch.float32
 
@@ -56,6 +56,16 @@ def init(params, cfg: AdamWConfig) -> AdamWState:
     device = tree.leaves(params)[0].device
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=device),
                       m=tree.map_tree(zeros, params), v=tree.map_tree(zeros, params))
+
+
+def abstract_state(params_abstract, cfg: AdamWConfig) -> AdamWState:
+    """:func:`init`'s state as stand-ins that allocate nothing, on the
+    stand-in parameters' device and fake mode (``repro_torch.tree.abstract``)."""
+    dt = getattr(torch, cfg.state_dtype)
+    like = lambda p: tree.abstract_like(p, dt)
+    step = tree.abstract_like(tree.leaves(params_abstract)[0], torch.int32, shape=())
+    return AdamWState(step=step, m=tree.map_tree(like, params_abstract),
+                      v=tree.map_tree(like, params_abstract))
 
 
 def sqrt_f32(x: torch.Tensor) -> torch.Tensor:

@@ -11,16 +11,46 @@ Reductions over several axes run one axis after another, in the order
 given; every rank ends with the same bits. :func:`all_gather` concatenates
 the ranks' blocks in mesh order, the first axis major (pod-major over
 ('pod', 'data'), as JAX orders a dim split over both).
+
+:func:`record` lists the collectives issued inside a block, one entry per
+process-group call: the op, the bytes of its result and the ranks of its
+group. ``launch/roofline.py`` ``tally_collectives`` turns the list into
+wire bytes, as the reference's roofline parses its HLO's collectives.
 """
 from __future__ import annotations
 
-from typing import Sequence
+import contextlib
+from typing import List, Optional, Sequence
 
 import torch
 
 from .rules import mesh_shape
 
-__all__ = ["all_reduce", "all_gather", "all_reduce_sum_grad"]
+__all__ = ["all_reduce", "all_gather", "all_reduce_sum_grad", "record"]
+
+_RECORD: Optional[List[dict]] = None
+
+
+@contextlib.contextmanager
+def record():
+    """Yields a list that receives ``{"op", "bytes", "ranks"}`` for each
+    collective issued in the block (``op`` as HLO names it: ``all-reduce``,
+    ``all-gather``; ``bytes`` of the result; ``ranks`` of the group, global
+    ranks in order)."""
+    global _RECORD
+    prev, _RECORD = _RECORD, []
+    try:
+        yield _RECORD
+    finally:
+        _RECORD = prev
+
+
+def _note(op: str, result: torch.Tensor, group) -> None:
+    if _RECORD is not None:
+        import torch.distributed as dist
+
+        _RECORD.append({"op": op, "bytes": result.numel() * result.element_size(),
+                        "ranks": list(dist.get_process_group_ranks(group))})
 
 
 def _live(mesh, axes: Sequence[str]):
@@ -40,6 +70,7 @@ def all_reduce(t: torch.Tensor, mesh, axes: Sequence[str], op: str = "sum") -> t
     buf = t.detach().to("cpu", copy=True).contiguous()
     for ax in live:
         dist.all_reduce(buf, op=red, group=mesh.get_group(ax))
+        _note("all-reduce", buf, mesh.get_group(ax))
     return buf.to(t.device)
 
 
@@ -54,6 +85,7 @@ def all_gather(t: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
         parts = [torch.empty_like(buf) for _ in range(dist.get_world_size(group))]
         dist.all_gather(parts, buf, group=group)
         buf = torch.cat(parts, 0)
+        _note("all-gather", buf, group)
     return buf.to(t.device)
 
 

@@ -34,8 +34,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import forward
 from repro_torch.optim import adamw
 
-__all__ = ["TrainState", "init_state", "cross_entropy", "loss_fn", "grads_fn",
-           "train_step"]
+__all__ = ["TrainState", "init_state", "abstract_state", "cross_entropy", "loss_fn",
+           "grads_fn", "train_step"]
 
 F32 = torch.float32
 
@@ -49,6 +49,14 @@ class TrainState(NamedTuple):
 def init_state(cfg: ModelConfig, params, opt_cfg: adamw.AdamWConfig) -> TrainState:
     opt = adamw.init(params, opt_cfg)
     return TrainState(params=params, opt=opt, step=torch.zeros_like(opt.step))
+
+
+def abstract_state(cfg: ModelConfig, params_abstract,
+                   opt_cfg: adamw.AdamWConfig) -> TrainState:
+    """:func:`init_state` on stand-in parameters (``models.abstract_params``),
+    allocating nothing."""
+    opt = adamw.abstract_state(params_abstract, opt_cfg)
+    return TrainState(params=params_abstract, opt=opt, step=tree.abstract_like(opt.step))
 
 
 def cross_entropy(logits, labels):

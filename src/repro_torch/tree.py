@@ -6,13 +6,16 @@ nested containers. :func:`leaves` lists a tree's tensors in
 named-tuple entries in order), which is the order AdamW walks and a
 checkpoint stores them in; :func:`unflatten` puts a list in that order back
 into a tree's structure, and :func:`map_tree` maps leaf by leaf over trees
-of one structure.
+of one structure. :func:`abstract` makes the stand-in leaves of the
+``abstract_*`` trees: shape and dtype, no storage.
 """
 from __future__ import annotations
 
 from typing import Any, Callable, List
 
-__all__ = ["leaves", "paths", "unflatten", "map_tree"]
+import torch
+
+__all__ = ["leaves", "paths", "unflatten", "map_tree", "abstract", "abstract_like"]
 
 
 def _is_named_tuple(t) -> bool:
@@ -75,3 +78,20 @@ def map_tree(fn: Callable, tree, *rest) -> Any:
     if isinstance(tree, (list, tuple)):
         return type(tree)(map_tree(fn, *xs) for xs in zip(tree, *rest))
     return fn(tree, *rest)
+
+
+def abstract(shape, dtype: torch.dtype, device=None, fake_mode=None) -> torch.Tensor:
+    """A stand-in of ``shape`` and ``dtype`` that allocates nothing: a
+    ``meta`` tensor, or given a ``FakeTensorMode`` one of its fake tensors on
+    ``device`` (cuda by default: the port's entry points run on the card)."""
+    if fake_mode is None:
+        return torch.empty(shape, dtype=dtype, device="meta")
+    with fake_mode:
+        return torch.empty(shape, dtype=dtype, device=device or "cuda")
+
+
+def abstract_like(t: torch.Tensor, dtype: torch.dtype = None, shape=None) -> torch.Tensor:
+    """:func:`abstract` on ``t``'s device and fake mode, of ``t``'s shape
+    and dtype unless ``shape`` / ``dtype`` are given."""
+    return abstract(t.shape if shape is None else shape, dtype or t.dtype, t.device,
+                    getattr(t, "fake_mode", None))

@@ -16,6 +16,8 @@ chunked scan need. Encoder-decoder models take seeded encoder frames,
 embedding-input models seeded prompt embeddings.
 """
 import dataclasses
+import zlib
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -31,6 +33,7 @@ from repro.models import forward as ref_forward
 from repro.models import init_params as ref_init_params
 from repro.models import layers as ref_layers
 from repro.models import param_count as ref_param_count
+from repro.models import params as ref_params_module
 from repro.models.model import encode as ref_encode
 from repro.models.params import active_param_count as ref_active_param_count
 from repro.serving import pad_cache_to as ref_pad_cache_to
@@ -60,8 +63,20 @@ def _pair(arch, mode="exact", **kw):
     return ref, port
 
 
+def _ref_init(cfg, seed):
+    """The reference's ``init_params`` with its per-leaf key made the same in
+    every process. The reference folds ``hash(path)`` into each leaf's key,
+    and Python salts ``hash`` per process, so each pytest worker drew other
+    weights, and jamba's f32 rounding spread against the reference went past
+    ``LOGIT_RTOL`` on about 2% of the draws (ROADMAP F13). Here ``hash`` is
+    the path's crc32 during the call; nothing else of the reference changes."""
+    stable = lambda s: zlib.crc32(s.encode())
+    with mock.patch.object(ref_params_module, "hash", stable, create=True):
+        return ref_init_params(cfg, jax.random.PRNGKey(seed))
+
+
 def _params(ref_cfg, port_cfg, seed=0):
-    rp = ref_init_params(ref_cfg, jax.random.PRNGKey(seed))
+    rp = _ref_init(ref_cfg, seed)
     return rp, convert.params_from_reference(jax.tree_util.tree_map(np.asarray, rp),
                                              port_cfg, "cpu")
 
@@ -172,7 +187,7 @@ def test_init_params_draws_from_the_generator_with_the_reference_scales():
 
 def test_params_from_reference_carries_bf16_bits():
     cfg = ref_smoke_config("paper_fpdiv")
-    rp = ref_init_params(cfg, jax.random.PRNGKey(1))
+    rp = _ref_init(cfg, 1)
     pp = convert.params_from_reference(jax.tree_util.tree_map(np.asarray, rp),
                                        get_smoke_config("paper_fpdiv"), "cpu")
     want = np.asarray(rp["groups"][0]["layers"][0]["attn"]["wq"])      # (repeat, d, H, hd)
