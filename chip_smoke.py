@@ -153,6 +153,27 @@ source, in parallel), then runs, each phase printing one line:
                  exact f32 mean (the max over the reference's tensor: a
                  stack of layers shares one scale), 24 softmax / 49 RMSNorm / 111 reciprocal
                  launches a step and rank, every reciprocal held to plain;
+ 13d. tp       — tensor parallelism over the model axis (models/parallel.py),
+                 its ranks sharing the card over gloo (every all-reduce
+                 through host copies: not a speed figure): llama3_8b at
+                 full width and depth on (data 1, model 2) in bf16 (the
+                 ranks' blocks drawn from --seed): generate_batch over
+                 MODEL_LENS prompts, 32 new tokens each, 32 softmax and 65
+                 RMSNorm launches a forward and rank, every call of one
+                 prefill and one decode step held bit for bit to its plain
+                 version, tokens against this process's unsharded run
+                 (reported); in f32 at TP_F32_DEPTH layers the gate of
+                 test_decode_equiv against the unsharded run (>= 99% of
+                 teacher-forced tokens, logit drift < 5e-3) and serve()
+                 with 2 slots against generate_batch; then paper_fpdiv
+                 trained on (data 2, model 2), 3 steps of 8 x 2048 tokens,
+                 2 microbatches a data rank: 48 softmax / 98 RMSNorm / 111
+                 reciprocal launches a step and rank, every call of step 1
+                 held to plain on rank 0, replicated leaves bit-equal on
+                 all 4 ranks and split blocks on the data peers after
+                 every step, and one f32 step against the single-process
+                 step (loss within 1e-5 relative, the state within
+                 tests/test_torch_tensor_parallel.py's bounds);
  14. ilm serve — paper_fpdiv at full width in mode="ilm", teacher-forced
                  against the exact twin in f32 (reported, not gated);
  15. times     — each kernel, its plain version and the torch yardstick: the
@@ -179,7 +200,7 @@ source, in parallel), then runs, each phase printing one line:
                  from torch.profiler, and ``library_device_ms`` (flash: also
                  ``library_kernels``, the device kernels of the SDPA call).
 
-Phases 4-6, 9, 9a-9g, 12, 13, 13a and 13c are the main path: launch counts are reset before
+Phases 4-6, 9, 9a-9g, 12, 13, 13a, 13c and 13d are the main path: launch counts are reset before
 each and read after it. The command's wall time, the build included, is
 printed on a ``wall`` line. Any failed check raises, and the script then exits non-zero
 without printing a result. It needs a CUDA card and the repository around
@@ -878,7 +899,7 @@ def replay(engine, prompts, steps: int, teacher=None, hand=None):
     pos, picks, seen = lengths, [], []
     for t in range(steps):
         seen.append(logits)
-        choice = torch.argmax(logits, -1)[:, None].to(torch.int32)
+        choice = engine._argmax(logits)
         picks.append(choice[:, 0])
         feed = choice if teacher is None else torch.as_tensor(
             teacher[t], dtype=torch.int32, device=DEVICE)[:, None]
@@ -1160,7 +1181,7 @@ def held_calls(eng, prompts, err: dict, recip: bool = False, hand=None, keep=Non
         logits, cache, lengths, n = prefill_batch(eng, prompts, hand)
         cache = pad_cache_to(cache, n, eng.max_len, eng.cfg)
         step[0] = "decode"
-        eng._decode(cache, torch.argmax(logits, -1)[:, None].to(torch.int32), lengths)
+        eng._decode(cache, eng._argmax(logits), lengths)
         sync()
     finally:
         softmax.softmax, rmsnorm.rmsnorm, tsdiv.recip = real
@@ -1537,9 +1558,9 @@ def phase_train_calls(cfg, state, batch, n_micro: int, err: dict, result: dict):
         recips.append(x.clone())
         return got
 
-    def update_spy(grads, opt, params, opt_cfg, lr_scale=1.0):
+    def update_spy(grads, opt, params, opt_cfg, lr_scale=1.0, split=None):
         captured.update(grads=grads, opt=opt, params=params, opt_cfg=opt_cfg)
-        return real[3](grads, opt, params, opt_cfg, lr_scale)
+        return real[3](grads, opt, params, opt_cfg, lr_scale, split)
 
     softmax.softmax, rmsnorm.rmsnorm, tsdiv.recip, adamw.update = (
         sm_spy, rms_spy, recip_spy, update_spy)
@@ -2266,6 +2287,486 @@ def phase_times_mesh(err: dict, launches: dict, mesh: dict) -> list:
     return rows
 
 
+# ---------------------------------------------------------------- the tp phase
+
+TP_ARCH = "llama3_8b"
+TP_SERVE_MESH = (1, 2)            # (data, model): llama3_8b served on 2 ranks
+TP_F32_DEPTH = 32                 # the f32 gate's depth: full (18.6 GiB a rank, PERF.md)
+TP_SERVE_LENS = (512, 384, 256, 128)   # f32 serve() against generate_batch
+TP_TRAIN_MESH = (2, 2)            # paper_fpdiv trained on 4 ranks
+TP_TRAIN_BATCH = 8                # x TRAIN_SEQ tokens a step: 4 a data rank, 2 microbatches
+TP_TRAIN_MICRO = 2
+TP_TRAIN_STEPS = 3
+TP_STEP_RTOL = {"params": 1e-4, "m": 1e-5, "v": 1e-5}   # tests/test_torch_tensor_parallel.py
+TP_TIMEOUT_S = 900.0
+
+
+def tp_mesh(shape):
+    """A (data, model) mesh over this rank's group, with the parent's matmul
+    precision (no TF32, no reduced-precision bf16 sums) and, as the mesh
+    phase's ranks, segments that grow in place on the shared card."""
+    from repro_torch.launch.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    return make_mesh(shape, ("data", "model"), "cuda")
+
+
+def tp_model(seed: int, mesh, param_dtype: str, **repl):
+    """TP_ARCH at full width from ``seed`` as model_setup draws it, the
+    rank keeping its blocks (``init_params(shardings=)``), in taylor_pallas;
+    with ``mesh`` None the whole model in this process."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.sharding import rules as shr
+
+    cfg = dataclasses.replace(get_config(TP_ARCH), param_dtype=param_dtype, **repl)
+    cfg = dataclasses.replace(cfg, division=dataclasses.replace(cfg.division,
+                                                                mode="taylor_pallas"))
+    sh = None if mesh is None else shr.param_shardings(cfg, mesh)
+    params = init_params(cfg, torch.Generator(device=DEVICE).manual_seed(seed), shardings=sh)
+    rng = np.random.default_rng(seed + 11)
+    prompts = [rng.integers(1, cfg.vocab, n).tolist() for n in MODEL_LENS]
+    return cfg, params, prompts
+
+
+class CollectiveClock:
+    """Seconds spent inside ``sharding.comm``'s all-reduce and all-gather
+    (each started after a synchronize, so the clock holds the collective's
+    host copies and gloo's exchange, not the work queued before it), and
+    their count and bytes, while the block runs."""
+
+    def __init__(self):
+        self.seconds, self.count, self.bytes = 0.0, 0, 0
+
+    def __enter__(self):
+        from repro_torch.sharding import comm
+
+        self.real = (comm.all_reduce, comm.all_gather)
+
+        def clocked(real):
+            def run(t, *a, **k):
+                sync()
+                t0 = time.perf_counter()
+                out = real(t, *a, **k)
+                self.seconds += time.perf_counter() - t0
+                self.count += 1
+                self.bytes += t.numel() * t.element_size()
+                return out
+            return run
+
+        comm.all_reduce, comm.all_gather = (clocked(f) for f in self.real)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.sharding import comm
+
+        comm.all_reduce, comm.all_gather = self.real
+
+
+def tp_timed(eng, prompts) -> dict:
+    """generate_batch over ``prompts`` (MODEL_NEW new tokens) after a
+    warm-up: tokens, launches, the prefill's and the decode steps' times
+    (and the collectives' share of each), peak memory."""
+    from repro_torch.kernels import rmsnorm, softmax
+
+    eng.generate_batch([prompts[-1][:16]], max_new=2)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    for m in (softmax, rmsnorm):
+        m.reset_launches()
+    real, seen = eng._prefill_tok, {}
+
+    def timed_prefill(*a):
+        with CollectiveClock() as pre:
+            t0 = time.perf_counter()
+            out = real(*a)
+            sync()
+            seen["prefill_s"] = time.perf_counter() - t0
+        seen["prefill"] = pre
+        return out
+
+    eng._prefill_tok = timed_prefill
+    t0 = time.perf_counter()
+    try:
+        with CollectiveClock() as clock:        # the prefill's are counted in both
+            toks = eng.generate_batch(prompts, max_new=MODEL_NEW)
+            sync()
+    finally:
+        del eng._prefill_tok     # the class's method again, and no cycle holding eng
+    wall = time.perf_counter() - t0
+    pre = seen["prefill"]
+    decode_s = wall - seen["prefill_s"]
+    return {"tokens": toks, "launches": {**softmax.LAUNCHES, **rmsnorm.LAUNCHES},
+            "generate_batch_s": wall, "prefill_ms": seen["prefill_s"] * 1e3,
+            "decode_ms_per_step": decode_s * 1e3 / MODEL_NEW,
+            "prefill_collectives": {"count": pre.count, "bytes": pre.bytes,
+                                    "seconds": pre.seconds,
+                                    "share": pre.seconds / seen["prefill_s"]},
+            "decode_collectives": {"count": clock.count - pre.count,
+                                   "bytes": clock.bytes - pre.bytes,
+                                   "seconds": clock.seconds - pre.seconds,
+                                   "share": (clock.seconds - pre.seconds) / decode_s},
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def allreduce_times(mesh, rows: int, width: int) -> dict:
+    """One (rows, width) all-reduce over the model axis, the prefill's
+    size, three ways (3 reps, median ms): bf16 on the card (comm.all_reduce:
+    device -> host -> gloo -> device), f32 on the card, bf16 on the host
+    (gloo alone)."""
+    import torch.distributed as dist
+
+    from repro_torch.sharding import comm
+
+    out = {}
+    for name, dt, dev in (("bf16_card", torch.bfloat16, DEVICE),
+                          ("f32_card", torch.float32, DEVICE),
+                          ("bf16_host_gloo_only", torch.bfloat16, "cpu")):
+        t = torch.ones((rows, width), dtype=dt, device=dev)
+        times = []
+        for _ in range(3):
+            sync()
+            t0 = time.perf_counter()
+            if dev == "cpu":
+                dist.all_reduce(t, group=mesh.get_group("model"))
+            else:
+                comm.all_reduce(t, mesh, ("model",))
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[name] = float(np.median(times))
+    return out
+
+
+def tp_want(seed: int) -> dict:
+    """This process's unsharded runs of TP_ARCH, as the serving ranks are
+    held to them: bf16 generate_batch (tokens and times), and at
+    TP_F32_DEPTH in f32 the greedy stream and its logits (replay)."""
+    from repro_torch.serving import ServingEngine
+
+    cfg, params, prompts = tp_model(seed, None, "bfloat16")
+    eng = ServingEngine(cfg, params, max_len=cache_len(cfg, prompts, MODEL_NEW))
+    bf16 = tp_timed(eng, prompts)
+    del eng, params
+    torch.cuda.empty_cache()
+    cfg, params, prompts = tp_model(seed, None, "float32", n_layers=TP_F32_DEPTH)
+    torch.cuda.reset_peak_memory_stats()
+    eng = ServingEngine(cfg, params, max_len=cache_len(cfg, prompts, MODEL_NEW))
+    teacher, logits = replay(eng, prompts, MODEL_NEW)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del eng, params
+    logits = logits.cpu()
+    torch.cuda.empty_cache()
+    return {"bf16": bf16, "teacher": teacher, "logits": logits, "f32_peak_gib": peak}
+
+
+def tp_serve_rank(rank: int, seed: int, teacher) -> dict:
+    """One rank of the tp phase's serving part on TP_SERVE_MESH: bf16 at
+    full width (the timed generate_batch, every kernel call of one prefill
+    and one decode step held to its plain version), then f32 at
+    TP_F32_DEPTH (the replay under the unsharded run's teacher stream,
+    generate_batch, serve() with MODEL_SLOTS slots)."""
+    from repro_torch import tree
+    from repro_torch.serving import Request, ServingEngine
+    from repro_torch.sharding import rules as shr
+
+    mesh = tp_mesh(TP_SERVE_MESH)
+    out = {}
+    cfg, params, prompts = tp_model(seed, mesh, "bfloat16")
+    out["allreduce_ms"] = allreduce_times(mesh, len(MODEL_LENS) * max(MODEL_LENS), cfg.d_model)
+    err = {"softmax_f32": 0.0, "rmsnorm_f32": 0.0, "tsdiv_recip": 0.0}
+    with shr.use_mesh(mesh):
+        eng = ServingEngine(cfg, params, max_len=cache_len(cfg, prompts, MODEL_NEW))
+        out["bf16"] = tp_timed(eng, prompts)
+        t0 = time.perf_counter()
+        rows, _ = held_calls(eng, prompts, err, keep=set())
+        out["held"] = {"rows": rows, "err": err, "seconds": time.perf_counter() - t0}
+    out["param_gib"] = sum(t.to_local().numel() * t.to_local().element_size()
+                           for t in tree.leaves(params)) / 2**30
+    del eng, params
+    torch.cuda.empty_cache()
+    cfg, params, prompts = tp_model(seed, mesh, "float32", n_layers=TP_F32_DEPTH)
+    torch.cuda.reset_peak_memory_stats()
+    with shr.use_mesh(mesh):
+        eng = ServingEngine(cfg, params, max_len=cache_len(cfg, prompts, MODEL_NEW))
+        t0 = time.perf_counter()
+        picks, logits = replay(eng, prompts, MODEL_NEW, teacher)
+        out["f32_replay_s"] = time.perf_counter() - t0
+        out["f32_picks"], out["f32_logits"] = picks, logits.cpu()
+        del logits
+        short = [p[:n] for p, n in zip(prompts, TP_SERVE_LENS)]
+        gb = eng.generate_batch(short, MODEL_NEW)
+        reqs = [Request(list(p), max_new=MODEL_NEW) for p in short]
+        t0 = time.perf_counter()
+        eng.serve(reqs, slots=MODEL_SLOTS)
+        out["f32_serve_s"] = time.perf_counter() - t0
+    out["f32_generate_batch"], out["f32_serve"] = gb, [r.out for r in reqs]
+    out["f32_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
+
+
+def tp_train_rank(rank: int, seed: int) -> dict:
+    """One rank of the tp phase's training part on TP_TRAIN_MESH:
+    paper_fpdiv at full width, TP_TRAIN_STEPS steps in bf16 (launches,
+    every kernel call of the first step held to its plain version on rank
+    0, the ranks' leaves compared after every step), then one f32 step
+    from the same seed, its state gathered, and on rank 0 the
+    single-process step on the same global batch."""
+    import torch.distributed as dist
+
+    from repro_torch import tree
+    from repro_torch.core.seeds import compute_segments, rsqrt_seed_table
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels import common, rmsnorm, softmax, tsdiv
+    from repro_torch.models import init_params
+    from repro_torch.models.parallel import split_axes, tensor_parallel
+    from repro_torch.optim import adamw
+    from repro_torch.sharding import rules as shr
+    from repro_torch.train import step as ts
+
+    mesh = tp_mesh(TP_TRAIN_MESH)
+    mods = (softmax, rmsnorm, tsdiv)
+    cfg = train_config()
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                  global_batch=TP_TRAIN_BATCH, seed=seed))
+    batch_of = lambda s: {k: torch.from_numpy(v).to(DEVICE) for k, v in data.batch(s).items()}
+
+    def placed(cfg):
+        sh = shr.param_shardings(cfg, mesh)
+        params = init_params(cfg, torch.Generator(device=DEVICE).manual_seed(seed), shardings=sh)
+        opt_cfg = adamw.AdamWConfig(state_dtype=cfg.opt_state_dtype, division=cfg.division)
+        return opt_cfg, ts.init_state(cfg, params, opt_cfg)
+
+    opt_cfg, state = placed(cfg)
+    split = tree.leaves(split_axes(cfg, tensor_parallel(cfg, mesh)))
+    real = (softmax.softmax, rmsnorm.rmsnorm, tsdiv.recip)
+    held = []
+
+    def sm_spy(x, n_iters=2, precision_bits=24, schedule="factored"):
+        got = real[0](x, n_iters, precision_bits, schedule)
+        held.append(("softmax_f32",) + rows_held(got, softmax.softmax_plain, x,
+                                                 compute_segments(n_iters, precision_bits),
+                                                 n_iters, schedule))
+        return got
+
+    def rms_spy(x, w, eps=1e-6, newton_iters=2, n_segments=16):
+        got = real[1](x, w, eps, newton_iters, n_segments)
+        held.append(("rmsnorm_f32",) + rows_held(got, lambda xs: rmsnorm.rmsnorm_plain(
+            xs, w, eps, rsqrt_seed_table(n_segments), newton_iters), x))
+        return got
+
+    def recip_spy(x, n_iters=2, precision_bits=24, schedule="factored"):
+        got = real[2](x, n_iters, precision_bits, schedule)
+        table = compute_segments(n_iters, precision_bits)
+        held.append(("tsdiv_recip",) + held_to_plain(got, lambda v: common.recip_f32_bits(
+            v, table, n_iters, schedule), x))
+        return got
+
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for s in range(TP_TRAIN_STEPS):
+        batch = batch_of(s)
+        for m in mods:
+            m.reset_launches()
+        spying = s == 0 and rank == 0
+        if spying:
+            softmax.softmax, rmsnorm.rmsnorm, tsdiv.recip = sm_spy, rms_spy, recip_spy
+        sync()
+        t0 = time.perf_counter()
+        try:
+            with shr.use_mesh(mesh), CollectiveClock() as clock:
+                state, metrics = ts.train_step(cfg, opt_cfg, state, batch, n_micro=TP_TRAIN_MICRO)
+                loss = float(metrics["loss"])
+                sync()
+        finally:
+            softmax.softmax, rmsnorm.rmsnorm, tsdiv.recip = real
+        wall = time.perf_counter() - t0
+        prints = [fingerprint(t.to_local()) for t in
+                  tree.leaves((state.params, state.opt.m, state.opt.v))]
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, prints)
+        n = len(split)
+        rep_equal = all(all(e[i + k * n] == every[0][i + k * n] for e in every)
+                        for k in range(3) for i in range(n) if split[i] is None)
+        data_equal = all(every[a][i] == every[b][i] for a, b in ((0, 2), (1, 3))
+                         for i in range(3 * n))
+        steps.append({"ms": wall * 1e3, "loss": loss, "spied": spying,
+                      "collectives": {"count": clock.count, "bytes": clock.bytes,
+                                      "seconds": clock.seconds, "share": clock.seconds / wall},
+                      "launches": {k: v for m in mods for k, v in m.LAUNCHES.items() if v},
+                      "replicated_bit_equal": rep_equal, "data_peers_bit_equal": data_equal})
+    out = {"steps": steps, "n_leaves": len(split), "n_split": sum(a is not None for a in split),
+           "held": [(k, int(b), float(e)) for k, b, e in held],
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    del state
+    torch.cuda.empty_cache()
+
+    # One f32 step against the single-process step on the same global batch.
+    cfg32 = train_config(param_dtype="float32")
+    opt32, state = placed(cfg32)
+    batch = batch_of(TP_TRAIN_STEPS)
+    with shr.use_mesh(mesh):
+        new, metrics = ts.train_step(cfg32, opt32, state, batch, n_micro=TP_TRAIN_MICRO)
+    got = {k: [shr.global_tensor(t) for t in tree.leaves(v)]
+           for k, v in (("params", new.params), ("m", new.opt.m), ("v", new.opt.v))}
+    tp_loss = float(metrics["loss"])
+    del new, state
+    if rank != 0:
+        return out
+    params = init_params(cfg32, torch.Generator(device=DEVICE).manual_seed(seed))
+    single, m1 = ts.train_step(cfg32, opt32, ts.init_state(cfg32, params, opt32), batch,
+                               n_micro=TP_TRAIN_MICRO * TP_TRAIN_MESH[0])
+    want = {"params": single.params, "m": single.opt.m, "v": single.opt.v}
+    worst = {k: max(float((g - w).abs().max()) / float(w.abs().max())
+                    for g, w in zip(got[k], tree.leaves(want[k]))) for k in got}
+    out["f32_step"] = {"loss": tp_loss, "single_loss": float(m1["loss"]),
+                       "loss_rel": abs(tp_loss - float(m1["loss"])) / abs(float(m1["loss"])),
+                       "worst_over_leaf_max": worst}
+    return out
+
+
+def phase_tp(seed: int, launches: dict, err: dict) -> dict:
+    """The tp phase: tensor parallelism over the model axis, its ranks
+    sharing the one card over gloo (every all-reduce through host copies:
+    the times are not a speed figure). Serving: TP_ARCH at full width and
+    depth on TP_SERVE_MESH in bf16 (32 softmax and 65 RMSNorm launches a
+    forward and rank; every call of one prefill and one decode step held to
+    plain on each rank; tokens against this process's unsharded run,
+    reported), and in f32 at TP_F32_DEPTH the gate of test_decode_equiv
+    against the unsharded run (>= 99% of teacher-forced tokens, logit
+    drift < 5e-3) and serve() against generate_batch on prompts of
+    TP_SERVE_LENS (>= 99%); the collectives' share of the prefill and the
+    decode steps, and one all-reduce at the prefill's size. Training:
+    paper_fpdiv on TP_TRAIN_MESH, TP_TRAIN_STEPS steps (the data-parallel
+    run's 48 / 98 / 111 launches a step and rank, every call of step 1 held
+    to plain on rank 0, replicated leaves bit-equal on all ranks and split
+    blocks on the data peers after every step), and one f32 step against
+    the single-process step (loss within 1e-5 relative, the state within
+    TP_STEP_RTOL of each leaf's largest value)."""
+    import gc
+
+    from repro_torch.launch.mesh import run_ranks
+
+    t0 = time.perf_counter()
+    want = tp_want(seed)
+    want_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    parent = {"allocated_gib": torch.cuda.memory_allocated() / 2**30,
+              "reserved_gib": torch.cuda.memory_reserved() / 2**30,
+              "card_free_gib": torch.cuda.mem_get_info()[0] / 2**30}
+    n_serve = TP_SERVE_MESH[0] * TP_SERVE_MESH[1]
+    t0 = time.perf_counter()
+    ranks = run_ranks(tp_serve_rank, n_serve, seed, want["teacher"], device_type="cuda",
+                      timeout_s=TP_TIMEOUT_S)
+    serve_s = time.perf_counter() - t0
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    from repro_torch.configs import get_config
+
+    # One softmax an attention layer, two RMSNorms a block and the final
+    # one: 32 and 65 on llama3_8b.
+    depth = get_config(TP_ARCH).n_layers
+    per_forward = {"softmax_f32": depth, "rmsnorm_f32": 2 * depth + 1}
+    forwards = 1 + MODEL_NEW
+    n_tok = len(MODEL_LENS) * MODEL_NEW
+    for o in ranks:
+        add(o["bf16"]["launches"])
+        check(o["bf16"]["launches"] == {k: v * forwards for k, v in per_forward.items()},
+              f"tp serve launches {o['bf16']['launches']}, expected {per_forward} x {forwards}")
+        rows = o["held"]["rows"]
+        calls = {f"{k}/{st}": sum(1 for r in rows if r[:2] == (k, st))
+                 for st in ("prefill", "decode") for k in per_forward}
+        check(calls == {f"{k}/{st}": v for st in ("prefill", "decode")
+                        for k, v in per_forward.items()}, f"tp serve held calls {calls}")
+        check(all(r[3] == 0 for r in rows), f"tp serve: a call differs from the plain version: "
+              f"{[r for r in rows if r[3]]}")
+        for k, e in o["held"]["err"].items():
+            err[k] = max(err[k], e)
+        check(o["f32_picks"].tolist() == ranks[0]["f32_picks"].tolist(),
+              "tp serve: the ranks chose different tokens")
+    logits = torch.cat([o["f32_logits"] for o in ranks], -1)
+    drift = float((logits - want["logits"]).abs().max() / want["logits"].abs().max())
+    agree = float((ranks[0]["f32_picks"] == want["teacher"]).mean())
+    serve_diff = sum(a != b for r, g in zip(ranks[0]["f32_serve"], ranks[0]["f32_generate_batch"])
+                     for a, b in zip(r, g))
+    bf16_same = sum(a == b for r, g in zip(ranks[0]["bf16"]["tokens"], want["bf16"]["tokens"])
+                    for a, b in zip(r, g))
+    say("tp", part="serve", arch=TP_ARCH, mesh=dict(zip(("data", "model"), TP_SERVE_MESH)),
+        prompt_lens=list(MODEL_LENS), max_new=MODEL_NEW, launches_per_forward=per_forward,
+        allreduce_ms_at_prefill_size=[o["allreduce_ms"] for o in ranks],
+        bf16={"prefill_ms": [o["bf16"]["prefill_ms"] for o in ranks],
+              "decode_ms_per_step": [o["bf16"]["decode_ms_per_step"] for o in ranks],
+              "prefill_collectives": [o["bf16"]["prefill_collectives"] for o in ranks],
+              "decode_collectives": [o["bf16"]["decode_collectives"] for o in ranks],
+              "generate_batch_s": [o["bf16"]["generate_batch_s"] for o in ranks],
+              "peak_gib": [o["bf16"]["peak_gib"] for o in ranks],
+              "param_gib": [o["param_gib"] for o in ranks],
+              "unsharded": {k: want["bf16"][k] for k in ("prefill_ms", "decode_ms_per_step",
+                                                         "generate_batch_s", "peak_gib")},
+              "tokens_equal_to_unsharded": bf16_same / n_tok},
+        held={"calls_per_rank": len(ranks[0]["held"]["rows"]),
+              "mismatched_lanes": sum(r[3] for o in ranks for r in o["held"]["rows"]),
+              "seconds": [o["held"]["seconds"] for o in ranks]},
+        f32={"depth": TP_F32_DEPTH, "teacher_forced_agreement": agree, "logit_drift": drift,
+             "serve_prompt_lens": list(TP_SERVE_LENS), "serve_slots": MODEL_SLOTS,
+             "serve_tokens_differing": serve_diff,
+             "serve_agreement": 1 - serve_diff / n_tok,
+             "replay_s": [o["f32_replay_s"] for o in ranks],
+             "serve_s": [o["f32_serve_s"] for o in ranks],
+             "peak_gib": [o["f32_peak_gib"] for o in ranks],
+             "unsharded_peak_gib": want["f32_peak_gib"]},
+        unsharded_s=want_s, ranks_s=serve_s, parent_memory=parent,
+        note="ranks share one card over gloo: every all-reduce through host copies")
+    check(agree >= 0.99, f"tp serve: teacher-forced agreement {agree} < 0.99")
+    check(drift < 5e-3, f"tp serve: logit drift {drift} >= 5e-3")
+    check(1 - serve_diff / n_tok >= 0.99, f"tp serve: serve() differs on {serve_diff} tokens")
+    check(all(len(o) == MODEL_NEW for o in ranks[0]["bf16"]["tokens"]), "tp serve: short output")
+    del ranks, want, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    n_train = TP_TRAIN_MESH[0] * TP_TRAIN_MESH[1]
+    t0 = time.perf_counter()
+    ranks = run_ranks(tp_train_rank, n_train, seed, device_type="cuda", timeout_s=TP_TIMEOUT_S)
+    train_s = time.perf_counter() - t0
+    per_step = train_launches(train_config(), TP_TRAIN_MICRO, ranks[0]["n_leaves"])
+    for o in ranks:
+        for st in o["steps"]:
+            add(st["launches"])
+            check(st["launches"] == per_step, f"tp train launches {st['launches']} a step, "
+                  f"want {per_step}")
+            check(st["replicated_bit_equal"], "tp train: a replicated leaf differs across ranks")
+            check(st["data_peers_bit_equal"], "tp train: a block differs across data peers")
+            check(math.isfinite(st["loss"]), f"tp train: loss {st['loss']}")
+    held = ranks[0]["held"]
+    n_held = {k: sum(1 for h in held if h[0] == k) for k in per_step}
+    check(n_held == per_step, f"tp train: held calls {n_held}, want {per_step}")
+    check(all(h[1] == 0 for h in held), "tp train: a call differs from its plain version")
+    for k, _, e in held:
+        err[k] = max(err[k], e)
+    f32 = ranks[0]["f32_step"]
+    say("tp", part="train", arch="paper_fpdiv", mesh=dict(zip(("data", "model"), TP_TRAIN_MESH)),
+        batch=TP_TRAIN_BATCH, seq_len=TRAIN_SEQ, n_micro_per_data_rank=TP_TRAIN_MICRO,
+        n_leaves=ranks[0]["n_leaves"], n_split=ranks[0]["n_split"],
+        launches_per_step=per_step, held_calls=n_held,
+        step_ms=[[st["ms"] for st in o["steps"]] for o in ranks],
+        step_collectives=[[st["collectives"] for st in o["steps"]] for o in ranks],
+        losses=[st["loss"] for st in ranks[0]["steps"]],
+        peak_gib=[o["peak_gib"] for o in ranks], f32_step=f32, ranks_s=train_s,
+        note="4 ranks share one card over gloo; rank 0's step 1 includes its held calls")
+    check(f32["loss_rel"] <= 1e-5, f"tp train f32: loss {f32['loss_rel']} relative")
+    for k, tol in TP_STEP_RTOL.items():
+        check(f32["worst_over_leaf_max"][k] <= tol,
+              f"tp train f32: {k} off by {f32['worst_over_leaf_max'][k]} of the leaf's max")
+    return {"serve_s": serve_s, "train_s": train_s}
+
+
 def u32_mismatch(got: torch.Tensor, want: torch.Tensor):
     """mismatch() for uint32 lanes: (lanes differing, max |got - want|)."""
     from repro_torch.core.ilm import as_u32_lanes
@@ -2713,6 +3214,7 @@ def main(argv=None) -> int:
     # (4 GB, for the times phase) waits on the host meanwhile.
     plane = plane.cpu()
     mesh = phase_mesh(args.seed, launches, err)
+    phase_tp(args.seed, launches, err)
     plane = plane.cuda()
     check(all(launches.values()), f"a kernel was not launched on the main path: {launches}")
     consumer_inputs = phase_serve_calls(args.seed, err)

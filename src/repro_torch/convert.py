@@ -15,7 +15,9 @@ the norm in f32), the sliding-window layers' K/V rings, the SSM state and
 conv windows and the cross K/V move the same way. A training state moves
 the same way too: the reference's ``TrainState`` / ``AdamWState`` (numpy
 leaves; m and v mirror the parameters) become the port's, so a state the
-reference made can be stepped by the port.
+reference made can be stepped by the port. With ``shardings``
+(``sharding.rules.param_shardings``) each leaf becomes the DTensor of the
+rank's block, cut from the numpy array before it is copied.
 """
 from __future__ import annotations
 
@@ -54,17 +56,16 @@ def tensor_from_numpy(a, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def _unstack_groups(groups, shapes, device):
+def _unstack_groups(groups, shapes):
     """``groups`` of stacked layers, one ``(period, repeat)`` of ``shapes``
-    each, as lists of ``repeat * period`` layers."""
+    each, as lists of ``repeat * period`` layers (numpy views)."""
     out = []
     for (period, repeat), gtree in zip(shapes, groups):
         layers = []
         for r in range(repeat):
             for i in range(period):
-                pick = (lambda a, r=r: a[r]) if repeat > 1 else (lambda a: a)
-                layers.append(map_tree(lambda a, pick=pick: tensor_from_numpy(pick(a), device),
-                                       gtree["layers"][i]))
+                pick = (lambda a, r=r: np.asarray(a)[r]) if repeat > 1 else np.asarray
+                layers.append(map_tree(pick, gtree["layers"][i]))
         out.append({"layers": layers})
     return out
 
@@ -73,22 +74,50 @@ def _group_shapes(cfg):
     return [(len(g.period), g.repeat) for g in cfg.groups()]
 
 
-def params_from_reference(tree, cfg, device) -> Dict:
-    """The port's parameters from the reference's as a numpy tree."""
-    out = {k: map_tree(lambda a: tensor_from_numpy(a, device), v)
-           for k, v in tree.items() if k not in ("groups", "encoder")}
-    out["groups"] = _unstack_groups(tree["groups"], _group_shapes(cfg), device)
+def _port_layout(tree, cfg) -> Dict:
+    """The reference's numpy tree in the port's layout (numpy views)."""
+    out = {k: map_tree(np.asarray, v) for k, v in tree.items() if k not in ("groups", "encoder")}
+    out["groups"] = _unstack_groups(tree["groups"], _group_shapes(cfg))
     if "encoder" in tree:
         enc = tree["encoder"]
-        out["encoder"] = {
-            "groups": _unstack_groups(enc["groups"], [(1, cfg.n_encoder_layers)], device),
-            "final_norm": tensor_from_numpy(enc["final_norm"], device)}
+        out["encoder"] = {"groups": _unstack_groups(enc["groups"], [(1, cfg.n_encoder_layers)]),
+                          "final_norm": np.asarray(enc["final_norm"])}
     return out
+
+
+def _block(a: np.ndarray, sh) -> np.ndarray:
+    """The rank's block of ``a`` under NamedSharding ``sh``."""
+    from repro_torch.sharding import rules as shr
+
+    coord = dict(zip(sh.mesh.mesh_dim_names, sh.mesh.get_coordinate()))
+    sizes = shr.mesh_shape(sh.mesh)
+    for dim, part in enumerate(sh.spec):
+        n, idx = 1, 0
+        for ax in (part if isinstance(part, tuple) else (part,)):
+            if ax is not None:
+                n, idx = n * sizes[ax], idx * sizes[ax] + coord[ax]
+        step = a.shape[dim] // n
+        a = a.take(range(idx * step, (idx + 1) * step), axis=dim) if n > 1 else a
+    return a
+
+
+def params_from_reference(tree, cfg, device, shardings=None) -> Dict:
+    """The port's parameters from the reference's as a numpy tree; with
+    ``shardings``, each leaf the DTensor of the rank's block."""
+    layout = _port_layout(tree, cfg)
+    if shardings is None:
+        return map_tree(lambda a: tensor_from_numpy(a, device), layout)
+    from torch.distributed.tensor import DTensor
+
+    return map_tree(lambda a, sh: DTensor.from_local(tensor_from_numpy(_block(a, sh), device),
+                                                     sh.mesh, sh.placements, run_check=False),
+                    layout, shardings)
 
 
 def cache_from_reference(tree, cfg, device) -> Dict:
     """The port's decode cache from the reference's as a numpy tree."""
-    return {"groups": _unstack_groups(tree["groups"], _group_shapes(cfg), device)}
+    return map_tree(lambda a: tensor_from_numpy(a, device),
+                    {"groups": _unstack_groups(tree["groups"], _group_shapes(cfg))})
 
 
 def opt_state_from_reference(opt, cfg, device):

@@ -21,30 +21,37 @@ the quantity):
     reference's affine cost probes (which made up for XLA counting a
     while-loop body once) are not needed.
   * ``memory``: the bytes of the arguments (the state, inputs and cache
-    that the traced rank holds; the port keeps parameters replicated), of
-    the outputs, of the outputs that are arguments (``alias_bytes``: a
-    decode cache is updated in place), and ``temp_bytes``, such that
-    ``total_hbm_bytes`` = arguments + the peak of the storages the step
-    allocates live at once.
+    that the traced rank holds: its blocks of the parameters split over
+    ``model``, the rest whole), of the outputs, of the outputs that are
+    arguments (``alias_bytes``: a decode cache is updated in place), and
+    ``temp_bytes``, such that ``total_hbm_bytes`` = arguments + the peak of
+    the storages the step allocates live at once.
   * ``collectives``: ``sharding/comm.py``'s record of the step, tallied by
-    ``roofline.tally_collectives``.
+    ``roofline.tally_collectives``: the gradients' mean over the data
+    axes and, on a ``model`` axis above 1, the tensor-parallel all-reduces
+    (``models/parallel.py``); ``by_axis`` splits them by the mesh axis
+    they ran over.
   * ``hbm_traffic_model`` (``launch/memmodel.py``) on the layout the
-    traced rank holds (``param_layout``: ``replicated``). The reference's
-    rules put some leaves on ``data`` (FSDP: jamba's, deepseek's and
-    moonshot's ``embed`` and ``experts``); the port replicates every
-    parameter until ROADMAP Queue 1 item 18, so the model is fed rules that
-    replicate them, and its weight, gradient and optimizer bytes are those
-    of the full tree the rank reads and updates.
+    traced rank holds (``param_layout``: ``replicated`` at ``model = 1``,
+    ``model`` above). The config's ``model``-axis rules are the port's
+    own: those leaves are split. The reference's rules also put some
+    leaves on ``data`` (FSDP: jamba's, deepseek's and moonshot's ``embed``
+    and ``experts``), which the port holds whole until ROADMAP Queue 1
+    item 19, so the model is fed rules that replicate those
+    (:func:`replicated`), and their weight, gradient and optimizer bytes
+    are the whole leaves the rank reads and updates.
   * ``sharding_fallbacks`` (``rules.param_fallbacks``, the reference's
     layout) and ``roofline``.
 
 Left out: the HLO's bytes-accessed bound (there is no HLO), the reference's
 CPU-upcast tally (see ``launch/roofline.py``) and the cost probes.
 
-The port executes no ``model`` axis yet (ROADMAP Queue 1 item 18): a cell
-whose mesh has ``model > 1`` raises ValueError. The ``tp1`` variant's cells
-(data = 256, or pod x data = 2 x 256) run. :func:`run_cell` also takes one
-rank with an explicit ``ShapeConfig`` (``chip_smoke.py``'s roofline phase).
+A cell whose mesh has ``model > 1`` traces the tensor-parallel program
+(``models/parallel.py``) on the traced rank's blocks, for every
+architecture whose layers are attention and dense MLP; one with Mamba-2 or
+MoE layers raises the ValueError that names its ROADMAP item (22 or 23).
+:func:`run_cell` also takes one rank with an explicit ``ShapeConfig``
+(``chip_smoke.py``'s roofline phase).
 
 The fake tensors live on ``--device``: ``cuda`` where torch is built with
 CUDA, else ``cpu`` (a CPU-only torch cannot index fake CUDA tensors). The
@@ -205,14 +212,16 @@ def _local(mesh, batch: Dict[str, torch.Tensor], global_batch: int):
 # --------------------------------------------------------------- cell runner
 
 def _program(cfg: ModelConfig, shape: ShapeConfig, mesh, *, n_micro: int, device,
-             fake_mode):
+             fake_mode, tp=None):
     """(args, fn): the cell's abstract arguments and its program, which
-    returns the step's outputs."""
+    returns the step's outputs. Under ``tp`` (the traced rank's
+    tensor-parallel plan) the parameters and the cache are its blocks."""
     from repro_torch.models import abstract_params, forward, make_cache
     from repro_torch.optim import adamw
     from repro_torch.train import step as train_step_lib
 
-    params = abstract_params(cfg, device, fake_mode)
+    params = abstract_params(cfg, device, fake_mode,
+                             shardings=None if tp is None else tp.shardings)
     B = shape.global_batch
     batch = input_specs(cfg, shape, device=device, fake_mode=fake_mode)
     if shape.kind == "train":
@@ -255,6 +264,25 @@ def _summarize_ops(ops):
     return agg
 
 
+def _by_axis(records, ops, mesh) -> Dict:
+    """{mesh axis: {op: {count, wire_bytes}}}: each collective under the
+    axis whose group of the traced rank it ran over."""
+    import torch.distributed as dist
+
+    if mesh is None:
+        return {}
+    groups = {tuple(dist.get_process_group_ranks(mesh.get_group(ax))): ax
+              for ax in mesh.mesh_dim_names}
+    agg: Dict = {}
+    # tally_collectives keeps the records that carry bytes, in order.
+    for rec, o in zip([r for r in records if r["bytes"]], ops):
+        ax = groups.get(tuple(rec["ranks"]), "+".join(mesh.mesh_dim_names))
+        a = agg.setdefault(ax, {}).setdefault(o["op"], {"count": 0, "wire_bytes": 0.0})
+        a["count"] += 1
+        a["wire_bytes"] += o["wire_bytes"]
+    return agg
+
+
 def run_cell(arch: str, shape_name: Optional[str] = None, multi_pod: bool = False, *,
              variant: str = "base", one_rank: bool = False,
              shape: Optional[ShapeConfig] = None, cfg: Optional[ModelConfig] = None,
@@ -265,12 +293,13 @@ def run_cell(arch: str, shape_name: Optional[str] = None, multi_pod: bool = Fals
     the architecture's config (before ``variant``), ``n_micro`` the
     reference's microbatch count (a data shard's batch over the config's
     ``train_microbatch_size``). ``one_rank``: no mesh, one device (the
-    sharding fallbacks are then empty). Raises ValueError for a mesh with a
-    ``model`` axis above 1."""
+    sharding fallbacks are then empty). Raises ValueError for a ``model``
+    axis above 1 under a model with Mamba-2 or MoE layers."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.utils.flop_counter import FlopCounterMode
 
     from repro_torch.kernels import fake
+    from repro_torch.models.parallel import refuse_split, tensor_parallel
     from repro_torch.models.params import active_param_count
     from repro_torch.sharding import comm
     from repro_torch.sharding import rules as shr
@@ -282,11 +311,10 @@ def run_cell(arch: str, shape_name: Optional[str] = None, multi_pod: bool = Fals
         mesh, sizes, mesh_name = None, MeshShape({}), "one"
     else:
         if model_axis > 1:
-            raise ValueError(
-                f"{arch} {shape.name}: the mesh's model axis is {model_axis}, and the port "
-                "executes no 'model' axis yet (ROADMAP Queue 1 item 18); run the tp1 variant")
+            refuse_split(cfg, model_axis)      # before a fake process group starts
         mesh = production_mesh(multi_pod, model_axis)
         sizes, mesh_name = MeshShape(shr.mesh_shape(mesh)), "multi" if multi_pod else "single"
+    tp = None if mesh is None else tensor_parallel(cfg, mesh)
     n_dev = 1
     for v in sizes.shape.values():
         n_dev *= v
@@ -299,7 +327,11 @@ def run_cell(arch: str, shape_name: Optional[str] = None, multi_pod: bool = Fals
             n_micro = max(1, per_dev_batch // cfg.train_microbatch_size)
 
     fake_mode = FakeTensorMode()
-    args, fn = _program(cfg, shape, mesh, n_micro=n_micro, device=device, fake_mode=fake_mode)
+    with contextlib.ExitStack() as stack:
+        if mesh is not None:
+            stack.enter_context(shr.use_mesh(mesh))
+        args, fn = _program(cfg, shape, mesh, n_micro=n_micro, device=device,
+                            fake_mode=fake_mode, tp=tp)
     arg_leaves = tree.leaves(args)
     arg_keys = {_storage_key(t) for t in arg_leaves}
     fake.reset()
@@ -332,7 +364,8 @@ def run_cell(arch: str, shape_name: Optional[str] = None, multi_pod: bool = Fals
                        model_flops=model_flops)
     return {
         "arch": arch, "shape": shape.name, "mesh": mesh_name, "variant": variant,
-        "devices": n_dev, "n_micro": n_micro, "device": device, "param_layout": "replicated",
+        "devices": n_dev, "n_micro": n_micro, "device": device,
+        "param_layout": "replicated" if tp is None else "model",
         "sharding_fallbacks": [] if one_rank else shr.param_fallbacks(cfg, sizes),
         "trace_s": t_trace,
         "memory": {
@@ -342,16 +375,21 @@ def run_cell(arch: str, shape_name: Optional[str] = None, multi_pod: bool = Fals
         },
         "hbm_traffic_model": mm,
         "collectives": {"ici_bytes": colls["ici_bytes"], "dcn_bytes": colls["dcn_bytes"],
-                        "n_ops": len(colls["ops"]), "by_op": _summarize_ops(colls["ops"])},
+                        "n_ops": len(colls["ops"]), "by_op": _summarize_ops(colls["ops"]),
+                        "by_axis": _by_axis(records, colls["ops"], mesh)},
         "unit_calls": dict(fake.CALLS),
         "roofline": roof.to_dict(),
     }
 
 
 def replicated(cfg: ModelConfig) -> ModelConfig:
-    """``cfg`` with every sharding rule None: the parameter layout that the
-    port's program holds on each rank (ROADMAP Queue 1 item 18)."""
-    return dataclasses.replace(cfg, sharding_rules={k: None for k in rules_for(cfg)})
+    """``cfg`` with every rule that names ``data`` (or ``pod``) None: the
+    parameter layout that the port's program holds on each rank, split over
+    ``model`` as its rules say and whole over the data axes (FSDP is ROADMAP
+    Queue 1 item 19)."""
+    rules = rules_for(cfg)
+    return dataclasses.replace(cfg, sharding_rules={
+        k: (None if v in ("data", "pod") else v) for k, v in rules.items()})
 
 
 # ------------------------------------------------------------ perf variants
@@ -362,9 +400,10 @@ def apply_variant(cfg: ModelConfig, variant: str):
     fused kernels, as the port runs it on the card); compound ones combine
     with '+' (e.g. ``tp1+kernels``). Returns (cfg, model_axis_size).
 
-    Left out until the port executes a ``model`` axis (ROADMAP Queue 1
-    item 18): ``seq_shard``, ``kvseq``, ``ep_tp`` and ``ep_model``, which
-    only place activations, the KV cache or the experts on that axis."""
+    Left out: ``seq_shard`` and ``kvseq``, which place activations and
+    the KV cache's sequence on the ``model`` axis (ROADMAP Queue 1 item
+    24), and ``ep_tp`` and ``ep_model``, which place the experts there
+    (items 19 and 23)."""
     from repro_torch.core.division_modes import DivisionConfig
 
     rep = dataclasses.replace

@@ -3,8 +3,10 @@
 The port of ``src/repro/launch/report.py``: one row per cell of a mesh and
 variant (its roofline terms, bound, step time, MFU, the FLOP efficiency, the
 memory a device holds and whether it fits the H100's 80 GB, and the NVLink
-and inter-host wire bytes under the reference's ICI / DCN headings), then
-the sharding fallbacks.
+and inter-host wire bytes under the reference's ICI / DCN headings), the
+collectives of each cell by mesh axis (the tensor-parallel all-reduces on
+``model``, the gradients' mean on the data axes), then the sharding
+fallbacks.
 
   PYTHONPATH=src python -m repro_torch.launch.report --dir build/dryrun --variant tp1
 """
@@ -58,6 +60,25 @@ def table(cells, mesh="single", variant="base"):
     return "\n".join(out)
 
 
+def collectives_section(cells, mesh="single", variant="base"):
+    """Per-cell table of the collectives the traced rank issued, by mesh
+    axis and op: count and wire bytes."""
+    rows = [c for c in cells
+            if c["mesh"] == mesh and c.get("variant", "base") == variant
+            and c["collectives"].get("by_axis")]
+    if not rows:
+        return ""
+    rows.sort(key=lambda c: (c["arch"], c["shape"]))
+    out = ["", "### Collectives by mesh axis", "",
+           "| arch | shape | axis | op | count | wire bytes |", "|---|---|---|---|---|---|"]
+    for c in rows:
+        for ax, ops in sorted(c["collectives"]["by_axis"].items()):
+            for op, a in sorted(ops.items()):
+                out.append(f"| {c['arch']} | {c['shape']} | {ax} | {op} | {a['count']} "
+                           f"| {fmt_bytes(a['wire_bytes'])} |")
+    return "\n".join(out)
+
+
 def fallbacks_section(cells, mesh="single", variant="base"):
     """Per-cell table of silent sharding drops (rules.param_fallbacks):
     every (param, dim) whose rule named a mesh axis that was dropped, with
@@ -95,9 +116,10 @@ def main(argv=None):
     args = ap.parse_args(argv)
     cells = load_cells(args.dir)
     print(table(cells, args.mesh, args.variant))
-    fb = fallbacks_section(cells, args.mesh, args.variant)
-    if fb:
-        print(fb)
+    for section in (collectives_section, fallbacks_section):
+        text = section(cells, args.mesh, args.variant)
+        if text:
+            print(text)
 
 
 if __name__ == "__main__":

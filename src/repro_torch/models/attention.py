@@ -9,8 +9,14 @@ denominators go through the division unit (``division_modes.softmax`` on
 the materialised f32 scores). Sliding-window attention is block-local, as
 in the reference: each W-sized query block sees the previous and its own
 key block, O(S*W). Cross attention takes its K/V as given (no rope on
-them or on its queries) and masks nothing. The reference's sharding
-annotations are dropped (one card).
+them or on its queries) and masks nothing.
+
+The reference's ``shard_dim`` annotations become ``tp`` (a
+``models.parallel.TensorParallel``): where ``heads`` is split, a rank
+projects its own query heads and the KV heads they read
+(:func:`project_q`, :func:`project_kv`), attends over them, and its output
+projection's partial sums are added over the ranks; its cache holds those
+KV heads. Without ``tp``, or with heads replicated, every head is local.
 
 The decode KV cache is updated in place (``index_put_``), where the JAX
 reference builds a new cache array: the cache passed to
@@ -29,8 +35,9 @@ from repro_torch.core import division_modes as dm
 from repro_torch.kernels.flash_attention import NEG_INF
 from .layers import rope
 
-__all__ = ["NEG_INF", "rope_apply", "full_attention", "sliding_attention",
-           "init_cache_attn", "abstract_cache_attn", "decode_positions", "decode_attention"]
+__all__ = ["NEG_INF", "rope_apply", "enter", "project_q", "project_kv", "full_attention",
+           "sliding_attention", "init_cache_attn", "abstract_cache_attn", "decode_positions",
+           "decode_attention"]
 
 
 def _proj(x, w):
@@ -43,12 +50,50 @@ def _out_proj(out, wo):
     return out.reshape(*out.shape[:-2], -1) @ wo.reshape(-1, wo.shape[-1])
 
 
-def _repeat_kv(k, n_rep: int):
+def _repeat_kv(k, n_rep: int, tp=None):
+    """Each query head's K (or V): the GQA repeat, or on a rank whose query
+    heads read only some of its KV heads, those picked by index."""
+    idx = None if tp is None else tp.kv_index(k.device)
+    if idx is not None:
+        return k.index_select(2, idx)
     if n_rep == 1:
         return k
     b, s, kv, hd = k.shape
     return k[:, :, :, None, :].expand(b, s, kv, n_rep, hd).reshape(
         b, s, kv * n_rep, hd)
+
+
+def _split(tp) -> bool:
+    return tp is not None and tp.heads
+
+
+def enter(x, tp=None):
+    """``x`` as the split projections read it: its gradient is summed over
+    the ranks (once per input, however many projections read it)."""
+    return tp.copy(x) if _split(tp) else x
+
+
+def project_q(p, x, tp=None):
+    """The rank's query heads of ``x`` (b, s, d), entered
+    (:func:`enter`): (b, s, h_local, hd)."""
+    return _proj(x, p["wq"])
+
+
+def project_kv(p, x, tp=None):
+    """The rank's K and V heads of ``x`` (b, s, d), entered
+    (``tp.kv_range``): its block of the split weights, or the heads it reads
+    of replicated ones, whose gradients are then summed over the ranks."""
+    if not _split(tp) or tp.kv:
+        return _proj(x, p["wk"]), _proj(x, p["wv"])
+    lo, hi = tp.kv_range()
+    return tuple(_proj(x, tp.copy(p[n])[:, lo:hi]) for n in ("wk", "wv"))
+
+
+def _attn_out(out, p, tp=None):
+    """The output projection; split over heads, its partial sums added over
+    the ranks in the product's dtype."""
+    y = _out_proj(out, p["wo"])
+    return tp.reduce(y) if _split(tp) else y
 
 
 def _sdpa(q, k, v, mask, div: dm.DivisionConfig, scale: float):
@@ -67,7 +112,7 @@ def rope_apply(x, positions, cfg: ModelConfig):
 
 
 def full_attention(p, x, positions, cfg: ModelConfig, *, causal: bool = True,
-                   kv_override=None, return_kv: bool = False):
+                   kv_override=None, return_kv: bool = False, tp=None):
     """Training/prefill attention, query-chunked above cfg.attn_chunk:
     causal self-attention, or (``kv_override``: the precomputed cross
     ``(k, v)``, not roped, nor are the queries) cross attention, which masks
@@ -79,14 +124,15 @@ def full_attention(p, x, positions, cfg: ModelConfig, *, causal: bool = True,
     """
     b, s, _ = x.shape
     scale = 1.0 / math.sqrt(cfg.head_dim)
+    x = enter(x, tp)
     if kv_override is not None:
-        q = _proj(x, p["wq"])
+        q = project_q(p, x, tp)
         k, v = kv_override
     else:
-        q = rope_apply(_proj(x, p["wq"]), positions, cfg)
-        k = rope_apply(_proj(x, p["wk"]), positions, cfg)
-        v = _proj(x, p["wv"])
-    kr, vr = _repeat_kv(k, cfg.q_per_kv), _repeat_kv(v, cfg.q_per_kv)
+        q = rope_apply(project_q(p, x, tp), positions, cfg)
+        k, v = project_kv(p, x, tp)
+        k = rope_apply(k, positions, cfg)
+    kr, vr = _repeat_kv(k, cfg.q_per_kv, tp), _repeat_kv(v, cfg.q_per_kv, tp)
     masked = causal and kv_override is None
 
     def attend(qc, qpos):
@@ -99,7 +145,7 @@ def full_attention(p, x, positions, cfg: ModelConfig, *, causal: bool = True,
     else:
         out = torch.cat([attend(q[:, i:i + chunk], positions[:, i:i + chunk])
                          for i in range(0, s, chunk)], dim=1)
-    out = _out_proj(out, p["wo"])
+    out = _attn_out(out, p, tp)
     return (out, (k, v)) if return_kv else out
 
 
@@ -115,7 +161,7 @@ def _sliding_mask(nb: int, w: int, device) -> torch.Tensor:
 
 
 def sliding_attention(p, x, positions, cfg: ModelConfig, *,
-                      return_kv: bool = False):
+                      return_kv: bool = False, tp=None):
     """Block-local sliding-window attention: O(S*W) compute and memory.
 
     A sequence no longer than the window is plain causal attention;
@@ -125,10 +171,11 @@ def sliding_attention(p, x, positions, cfg: ModelConfig, *,
     b, s, _ = x.shape
     w = cfg.sliding_window
     scale = 1.0 / math.sqrt(cfg.head_dim)
-    q = rope_apply(_proj(x, p["wq"]), positions, cfg)
-    k = rope_apply(_proj(x, p["wk"]), positions, cfg)
-    v = _proj(x, p["wv"])
-    kr, vr = _repeat_kv(k, cfg.q_per_kv), _repeat_kv(v, cfg.q_per_kv)
+    x = enter(x, tp)
+    q = rope_apply(project_q(p, x, tp), positions, cfg)
+    k, v = project_kv(p, x, tp)
+    k = rope_apply(k, positions, cfg)
+    kr, vr = _repeat_kv(k, cfg.q_per_kv, tp), _repeat_kv(v, cfg.q_per_kv, tp)
     if s <= w:
         mask = positions[:, None, :, None] >= positions[:, None, None, :]
         out = _sdpa(q, kr, vr, mask, cfg.division, scale)
@@ -149,27 +196,29 @@ def sliding_attention(p, x, positions, cfg: ModelConfig, *,
         probs = dm.softmax(scores, axis=-1, cfg=cfg.division)
         out = torch.einsum("bnhqt,bnthk->bnqhk", probs.to(v2.dtype), v2)
         out = out.reshape(b, s, h, hd)
-    out = _out_proj(out, p["wo"])
+    out = _attn_out(out, p, tp)
     return (out, (k, v)) if return_kv else out
 
 
-def _cache_shape(cfg: ModelConfig, batch: int, max_len: int, window: int):
-    return (batch, window if window > 0 else max_len, cfg.n_kv_heads, cfg.head_dim)
+def _cache_shape(cfg: ModelConfig, batch: int, max_len: int, window: int, tp=None):
+    kv = cfg.n_kv_heads if tp is None else tp.kv_local
+    return (batch, window if window > 0 else max_len, kv, cfg.head_dim)
 
 
 def init_cache_attn(cfg: ModelConfig, batch: int, max_len: int, window: int = 0,
-                    dtype=torch.bfloat16, device=None) -> Dict[str, torch.Tensor]:
-    """Zero K/V: ``max_len`` slots, or a ``window``-slot ring when > 0."""
-    shape = _cache_shape(cfg, batch, max_len, window)
+                    dtype=torch.bfloat16, device=None, tp=None) -> Dict[str, torch.Tensor]:
+    """Zero K/V: ``max_len`` slots, or a ``window``-slot ring when > 0; the
+    rank's KV heads under ``tp``."""
+    shape = _cache_shape(cfg, batch, max_len, window, tp)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
 def abstract_cache_attn(cfg: ModelConfig, batch: int, max_len: int, window: int = 0,
-                        dtype=torch.bfloat16, device=None, fake_mode=None):
+                        dtype=torch.bfloat16, device=None, fake_mode=None, tp=None):
     """:func:`init_cache_attn`'s tree as stand-ins that allocate nothing
     (``repro_torch.tree.abstract``)."""
-    shape = _cache_shape(cfg, batch, max_len, window)
+    shape = _cache_shape(cfg, batch, max_len, window, tp)
     return {"k": tree.abstract(shape, dtype, device, fake_mode),
             "v": tree.abstract(shape, dtype, device, fake_mode)}
 
@@ -184,7 +233,7 @@ def decode_positions(pos, batch: int, device=None) -> torch.Tensor:
 
 
 def decode_attention(p, x, cache, pos, cfg: ModelConfig, *, window: int = 0,
-                     kv_override=None):
+                     kv_override=None, tp=None):
     """One-token decode. x: (b, 1, d); cache k/v: (b, L, kv, hd); pos: a
     scalar or a per-request (b,) vector of absolute positions.
 
@@ -200,22 +249,23 @@ def decode_attention(p, x, cache, pos, cfg: ModelConfig, *, window: int = 0,
     """
     b = x.shape[0]
     scale = 1.0 / math.sqrt(cfg.head_dim)
+    x = enter(x, tp)
     if kv_override is not None:
-        k_all, v_all = (_repeat_kv(t, cfg.q_per_kv) for t in kv_override)
-        out = _sdpa(_proj(x, p["wq"]), k_all, v_all, None, cfg.division, scale)
-        return _out_proj(out, p["wo"]), cache
+        k_all, v_all = (_repeat_kv(t, cfg.q_per_kv, tp) for t in kv_override)
+        out = _sdpa(project_q(p, x, tp), k_all, v_all, None, cfg.division, scale)
+        return _attn_out(out, p, tp), cache
     pos_v = decode_positions(pos, b, x.device)
     posv = pos_v[:, None]
-    q = rope_apply(_proj(x, p["wq"]), posv, cfg)
-    k_new = rope_apply(_proj(x, p["wk"]), posv, cfg)
-    v_new = _proj(x, p["wv"])
+    q = rope_apply(project_q(p, x, tp), posv, cfg)
+    k_new, v_new = project_kv(p, x, tp)
+    k_new = rope_apply(k_new, posv, cfg)
     bidx = torch.arange(b, device=x.device)
     L = cache["k"].shape[1]
     slot = (torch.remainder(pos_v, L) if window > 0 else pos_v).long()
     cache["k"][bidx, slot] = k_new[:, 0].to(cache["k"].dtype)
     cache["v"][bidx, slot] = v_new[:, 0].to(cache["v"].dtype)
-    k_all = _repeat_kv(cache["k"], cfg.q_per_kv)
-    v_all = _repeat_kv(cache["v"], cfg.q_per_kv)
+    k_all = _repeat_kv(cache["k"], cfg.q_per_kv, tp)
+    v_all = _repeat_kv(cache["v"], cfg.q_per_kv, tp)
     idx = torch.arange(L, device=x.device)
     if window > 0:
         held = pos_v[:, None] - torch.remainder(pos_v[:, None] - idx[None, :], L)
@@ -224,4 +274,4 @@ def decode_attention(p, x, cache, pos, cfg: ModelConfig, *, window: int = 0,
         valid = idx[None, :] <= pos_v[:, None]
     mask = valid[:, None, None, :]
     out = _sdpa(q, k_all, v_all, mask, cfg.division, scale)
-    return _out_proj(out, p["wo"]), cache
+    return _attn_out(out, p, tp), cache

@@ -6,6 +6,10 @@ The reference contracts bf16 operands "with f32 accumulation"
 here that is a matmul of the operands cast to f32 (bf16 products are exact
 in f32, so it is the same function up to the order of the sum). Its other
 contractions keep the operands' dtype, as ``torch.einsum`` does.
+
+With ``tp`` (a ``models.parallel.TensorParallel``) the MLP runs on the
+rank's ``mlp`` columns and the embedding and LM head on its ``vocab``
+block, where their specs split them (``models/parallel.py``).
 """
 from __future__ import annotations
 
@@ -38,17 +42,36 @@ def rope(x, positions, theta: float):
                      dim=-1).to(x.dtype)
 
 
-def gated_mlp(p, x):
-    """SwiGLU MLP: wo(silu(wg x) * (wi x))."""
+def gated_mlp(p, x, tp=None):
+    """SwiGLU MLP: wo(silu(wg x) * (wi x)). Split over ``mlp``: ``wi`` and
+    ``wg`` by columns, ``wo`` by rows, its partial sums added over the
+    ranks in the product's dtype."""
+    split = tp is not None and tp.mlp
+    if split:
+        x = tp.copy(x)
     h = x @ p["wi"]
     g = F.silu((x @ p["wg"]).to(torch.float32))
-    return (g.to(h.dtype) * h) @ p["wo"]
+    out = (g.to(h.dtype) * h) @ p["wo"]
+    return tp.reduce(out) if split else out
 
 
-def embed_tokens(embed, tokens, cfg: ModelConfig):
-    return embed[tokens]
+def embed_tokens(embed, tokens, cfg: ModelConfig, tp=None):
+    """Rows of the table. Split over ``vocab``: the rank's rows, zero for
+    a token outside its block, summed over the ranks (exactly: one term
+    is not zero)."""
+    if tp is None or not tp.vocab:
+        return embed[tokens]
+    n = embed.shape[0]
+    local = tokens - tp.vocab_offset(n)
+    mine = (local >= 0) & (local < n)
+    rows = embed[torch.where(mine, local, 0)]
+    return tp.reduce(torch.where(mine[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                                                     device=rows.device)))
 
 
-def lm_logits(params, x, cfg: ModelConfig):
+def lm_logits(params, x, cfg: ModelConfig, tp=None):
+    """f32 logits; split over ``vocab``, the rank's block of them."""
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    if tp is not None and tp.vocab:
+        x = tp.copy(x)
     return x.to(torch.float32) @ head.to(torch.float32)

@@ -18,6 +18,12 @@ under ``torch.utils.checkpoint`` (the reference checkpoints each scan body):
 the backward pass recomputes the block from its input, so its kernels run
 twice. The encoder and the final norm are not recomputed, as in the
 reference.
+
+Under an active mesh whose ``model`` axis holds more than one rank
+(``sharding.rules.use_mesh``) the attention, MLP and vocab weights run
+split over it (``models/parallel.py``): each rank takes its blocks of the
+parameters (DTensors, the global tree or its own blocks), the logits are
+its vocab block, and the cache holds its KV heads.
 """
 from __future__ import annotations
 
@@ -28,11 +34,12 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree
 from repro_torch.configs.base import LayerSpec, ModelConfig
-from .attention import (_proj, abstract_cache_attn, decode_attention, decode_positions,
-                        full_attention, init_cache_attn, sliding_attention)
+from .attention import (abstract_cache_attn, decode_attention, decode_positions, enter,
+                        full_attention, init_cache_attn, project_kv, sliding_attention)
 from .layers import embed_tokens, gated_mlp, lm_logits, rms_norm
 from .mamba2 import abstract_cache_mamba, decode_mamba, init_cache_mamba, mamba_mixer
 from .moe import moe_ffn
+from .parallel import local_params, tensor_parallel
 from .params import torch_dtype
 
 __all__ = ["block_forward", "encode", "forward", "make_cache", "group_layers"]
@@ -74,12 +81,13 @@ def _ring_from_prefill(k, window: int, lengths=None):
 
 
 def block_forward(bp: Dict, x, spec: LayerSpec, cfg: ModelConfig, positions,
-                  *, mode: str, cache=None, pos=None, enc_out=None, lengths=None):
+                  *, mode: str, cache=None, pos=None, enc_out=None, lengths=None, tp=None):
     """One block; returns (x, new_cache, aux). ``enc_out`` (train and
     prefill of an encoder-decoder): the encoder's output, which the cross
     attention projects to K/V. ``lengths`` (prefill only): the real prompt
     lengths of a right-padded batch, which make pad tokens SSM no-ops and
-    keep them out of sliding-window rings."""
+    keep them out of sliding-window rings. ``tp``: the rank's tensor-parallel
+    plan (``models/parallel.py``), ``bp`` its blocks."""
     div = cfg.division
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache: Dict[str, Any] = {}
@@ -97,10 +105,10 @@ def block_forward(bp: Dict, x, spec: LayerSpec, cfg: ModelConfig, positions,
         window = cfg.sliding_window if spec.mixer == "swa" else 0
         if mode == "decode":
             ah, new_cache["attn"] = decode_attention(bp["attn"], h, cache["attn"],
-                                                     pos, cfg, window=window)
+                                                     pos, cfg, window=window, tp=tp)
         else:
             fn = sliding_attention if window else full_attention
-            ah, (k, v) = fn(bp["attn"], h, positions, cfg, return_kv=True)
+            ah, (k, v) = fn(bp["attn"], h, positions, cfg, return_kv=True, tp=tp)
             if mode == "prefill":
                 if window:
                     k = _ring_from_prefill(k, window, lengths)
@@ -113,12 +121,13 @@ def block_forward(bp: Dict, x, spec: LayerSpec, cfg: ModelConfig, positions,
         hc = rms_norm(x, bp["cross_norm"], div, cfg.norm_eps)
         if mode == "decode":
             kv = (cache["cross"]["ck"], cache["cross"]["cv"])
-            ch, _ = decode_attention(bp["cross"], hc, None, pos, cfg, kv_override=kv)
+            ch, _ = decode_attention(bp["cross"], hc, None, pos, cfg, kv_override=kv,
+                                     tp=tp)
             new_cache["cross"] = cache["cross"]
         else:
-            ck, cv = _proj(enc_out, bp["cross"]["wk"]), _proj(enc_out, bp["cross"]["wv"])
+            ck, cv = project_kv(bp["cross"], enter(enc_out, tp), tp)
             ch = full_attention(bp["cross"], hc, positions, cfg, causal=False,
-                                kv_override=(ck, cv))
+                                kv_override=(ck, cv), tp=tp)
             if mode == "prefill":
                 new_cache["cross"] = {"ck": ck, "cv": cv}
         x = x + ch
@@ -129,7 +138,7 @@ def block_forward(bp: Dict, x, spec: LayerSpec, cfg: ModelConfig, positions,
             ff, a = moe_ffn(bp["ffn"], h2, cfg)
             aux = aux + a
         else:
-            ff = gated_mlp(bp["ffn"], h2)
+            ff = gated_mlp(bp["ffn"], h2, tp)
         x = x + ff
     return x, new_cache, aux
 
@@ -141,17 +150,18 @@ def _remat_block(*args, **kw):
                       preserve_rng_state=False, **kw)
 
 
-def encode(cfg: ModelConfig, enc_params, enc_embeds):
+def encode(cfg: ModelConfig, enc_params, enc_embeds, tp=None):
     """The encoder over stub frontend embeddings (b, s, d_model): attention
     and dense blocks, then the final norm. Its attention is causal: the
     reference's ``encode`` runs ``full_attention`` with its default
-    ``causal=True`` (ROADMAP F9)."""
+    ``causal=True`` (ROADMAP F9). ``tp``: as :func:`block_forward`'s, with
+    ``enc_params`` the rank's blocks."""
     b, s, _ = enc_embeds.shape
     x = enc_embeds.to(torch_dtype(cfg.param_dtype))
     positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
     spec = LayerSpec("attn", "dense")
     for lp in enc_params["groups"][0]["layers"]:
-        x, _, _ = block_forward(lp, x, spec, cfg, positions, mode="train")
+        x, _, _ = block_forward(lp, x, spec, cfg, positions, mode="train", tp=tp)
     return rms_norm(x, enc_params["final_norm"], cfg.division, cfg.norm_eps)
 
 
@@ -166,16 +176,23 @@ def forward(cfg: ModelConfig, params, *, tokens=None, embeds=None, cache=None, p
     vector. ``lengths`` (prefill) marks per-request real prompt lengths of a
     right-padded batch: pad positions become SSM no-ops and are kept out of
     sliding-window rings.
+
+    Under an active mesh with a ``model`` axis above 1 the logits are the
+    rank's vocab block (all of them where ``vocab`` does not split) and the
+    cache holds the rank's KV heads.
     """
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
+    tp = tensor_parallel(cfg)
+    if tp is not None:
+        params = local_params(cfg, params, tp)
     enc_out = None
     if cfg.is_encoder_decoder and mode != "decode":
-        enc_out = encode(cfg, params["encoder"], enc_embeds)
+        enc_out = encode(cfg, params["encoder"], enc_embeds, tp)
     if embeds is not None and cfg.embed_inputs and not cfg.is_encoder_decoder:
         x = embeds.to(torch_dtype(cfg.param_dtype))
     else:
-        x = embed_tokens(params["embed"], tokens, cfg)
+        x = embed_tokens(params["embed"], tokens, cfg, tp)
     b, s = x.shape[0], x.shape[1]
     if mode == "decode":
         pos = decode_positions(pos, b, x.device)
@@ -197,12 +214,12 @@ def forward(cfg: ModelConfig, params, *, tokens=None, embeds=None, cache=None, p
             lc = cache["groups"][gi]["layers"][li] if mode == "decode" else None
             x, nc, a = block(layers[li], x, spec, cfg, positions,
                              mode=mode, cache=lc, pos=pos,
-                             enc_out=enc_out, lengths=lengths)
+                             enc_out=enc_out, lengths=lengths, tp=tp)
             caches.append(nc)
             aux = aux + a
         new_groups.append({"layers": caches})
     x = rms_norm(x, params["final_norm"], cfg.division, cfg.norm_eps)
-    logits = lm_logits(params, x, cfg)
+    logits = lm_logits(params, x, cfg, tp)
     new_cache = {"groups": new_groups} if mode in ("prefill", "decode") else None
     return logits, new_cache, aux
 
@@ -214,14 +231,17 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int, device=None,
     SSM state and conv windows for Mamba layers, and an encoder-decoder's
     ``encoder_seq``-long cross K/V. ``abstract``: the same tree as stand-ins
     that allocate nothing (``repro_torch.tree.abstract``; ``fake_mode``'s
-    fake tensors on ``device``, or ``meta`` tensors)."""
+    fake tensors on ``device``, or ``meta`` tensors). Under an active mesh
+    with a ``model`` axis above 1, the rank's KV heads."""
     dt = torch_dtype(cfg.param_dtype)
+    tp = tensor_parallel(cfg)
+    kv = cfg.n_kv_heads if tp is None else tp.kv_local
     if abstract:
-        attn = lambda *a: abstract_cache_attn(*a, device=device, fake_mode=fake_mode)
+        attn = lambda *a: abstract_cache_attn(*a, device=device, fake_mode=fake_mode, tp=tp)
         mamba = lambda *a: abstract_cache_mamba(*a, device=device, fake_mode=fake_mode)
         zeros = lambda shape: tree.abstract(shape, dt, device, fake_mode)
     else:
-        attn = lambda *a: init_cache_attn(*a, device=device)
+        attn = lambda *a: init_cache_attn(*a, device=device, tp=tp)
         mamba = lambda *a: init_cache_mamba(*a, device=device)
         zeros = lambda shape: torch.zeros(shape, dtype=dt, device=device)
     groups = []
@@ -234,7 +254,7 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int, device=None,
                 window = cfg.sliding_window if spec.mixer == "swa" else 0
                 lc = {"attn": attn(cfg, batch, max_len, window, dt)}
             if cfg.is_encoder_decoder:
-                shape = (batch, cfg.encoder_seq, cfg.n_kv_heads, cfg.head_dim)
+                shape = (batch, cfg.encoder_seq, kv, cfg.head_dim)
                 lc["cross"] = {"ck": zeros(shape), "cv": zeros(shape)}
             layers.append(lc)
         groups.append({"layers": layers})

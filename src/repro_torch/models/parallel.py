@@ -1,0 +1,229 @@
+"""Tensor parallelism over the mesh's ``model`` axis for the attention models.
+
+The reference shards its parameters by the logical-axis rules
+(``DEFAULT_RULES``: ``heads``, ``kv_heads``, ``mlp`` and ``vocab`` on
+``model``) and lets GSPMD execute the split under ``jit``, steered by its
+``shard_dim`` constraints (``src/repro/models/attention.py``,
+``src/repro/models/model.py``). Here each rank computes on plain local
+blocks and issues the collectives itself, through ``sharding/comm.py``:
+
+  * column-split products (``wq``/``wk``/``wv`` over heads, ``wi``/``wg``
+    over ``mlp``, the LM head over ``vocab``) read their input through
+    ``comm.copy_to_split``; row-split ones (``wo`` of attention and of the
+    MLP) hand their partial sums, in the product's dtype, to
+    ``comm.reduce_from_split``;
+  * the embedding gathers the rank's vocab rows (zero elsewhere) and sums
+    them over the ranks: exact, one row of the sum is not zero;
+  * logits stay split over vocab: the loss takes a split logsumexp, the
+    serving engine a split argmax.
+
+What is split is each leaf's resolved spec (``rules.spec_for``: a dim that
+does not divide, or an axis already used, runs replicated, as GSPMD runs
+it). Where ``kv_heads`` is replicated and ``heads`` split (GQA with fewer
+KV heads than ranks), a rank projects only the KV heads its own query heads
+read, from the replicated weights (whose gradients are summed over the
+ranks). The decode cache holds those local KV heads.
+
+The Mamba-2 mixer and the MoE FFN are not split: a model with either layer
+under a ``model`` axis above 1 raises a ValueError naming its ROADMAP item.
+Only the ``model`` entries of a spec are executed here; a leaf on ``data``
+(FSDP, ROADMAP Queue 1 item 19) is held whole.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Optional, Tuple
+
+import torch
+
+from repro_torch import tree
+from repro_torch.configs.base import ModelConfig, rules_for
+
+__all__ = ["AXIS", "TensorParallel", "tensor_parallel", "refuse_split", "local_params",
+           "wrap_like", "split_axes"]
+
+AXIS = "model"
+SSM_ITEM = "ROADMAP Queue 1 item 22"
+MOE_ITEM = "ROADMAP Queue 1 item 23"
+
+
+@dataclass(frozen=True)
+class TensorParallel:
+    """A rank's share of the model axis: its size and index, which weight
+    groups are split (from their resolved specs), the model-axis shardings
+    of the parameter tree."""
+
+    mesh: Any
+    size: int
+    rank: int
+    heads: bool         # wq over heads, attention wo over heads
+    kv: bool            # wk / wv over kv_heads
+    mlp: bool           # wi / wg over mlp, MLP wo over mlp
+    vocab: bool         # the embedding's rows and the LM head's columns
+    n_heads: int
+    n_kv_heads: int
+    shardings: Any      # NamedSharding tree, the model axis only
+
+    def copy(self, x: torch.Tensor) -> torch.Tensor:
+        """Identity forward, gradient summed over the ranks backward."""
+        from repro_torch.sharding import comm
+
+        return comm.copy_to_split(x, self.mesh, (AXIS,))
+
+    def reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum over the ranks forward, gradient handed on backward."""
+        from repro_torch.sharding import comm
+
+        return comm.reduce_from_split(x, self.mesh, (AXIS,))
+
+    @property
+    def heads_local(self) -> int:
+        return self.n_heads // self.size if self.heads else self.n_heads
+
+    def kv_range(self) -> Tuple[int, int]:
+        """The KV heads [lo, hi) this rank projects and caches: its block
+        when ``kv_heads`` is split, the ones its query heads read when only
+        ``heads`` is, all of them when neither is."""
+        if self.kv:
+            n = self.n_kv_heads // self.size
+            return self.rank * n, (self.rank + 1) * n
+        if not self.heads:
+            return 0, self.n_kv_heads
+        q_per_kv = self.n_heads // self.n_kv_heads
+        first = self.rank * self.heads_local
+        return first // q_per_kv, (first + self.heads_local - 1) // q_per_kv + 1
+
+    @property
+    def kv_local(self) -> int:
+        lo, hi = self.kv_range()
+        return hi - lo
+
+    def kv_index(self, device) -> Optional[torch.Tensor]:
+        """For each local query head, its KV head among the local ones;
+        None where the plain GQA repeat gives it (every KV head's queries
+        on this rank)."""
+        if self.kv or not self.heads:
+            return None
+        q_per_kv = self.n_heads // self.n_kv_heads
+        lo, _ = self.kv_range()
+        first = self.rank * self.heads_local
+        return torch.tensor([(first + i) // q_per_kv - lo for i in range(self.heads_local)],
+                            dtype=torch.long, device=device)
+
+    def vocab_offset(self, local_vocab: int) -> int:
+        return self.rank * local_vocab if self.vocab else 0
+
+
+def _dims(spec) -> Tuple[int, ...]:
+    return tuple(d for d, part in enumerate(spec) if part == AXIS)
+
+
+def refuse_split(cfg: ModelConfig, size: int) -> None:
+    """Raise the ValueError naming its ROADMAP item for a model whose
+    Mamba-2 or MoE layers a model axis of ``size`` > 1 would split."""
+    specs = cfg.layer_specs()
+    if any(s.mixer == "mamba" for s in specs):
+        raise ValueError(f"{cfg.name}: the Mamba-2 mixer is not split over a model axis of "
+                         f"{size} ({SSM_ITEM}); it is never run replicated there")
+    if any(s.ffn == "moe" for s in specs):
+        raise ValueError(f"{cfg.name}: the MoE FFN is not split over a model axis of {size} "
+                         f"({MOE_ITEM}); it is never run replicated there")
+
+
+def _plan(cfg: ModelConfig, mesh) -> TensorParallel:
+    from repro_torch.models.params import _attn_specs, _mlp_specs, model_specs
+    from repro_torch.sharding import rules as shr
+
+    sizes = shr.mesh_shape(mesh)
+    size = sizes[AXIS]
+    refuse_split(cfg, size)
+    rules = rules_for(cfg)
+    spec = lambda p: shr.only_axes(shr.spec_for(p.shape, p.axes, rules, mesh), (AXIS,))
+    split = {}
+    expected = {"wq": (1,), "wk": (1,), "wv": (1,), "attn_wo": (0,), "wi": (1,), "wg": (1,),
+                "mlp_wo": (0,), "embed": (0,), "lm_head": (1,)}
+    attn, mlp = _attn_specs(cfg), _mlp_specs(cfg, cfg.dense_ff)
+    leaves = {"wq": attn["wq"], "wk": attn["wk"], "wv": attn["wv"], "attn_wo": attn["wo"],
+              "wi": mlp["wi"], "wg": mlp["wg"], "mlp_wo": mlp["wo"]}
+    top = model_specs(cfg)
+    for name in ("embed", "lm_head"):
+        if name in top:
+            leaves[name] = top[name]
+    for name, p in leaves.items():
+        got = _dims(spec(p))
+        if got not in ((), expected[name]):
+            raise ValueError(f"{cfg.name}: {name} {p.shape} lies on '{AXIS}' at dims {got}; "
+                             f"the tensor-parallel path splits only dims {expected[name]}")
+        split[name] = bool(got)
+    for a, b in (("wq", "attn_wo"), ("wk", "wv"), ("wi", "wg"), ("wi", "mlp_wo")):
+        if split[a] != split[b]:
+            raise ValueError(f"{cfg.name}: {a} and {b} are split differently over '{AXIS}'")
+    if split["wk"] and not split["wq"]:
+        raise ValueError(f"{cfg.name}: kv_heads split over '{AXIS}' but heads not")
+    vocab = [split[n] for n in ("embed", "lm_head") if n in split]
+    if len(set(vocab)) > 1:
+        raise ValueError(f"{cfg.name}: embed and lm_head are split differently over '{AXIS}'")
+    shardings = tree.map_tree(lambda p: shr.NamedSharding(mesh, spec(p)), top)
+    return TensorParallel(mesh=mesh, size=size, rank=shr.axis_index(mesh, AXIS),
+                          heads=split["wq"], kv=split["wk"], mlp=split["wi"],
+                          vocab=bool(vocab and vocab[0]), n_heads=cfg.n_heads,
+                          n_kv_heads=cfg.n_kv_heads, shardings=shardings)
+
+
+_PLANS: dict = {}
+
+
+def tensor_parallel(cfg: ModelConfig, mesh=None) -> Optional[TensorParallel]:
+    """The plan of ``cfg`` on ``mesh`` (the active mesh by default); None
+    where there is no mesh, or its ``model`` axis holds one rank. Raises
+    ValueError for a model whose Mamba-2 or MoE layers would have to split."""
+    from repro_torch.sharding import rules as shr
+
+    mesh = shr.active_mesh() if mesh is None else mesh
+    if mesh is None or shr.mesh_shape(mesh).get(AXIS, 1) == 1:
+        return None
+    key = (id(cfg), id(mesh))
+    hit = _PLANS.get(key)
+    if hit is None or hit[0] is not cfg or hit[1] is not mesh:
+        hit = _PLANS[key] = (cfg, mesh, _plan(cfg, mesh))
+    return hit[2]
+
+
+def local_params(cfg: ModelConfig, params, tp: TensorParallel):
+    """This rank's blocks of a parameter-shaped tree (parameters, AdamW
+    moments): a tree of DTensors placed as ``tp.shardings`` says or of
+    global tensors (``rules.local_tree``), or already this rank's blocks
+    (itself)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.models.params import model_specs
+    from repro_torch.sharding import rules as shr
+
+    leaves = tree.leaves(params)
+    local = [shr.local_shape(p.shape, sh)
+             for p, sh in zip(tree.leaves(model_specs(cfg)), tree.leaves(tp.shardings))]
+    if not any(isinstance(x, DTensor) for x in leaves) and all(
+            tuple(x.shape) == shape for x, shape in zip(leaves, local)):
+        return params
+    return shr.local_tree(params, tp.shardings)
+
+
+def split_axes(cfg: ModelConfig, tp: TensorParallel):
+    """Tree matching the parameters: ``AXIS`` for a leaf split over the
+    model axis (``rules.model_dims``), None for a replicated one
+    (``optim.adamw.global_norm``)."""
+    from repro_torch.sharding import rules as shr
+
+    return tree.map_tree(lambda d: None if d is None else AXIS, shr.model_dims(cfg, tp.mesh))
+
+
+def wrap_like(like, local, tp: TensorParallel):
+    """``local`` (this rank's blocks) as DTensors placed as ``tp.shardings``
+    where ``like`` holds DTensors; as they are otherwise."""
+    from torch.distributed.tensor import DTensor
+
+    if not any(isinstance(x, DTensor) for x in tree.leaves(like)):
+        return local
+    return tree.map_tree(lambda t, sh: DTensor.from_local(t, sh.mesh, sh.placements,
+                                                          run_check=False),
+                         local, tp.shardings)

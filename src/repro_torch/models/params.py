@@ -18,6 +18,12 @@ tree. ``init_params`` draws from a ``torch.Generator`` with the
 reference's scales and dtypes. The two packages' random streams differ (and the reference's
 per-leaf key hashes the leaf's path with a per-process salt), so equal
 parameters come from the converter, never from equal seeds.
+
+With ``shardings`` (``sharding.rules.param_shardings``) both give each
+rank its block only: ``init_params`` draws every leaf's global values from
+the generator, one leaf at a time, and keeps the rank's block as a DTensor
+(the same values on every rank, without the whole tree on any);
+``abstract_params`` gives stand-ins of the block's shape.
 """
 from __future__ import annotations
 
@@ -148,31 +154,56 @@ def model_specs(cfg: ModelConfig) -> Dict[str, Any]:
     return out
 
 
-def init_params(cfg: ModelConfig, generator: torch.Generator, device=None):
+def init_params(cfg: ModelConfig, generator: torch.Generator, device=None, shardings=None):
     """Concrete init on the generator's device (or ``device``): normal(0, 1)
-    in f32 times the spec's scale, then cast, as the reference does."""
+    in f32 times the spec's scale, then cast, as the reference does. With
+    ``shardings`` (a NamedSharding tree) each leaf is the DTensor of the
+    rank's block of those values."""
+    from repro_torch.sharding import rules as shr
+
     device = generator.device if device is None else torch.device(device)
 
-    def leaf(p: ParamSpec):
+    def leaf(p: ParamSpec, sh=None):
         dt = torch_dtype(p.dtype or cfg.param_dtype)
         if p.init == "zeros":
-            return torch.zeros(p.shape, dtype=dt, device=device)
-        if p.init == "ones":
-            return torch.ones(p.shape, dtype=dt, device=device)
-        scale = p.scale if p.scale is not None else 1.0 / np.sqrt(p.shape[0])
-        x = torch.randn(p.shape, generator=generator, dtype=torch.float32,
-                        device=generator.device)
-        return (x * np.float32(scale)).to(device=device, dtype=dt)
+            x = torch.zeros(p.shape, dtype=dt, device=device)
+        elif p.init == "ones":
+            x = torch.ones(p.shape, dtype=dt, device=device)
+        else:
+            scale = p.scale if p.scale is not None else 1.0 / np.sqrt(p.shape[0])
+            x = torch.randn(p.shape, generator=generator, dtype=torch.float32,
+                            device=generator.device)
+            x = (x * np.float32(scale)).to(device=device, dtype=dt)
+        if sh is None:
+            return x
+        # The block alone stays: a copy, so the global draw is freed.
+        return _dtensor(shr.local_block(x, sh).clone(), sh)
 
-    return tree.map_tree(leaf, model_specs(cfg))
+    if shardings is None:
+        return tree.map_tree(leaf, model_specs(cfg))
+    return tree.map_tree(leaf, model_specs(cfg), shardings)
 
 
-def abstract_params(cfg: ModelConfig, device=None, fake_mode=None):
+def _dtensor(block: torch.Tensor, sh):
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(block, sh.mesh, sh.placements, run_check=False)
+
+
+def abstract_params(cfg: ModelConfig, device=None, fake_mode=None, shardings=None):
     """The parameter tree as stand-ins that allocate nothing
     (:func:`repro_torch.tree.abstract`): ``meta`` tensors, or ``fake_mode``'s
-    fake tensors on ``device``."""
-    return tree.map_tree(lambda p: tree.abstract(p.shape, torch_dtype(p.dtype or cfg.param_dtype),
-                                                 device, fake_mode), model_specs(cfg))
+    fake tensors on ``device``; with ``shardings``, of the shape of one
+    rank's block."""
+    from repro_torch.sharding import rules as shr
+
+    def leaf(p: ParamSpec, sh=None):
+        shape = p.shape if sh is None else shr.local_shape(p.shape, sh)
+        return tree.abstract(shape, torch_dtype(p.dtype or cfg.param_dtype), device, fake_mode)
+
+    if shardings is None:
+        return tree.map_tree(leaf, model_specs(cfg))
+    return tree.map_tree(leaf, model_specs(cfg), shardings)
 
 
 def logical_axes(cfg: ModelConfig):

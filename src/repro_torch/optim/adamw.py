@@ -15,6 +15,12 @@ tensor divided by a Python number is a multiply by its reciprocal; square
 roots are correctly rounded (:func:`sqrt_f32`). The
 state mirrors the parameter tree, leaf for leaf, and ``update`` returns new
 tensors (the reference's functional update; nothing is written in place).
+
+On a tensor-parallel rank (``train/step.py``) the trees are the rank's
+blocks and ``split`` says which leaves are split over which mesh axes: the
+global norm sums a split leaf's squares over those ranks and counts a
+replicated leaf once, so every rank clips by the same factor; the rest is
+elementwise, one reciprocal launch per local block.
 """
 from __future__ import annotations
 
@@ -50,9 +56,20 @@ class AdamWState(NamedTuple):
     v: Any
 
 
+def _zeros_like(p, dt):
+    """Zeros of ``p``'s shape on its device; for a DTensor, a DTensor of zero
+    blocks placed alike."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(p, DTensor):
+        return DTensor.from_local(torch.zeros(p.to_local().shape, dtype=dt, device=p.device),
+                                  p.device_mesh, p.placements, run_check=False)
+    return torch.zeros(p.shape, dtype=dt, device=p.device)
+
+
 def init(params, cfg: AdamWConfig) -> AdamWState:
     dt = getattr(torch, cfg.state_dtype)
-    zeros = lambda p: torch.zeros(p.shape, dtype=dt, device=p.device)
+    zeros = lambda p: _zeros_like(p, dt)
     device = tree.leaves(params)[0].device
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=device),
                       m=tree.map_tree(zeros, params), v=tree.map_tree(zeros, params))
@@ -79,9 +96,24 @@ def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x.to(torch.float64)).to(F32)
 
 
-def global_norm(grads) -> torch.Tensor:
-    """sqrt of the sum of the per-leaf sums of squares, in f32."""
+def global_norm(grads, split=None) -> torch.Tensor:
+    """sqrt of the sum of the per-leaf sums of squares, in f32. ``split``
+    (a tree matching ``grads``: the mesh axis each leaf is split over, None
+    for none) makes ``grads`` a rank's blocks on the active mesh: a split
+    leaf's sum is summed over its ranks (one all-reduce per axis), a
+    replicated leaf's is its own; every rank gets the same bits."""
     sums = [torch.sum(torch.square(g.to(F32))) for g in tree.leaves(grads)]
+    if split is not None:
+        from repro_torch.sharding import comm
+        from repro_torch.sharding import rules as shr
+
+        axes = tree.leaves(split)
+        for axis in sorted({a for a in axes if a is not None}):
+            idx = [i for i, a in enumerate(axes) if a == axis]
+            total = comm.all_reduce(torch.stack([sums[i] for i in idx]), shr.active_mesh(),
+                                    (axis,))
+            for j, i in enumerate(idx):
+                sums[i] = total[j]
     return sqrt_f32(torch.sum(torch.stack(sums)))
 
 
@@ -96,10 +128,10 @@ def bias_corrections(step: torch.Tensor, cfg: AdamWConfig):
 
 
 @torch.no_grad()
-def update(grads, state: AdamWState, params, cfg: AdamWConfig, lr_scale=1.0):
-    """Returns (new_params, new_state)."""
+def update(grads, state: AdamWState, params, cfg: AdamWConfig, lr_scale=1.0, split=None):
+    """Returns (new_params, new_state). ``split``: as :func:`global_norm`'s."""
     step = state.step + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, split)
     clip = torch.clamp(torch.div(torch.tensor(cfg.grad_clip, dtype=F32, device=gnorm.device),
                                  gnorm + 1e-9), max=1.0)
     c1, c2 = bias_corrections(step, cfg)

@@ -25,6 +25,13 @@ configs from ``enc_embeds`` plus token prompts, through
 ``generate_batch`` / ``generate``; ``serve()`` refuses both, as the
 reference does.
 
+Under an active mesh with a ``model`` axis above 1
+(``sharding.rules.use_mesh``) the engine runs the tensor-parallel model
+(``models/parallel.py``): each rank holds its vocab block of the logits
+and its KV heads of the cache, and the greedy choice is a split argmax
+(the largest logit over the ranks, on ties the lowest vocab index, as
+``torch.argmax`` takes it).
+
 ``ServingEngine.serve`` is the continuous-batching loop: admit a request
 into a free slot (single-row prefill + cache row insert), decode all active
 slots in lockstep, release on EOS / ``max_new``, refill from the queue. The
@@ -43,8 +50,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.division_modes import DivisionConfig
 from repro_torch.models import forward, make_cache
 from repro_torch.models.model import group_layers
+from repro_torch.models.parallel import AXIS, local_params, tensor_parallel
 
-__all__ = ["alignment", "prefill", "decode_step", "pad_cache_to", "Request",
+__all__ = ["alignment", "prefill", "decode_step", "pad_cache_to", "greedy", "Request",
            "ServingEngine"]
 
 
@@ -114,6 +122,26 @@ def pad_cache_to(cache, from_len: int, to_len: int, cfg: ModelConfig):
     return {"groups": new_groups}
 
 
+def greedy(logits, tp=None) -> torch.Tensor:
+    """The greedy tokens (B, 1) int32 of ``logits`` (B, V): ``torch.argmax``,
+    or over a vocab split (``tp``) the largest of the ranks' maxima, the
+    lowest global index on ties (each rank's first maximum, the first
+    rank's among equal ones)."""
+    if tp is None or not tp.vocab:
+        return torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+    from repro_torch.sharding import comm
+
+    idx = torch.argmax(logits, dim=-1)
+    val = torch.gather(logits, -1, idx[:, None])[:, 0]
+    glob = idx + tp.vocab_offset(logits.shape[-1])
+    # f32 values and int indices below 2^53 are exact in f64: one gather.
+    pairs = comm.all_gather(torch.stack([val.to(torch.float64), glob.to(torch.float64)])[None],
+                            tp.mesh, (AXIS,))                              # (ranks, 2, B)
+    best = torch.argmax(pairs[:, 0], dim=0)                             # first rank of the max
+    return pairs[best, 1, torch.arange(pairs.shape[2], device=pairs.device)].to(
+        torch.int32)[:, None]
+
+
 def _insert_cache_row(cache, row, slot: int, cfg: ModelConfig):
     """Write single-request cache ``row`` (batch 1) into batch slot ``slot``,
     in place (the batch axis is 0 in every leaf: layers are not stacked).
@@ -154,19 +182,30 @@ class ServingEngine:
         self.max_len = max_len
         self.eos_id = eos_id
         self.device = params["embed"].device
+        self._local = None      # (plan, the rank's blocks of params)
+
+    def _params(self):
+        """The parameters as the model reads them: under a tensor-parallel
+        plan the rank's blocks, taken once per plan."""
+        tp = tensor_parallel(self.cfg)
+        if tp is None:
+            return self.params
+        if self._local is None or self._local[0] is not tp:
+            self._local = (tp, local_params(self.cfg, self.params, tp))
+        return self._local[1]
 
     def _prefill_tok(self, tokens, lengths):
-        return prefill(self.cfg, self.params, tokens, lengths=lengths)
+        return prefill(self.cfg, self._params(), tokens, lengths=lengths)
 
     def _prefill_emb(self, embeds, lengths):
-        return prefill(self.cfg, self.params, None, embeds=embeds, lengths=lengths)
+        return prefill(self.cfg, self._params(), None, embeds=embeds, lengths=lengths)
 
     def _prefill_enc(self, tokens, enc_embeds, lengths):
-        return prefill(self.cfg, self.params, tokens, enc_embeds=enc_embeds,
+        return prefill(self.cfg, self._params(), tokens, enc_embeds=enc_embeds,
                        lengths=lengths)
 
     def _decode(self, cache, tokens, pos):
-        return decode_step(self.cfg, self.params, cache, tokens, pos)
+        return decode_step(self.cfg, self._params(), cache, tokens, pos)
 
     @property
     def _align(self) -> int:
@@ -182,9 +221,8 @@ class ServingEngine:
                 f"prompt ({s_max}) + max_new ({max_new}) needs {need} cache "
                 f"slots but max_len is {self.max_len}")
 
-    @staticmethod
-    def _argmax(logits) -> torch.Tensor:
-        return torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+    def _argmax(self, logits) -> torch.Tensor:
+        return greedy(logits, tensor_parallel(self.cfg))
 
     # ----------------------------------------------------------- static batch
 
@@ -302,7 +340,7 @@ class ServingEngine:
             last, row = self._prefill_tok(toks.to(self.device), [s])
             row = pad_cache_to(row, pad_to, self.max_len, cfg)
             _insert_cache_row(cache, row, slot, cfg)
-            cur[slot, 0] = int(torch.argmax(last[0]))
+            cur[slot, 0] = int(self._argmax(last[:1])[0, 0])
             pos_v[slot] = s
             active[slot] = req
 

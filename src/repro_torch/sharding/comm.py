@@ -12,6 +12,16 @@ given; every rank ends with the same bits. :func:`all_gather` concatenates
 the ranks' blocks in mesh order, the first axis major (pod-major over
 ('pod', 'data'), as JAX orders a dim split over both).
 
+The tensor-parallel blocks over the ``model`` axis use two conjugate
+operators that autograd differentiates (Megatron-LM's f and g):
+:func:`copy_to_split` (identity forward, sum of the gradients backward) at
+the input of a column-split product, whose ranks each see part of the
+input's gradient, and :func:`reduce_from_split` (sum forward, identity
+backward) at the output of a row-split product, whose ranks each hold a
+partial sum. :func:`all_reduce_sum_grad` sums both ways: right for a value
+that every rank's loss reads in full (MoE's aux), wrong for these two, where
+it would scale the gradients by the number of ranks.
+
 :func:`record` lists the collectives issued inside a block, one entry per
 process-group call: the op, the bytes of its result and the ranks of its
 group. ``launch/roofline.py`` ``tally_collectives`` turns the list into
@@ -26,7 +36,8 @@ import torch
 
 from .rules import mesh_shape
 
-__all__ = ["all_reduce", "all_gather", "all_reduce_sum_grad", "record"]
+__all__ = ["all_reduce", "all_gather", "all_reduce_sum_grad", "copy_to_split",
+           "reduce_from_split", "record"]
 
 _RECORD: Optional[List[dict]] = None
 
@@ -74,19 +85,19 @@ def all_reduce(t: torch.Tensor, mesh, axes: Sequence[str], op: str = "sum") -> t
     return buf.to(t.device)
 
 
-def all_gather(t: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
-    """Every rank's ``t`` along ``axes``, concatenated on dim 0 in mesh
+def all_gather(t: torch.Tensor, mesh, axes: Sequence[str], dim: int = 0) -> torch.Tensor:
+    """Every rank's ``t`` along ``axes``, concatenated on ``dim`` in mesh
     order (the first axis major)."""
     import torch.distributed as dist
 
-    buf = t.detach().to("cpu", copy=True).contiguous()
+    buf = t.detach().to("cpu", copy=True).movedim(dim, 0).contiguous()
     for ax in reversed(_live(mesh, axes)):
         group = mesh.get_group(ax)
         parts = [torch.empty_like(buf) for _ in range(dist.get_world_size(group))]
         dist.all_gather(parts, buf, group=group)
         buf = torch.cat(parts, 0)
         _note("all-gather", buf, group)
-    return buf.to(t.device)
+    return buf.movedim(0, dim).to(t.device)
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -106,3 +117,45 @@ def all_reduce_sum_grad(t: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Ten
     """:func:`all_reduce` (sum) that autograd differentiates: the backward
     pass sums the output's gradient over the same ranks."""
     return _AllReduceSum.apply(t, mesh, tuple(axes))
+
+
+class _CopyToSplit(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        # Each rank's split product saw its own columns: the input's
+        # gradient is the sum of the ranks' parts.
+        return all_reduce(g, ctx.mesh, ctx.axes), None, None
+
+
+class _ReduceFromSplit(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axes):
+        return all_reduce(t, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        # Every rank reads the whole sum with the same gradient, and each
+        # partial sum enters it once.
+        return g, None, None
+
+
+def copy_to_split(t: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
+    """``t`` unchanged; the backward pass sums its gradient over the ranks
+    along ``axes`` (the input of a column-split product)."""
+    if not _live(mesh, axes):
+        return t
+    return _CopyToSplit.apply(t, mesh, tuple(axes))
+
+
+def reduce_from_split(t: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
+    """The sum of the ranks' ``t`` along ``axes``, in ``t``'s dtype; the
+    backward pass hands the gradient on unchanged (the output of a
+    row-split product)."""
+    if not _live(mesh, axes):
+        return t
+    return _ReduceFromSplit.apply(t, mesh, tuple(axes))

@@ -21,6 +21,12 @@ dim d is split over, ``Replicate()`` elsewhere; a dim split over ('pod',
 sizes takes a ``DeviceMesh`` or any object whose ``.shape`` maps axis
 names to sizes (a stand-in for a production mesh of 256 or 512 ranks).
 
+The tensor-parallel path reads :func:`model_dims` (which dim of each leaf
+lies on ``model``, from the resolved spec), :func:`axis_index` (this rank's
+place on an axis) and :func:`local_tree` (this rank's blocks of a tree of
+DTensors, or of a global tree that is the same on every rank);
+:func:`global_tensor` gathers a DTensor's global value (checkpoints).
+
 The active mesh (:func:`use_mesh`, :func:`suspend_mesh`,
 :func:`active_mesh`) is what the launcher registers; the kernels' mesh
 dispatch (``kernels/ops.py``), the sharded workloads, MoE's local dispatch
@@ -41,7 +47,8 @@ __all__ = ["mesh_shape", "spec_for", "placements", "NamedSharding",
            "use_mesh", "suspend_mesh", "active_mesh", "shard_dim",
            "axes_size", "local_offset", "local_block", "batch_sharding", "batch_local",
            "same_placements",
-           "distribute"]
+           "distribute", "axis_index", "only_axes", "local_shape", "model_dims", "local_tree",
+           "global_tensor"]
 
 Spec = Tuple[Optional[object], ...]
 
@@ -141,6 +148,47 @@ def param_shardings(cfg, mesh):
     rules = rules_for(cfg)
     return tree.map_tree(lambda p: NamedSharding(mesh, spec_for(p.shape, p.axes, rules, mesh)),
                          model_specs(cfg))
+
+
+def only_axes(spec: Spec, axes) -> Spec:
+    """``spec`` with every mesh axis outside ``axes`` replicated."""
+    out = []
+    for part in spec:
+        kept = tuple(ax for ax in (part if isinstance(part, tuple) else (part,))
+                     if ax is not None and ax in axes)
+        out.append(None if not kept else kept[0] if len(kept) == 1 else kept)
+    return tuple(out)
+
+
+def model_dims(cfg, mesh, axis: str = "model"):
+    """Tree matching the parameter tree: the dim of each leaf that lies on
+    ``axis`` in its resolved spec (after the divisibility and duplicate
+    drops), None for a leaf replicated over ``axis``. The duplicate drop
+    puts an axis on at most one dim of a leaf."""
+    from repro_torch import tree
+
+    def dim(sh):
+        dims = [d for d, part in enumerate(sh.spec)
+                if axis in (part if isinstance(part, tuple) else (part,))]
+        return dims[0] if dims else None
+
+    return tree.map_tree(dim, param_shardings(cfg, mesh))
+
+
+def local_shape(shape, sharding: NamedSharding) -> Tuple[int, ...]:
+    """The shape of one rank's block of a tensor of ``shape``."""
+    sizes = mesh_shape(sharding.mesh)
+    out = list(shape)
+    for dim, part in enumerate(sharding.spec):
+        for ax in (part if isinstance(part, tuple) else (part,)):
+            if ax is not None:
+                out[dim] //= sizes[ax]
+    return tuple(out)
+
+
+def axis_index(mesh, axis: str) -> int:
+    """This rank's coordinate along ``axis`` of ``mesh``."""
+    return dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))[axis]
 
 
 def param_fallbacks(cfg, mesh) -> list:
@@ -272,6 +320,38 @@ def batch_local(x, sharding: NamedSharding) -> torch.Tensor:
                              f"{sharding.mesh} is wanted")
         return x.to_local()
     return local_block(x, sharding)
+
+
+def local_tree(t, shardings):
+    """This rank's block of every leaf of ``t`` under the matching
+    :class:`NamedSharding` of ``shardings``: a DTensor so placed gives its
+    ``to_local()``, a plain tensor (the global value, the same on every
+    rank) its block, a view (:func:`batch_local`). Raises ValueError for a
+    DTensor placed otherwise."""
+    from repro_torch import tree
+
+    return tree.map_tree(lambda x, sh: batch_local(x, sh), t, shardings)
+
+
+def global_tensor(x) -> torch.Tensor:
+    """The global value of ``x`` on every rank: a DTensor's blocks gathered
+    through ``sharding/comm.py`` (host copies, recorded), a plain tensor
+    itself."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    from . import comm
+
+    if not isinstance(x, DTensor):
+        return x
+    t = x.to_local()
+    names = _mesh_axes(x.device_mesh)
+    # The innermost mesh axis of a dim first, so a dim split over several
+    # axes comes back in mesh order (the first axis major).
+    for i in reversed(range(len(names))):
+        pl = x.placements[i]
+        if isinstance(pl, Shard) and mesh_shape(x.device_mesh)[names[i]] > 1:
+            t = comm.all_gather(t, x.device_mesh, [names[i]], dim=pl.dim)
+    return t
 
 
 def distribute(t: torch.Tensor, sharding: NamedSharding):

@@ -9,7 +9,11 @@ first, dict keys sorted, list and named-tuple entries in order (a
 ``TrainState`` is params, then the AdamW step, m and v, then the step).
 
 * ``save`` copies every leaf to the host before it writes, so a later
-  in-place change of the tensors cannot reach the files; it writes into
+  in-place change of the tensors cannot reach the files. A DTensor leaf
+  (a tensor-parallel state) is written as its global value: every rank of
+  its mesh calls ``save``, the blocks are gathered
+  (``rules.global_tensor``), rank 0 of the process group writes, and all
+  return once the checkpoint is whole. It writes into
   ``<dir>.tmp``, fsyncs each file, writes the ``COMPLETE`` marker last and
   then ``os.replace``s the directory into place: a checkpoint exists whole
   or not at all. It keeps the newest ``keep``.
@@ -61,13 +65,26 @@ def _write(name: str, write) -> None:
 
 
 def save(path: str, step: int, state: Any, keep: int = 3) -> str:
-    """Write checkpoint ``step`` of ``state`` under ``path``; returns its dir."""
+    """Write checkpoint ``step`` of ``state`` under ``path``; returns its dir.
+    With DTensor leaves every rank calls it; one writes the global values."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.sharding import rules as shr
+
     final = _dir(path, step)
+    leaves = tree.leaves(state)
+    placed = any(isinstance(t, DTensor) for t in leaves)
+    if placed:
+        import torch.distributed as dist
+
+        leaves = [shr.global_tensor(t) for t in leaves]
+        if dist.get_rank() != 0:
+            dist.barrier()
+            return final
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
-    leaves = tree.leaves(state)
     arrays = {f"leaf_{i}": _raw_bytes(t) for i, t in enumerate(leaves)}
     meta = {"step": int(step), "n_leaves": len(leaves),
             "dtypes": [str(t.dtype).removeprefix("torch.") for t in leaves],
@@ -80,6 +97,8 @@ def save(path: str, step: int, state: Any, keep: int = 3) -> str:
         shutil.rmtree(final)
     os.replace(tmp, final)
     _gc(path, keep)
+    if placed:
+        dist.barrier()
     return final
 
 

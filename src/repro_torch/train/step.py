@@ -20,8 +20,18 @@ of the sum, times 1/n, as the reference's ``inv``) and over
 error feedback). Every rank then holds the same gradients, runs the same
 AdamW (its ``tsdiv_recip`` per leaf) and keeps the same replicated
 parameters. The reported loss and metrics are meaned over the batch axes:
-the global batch's, as the reference's. Parameters are not sharded over
-the ``model`` axis here (ROADMAP).
+the global batch's, as the reference's.
+
+Under a mesh whose ``model`` axis holds more than one rank the step is
+tensor parallel too (``models/parallel.py``): each rank takes its blocks of
+the parameters and moments (DTensors, the global tree or its own blocks),
+the model runs split over ``model``, the loss is a vocab-split logsumexp
+with each label's logit taken from the rank that holds it, and the batch,
+the gradients' mean and the loss's mean go over the data axes only. AdamW
+runs on the rank's blocks, with the gradients' global norm summed over the
+ranks for a split leaf and counted once for a replicated one, so every
+rank gets the same clip factor. The new state is DTensors where the
+parameters came as DTensors, the rank's blocks otherwise.
 """
 from __future__ import annotations
 
@@ -32,6 +42,8 @@ import torch
 from repro_torch import tree
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import forward
+from repro_torch.models.parallel import (AXIS, local_params, split_axes, tensor_parallel,
+                                         wrap_like)
 from repro_torch.optim import adamw
 
 __all__ = ["TrainState", "init_state", "abstract_state", "cross_entropy", "loss_fn",
@@ -59,10 +71,25 @@ def abstract_state(cfg: ModelConfig, params_abstract,
     return TrainState(params=params_abstract, opt=opt, step=tree.abstract_like(opt.step))
 
 
-def cross_entropy(logits, labels):
-    """Mean CE. logits f32 (B, S, V); labels (B, S) ints."""
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+def cross_entropy(logits, labels, tp=None):
+    """Mean CE. logits f32 (B, S, V); labels (B, S) ints. Under a vocab
+    split (``tp``) ``logits`` is the rank's block: the logsumexp shifts by
+    the maximum over the ranks (no gradient: the shift cancels), sums its
+    exponentials over them, and each label's logit comes from its owner."""
+    if tp is None or not tp.vocab:
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+        return torch.mean(lse - ll)
+    from repro_torch.sharding import comm
+
+    n = logits.shape[-1]
+    top = comm.all_reduce(logits.detach().amax(dim=-1), tp.mesh, (AXIS,), op="max")
+    sum_exp = tp.reduce(torch.sum(torch.exp(logits - top[..., None]), dim=-1))
+    lse = top + torch.log(sum_exp)
+    local = labels.long() - tp.vocab_offset(n)
+    mine = (local >= 0) & (local < n)
+    ll = torch.gather(logits, -1, torch.where(mine, local, 0)[..., None])[..., 0]
+    ll = tp.reduce(torch.where(mine, ll, torch.zeros((), dtype=ll.dtype, device=ll.device)))
     return torch.mean(lse - ll)
 
 
@@ -78,7 +105,7 @@ def loss_fn(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]):
     else:
         kw["tokens"] = batch["tokens"]
     logits, _, aux = forward(cfg, params, mode="train", **kw)
-    ce = cross_entropy(logits, batch["labels"])
+    ce = cross_entropy(logits, batch["labels"], tensor_parallel(cfg))
     return ce + aux, {"ce": ce, "aux": aux}
 
 
@@ -147,6 +174,19 @@ def train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, state: TrainState,
     if compress_axis is not None and mesh is None:
         raise ValueError(f"train_step(compress_axis={compress_axis!r}) needs an active mesh "
                          "with that axis (sharding.rules.use_mesh); there is none")
+    tp = tensor_parallel(cfg)
+    if tp is not None and compress_axis is not None:
+        raise ValueError(f"train_step(compress_axis={compress_axis!r}) under a model axis of "
+                         f"{tp.size}: the int8 mean takes one scale per tensor of the "
+                         "reference's layout, which a split leaf does not hold "
+                         "(ROADMAP Queue 1 item 18)")
+    like = state.params
+    if tp is not None:
+        state = TrainState(params=local_params(cfg, state.params, tp),
+                           opt=adamw.AdamWState(step=state.opt.step,
+                                                m=local_params(cfg, state.opt.m, tp),
+                                                v=local_params(cfg, state.opt.v, tp)),
+                           step=state.step)
     axes: tuple = ()
     if mesh is not None:
         size = next(iter(batch.values())).shape[0]
@@ -163,7 +203,13 @@ def train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, state: TrainState,
             grads, new_err = compress.psum_compressed(grads, err_tree, compress_axis)
         loss = _mean_over(loss, mesh, axes)
         metrics = {k: _mean_over(v, mesh, axes) for k, v in metrics.items()}
-    new_params, new_opt = adamw.update(grads, state.opt, state.params, opt_cfg, lr_scale)
+    split = None if tp is None else split_axes(cfg, tp)
+    new_params, new_opt = adamw.update(grads, state.opt, state.params, opt_cfg, lr_scale,
+                                       split=split)
+    if tp is not None:
+        new_params = wrap_like(like, new_params, tp)
+        new_opt = adamw.AdamWState(step=new_opt.step, m=wrap_like(like, new_opt.m, tp),
+                                   v=wrap_like(like, new_opt.v, tp))
     new_state = TrainState(params=new_params, opt=new_opt, step=state.step + 1)
     metrics = dict(metrics, loss=loss, step=state.step)
     if compress_axis is not None:

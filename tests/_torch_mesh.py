@@ -234,3 +234,119 @@ def cuda_dispatch_rank(rank: int, a: torch.Tensor, b: torch.Tensor) -> dict:
     out["pid"] = os.getpid()
     del out["local"]
     return out
+
+
+# ------------------------------------------------ tensor parallelism (model axis)
+
+def _pair_meshes(rank: int):
+    """The two (data 1, model 2) meshes of ranks {0, 1} and {2, 3}, every
+    rank building both (a mesh's groups are made by every rank of the
+    process group); returns this rank's and its pair's index."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    pairs = [DeviceMesh("cpu", torch.tensor([[2 * p, 2 * p + 1]]),
+                        mesh_dim_names=("data", "model")) for p in range(2)]
+    return pairs[rank // 2], rank // 2
+
+
+def _tp_forward(c: dict) -> dict:
+    """A case's forward under the active mesh: train and prefill logits, then
+    the decode steps from the prefill's cache; the rank's vocab blocks."""
+    from repro_torch.models import forward
+    from repro_torch.serving import pad_cache_to
+
+    cfg, params, kw = c["cfg"], c["params"], c["kw"]
+    with torch.no_grad():
+        train, _, _ = forward(cfg, params, mode="train", **kw)
+        prefill, cache, _ = forward(cfg, params, mode="prefill", **kw)
+        s = c["prompt_len"]
+        cache = pad_cache_to(cache, s, s + len(c["decode"]), cfg)
+        steps = []
+        for t, tok in enumerate(c["decode"]):
+            logits, cache, _ = forward(cfg, params, tokens=tok, cache=cache, pos=s + t,
+                                       mode="decode")
+            steps.append(logits)
+    kv_heads = {lc["attn"]["k"].shape[2] for g in cache["groups"] for lc in g["layers"]}
+    return {"train": train, "prefill": prefill, "decode": steps, "cache_kv_heads": kv_heads}
+
+
+def _tp_generate(c: dict) -> dict:
+    from repro_torch.serving import Request, ServingEngine
+
+    eng = ServingEngine(c["cfg"], c["params"], max_len=64)
+    out = {"batch": eng.generate_batch(c["prompts"], c["max_new"], **c["hand"])}
+    if c.get("serve"):
+        reqs = [Request(list(p), max_new=c["max_new"]) for p in c["prompts"]]
+        out["serve"] = [r.out for r in eng.serve(reqs, slots=2)]
+    return out
+
+
+def _tp_train(cfg, opt_cfg, params, batch, mesh, n_micro: int, ckpt_dir=None) -> dict:
+    """One train step on ``mesh`` from DTensor parameters cut from the
+    global tree: the rank's new blocks, the loss; with ``ckpt_dir`` the new
+    state saved there (every rank calls save)."""
+    from repro_torch import tree
+    from repro_torch.sharding import rules as shr
+    from repro_torch.train import checkpoint, step
+
+    sh = shr.param_shardings(cfg, mesh)
+    placed = tree.map_tree(shr.distribute, params, sh)
+    state = step.init_state(cfg, placed, opt_cfg)
+    with shr.use_mesh(mesh):
+        new, metrics = step.train_step(cfg, opt_cfg, state, batch, n_micro=n_micro)
+    local = lambda t: [v.to_local().detach().clone() for v in tree.leaves(t)]
+    out = {"loss": float(metrics["loss"]), "params": local(new.params), "m": local(new.opt.m),
+           "v": local(new.opt.v), "dtensors": all(hasattr(v, "placements")
+                                                   for v in tree.leaves(new.params))}
+    if ckpt_dir is not None:
+        checkpoint.save(ckpt_dir, 1, new)
+    return out
+
+
+def tp_rank(rank: int, inp: dict) -> dict:
+    """Every multi-rank check of tests/test_torch_tensor_parallel.py, on one
+    of 4 CPU ranks: the forward of each case on (1, 4), (2, 2) and the two
+    (1, 2) pairs (each pair takes every other case), greedy tokens on (1,
+    4), train steps on (2, 2) and (1, 4), the (2, 2) checkpoint, the
+    refusals, the cut draws."""
+    from repro_torch import convert, tree
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import forward, init_params
+    from repro_torch.sharding import rules as shr
+
+    m14 = make_mesh((1, 4), ("data", "model"), "cpu")
+    m22 = make_mesh((2, 2), ("data", "model"), "cpu")
+    pair, p = _pair_meshes(rank)
+    out = {"forward": {}, "generate": {}}
+    for i, (name, c) in enumerate(inp["cases"].items()):
+        meshes = [("1x4", m14), ("2x2", m22)] + ([("1x2", pair)] if i % 2 == p else [])
+        for mesh_name, mesh in meshes:
+            with shr.use_mesh(mesh):
+                out["forward"][name, mesh_name] = _tp_forward(c)
+        with shr.use_mesh(m14):
+            out["generate"][name] = _tp_generate(c)
+
+    t = inp["train"]
+    out["train"] = {"2x2": _tp_train(t["cfg"], t["opt_cfg"], t["params"], t["batch"], m22,
+                                     t["n_micro"], inp["ckpt_dir"]),
+                    "1x4": _tp_train(t["cfg14"], t["opt_cfg"], t["params14"], t["batch"], m14,
+                                     t["n_micro"])}
+
+    refusals = {}
+    for arch, (cfg, params, toks) in inp["refuse"].items():
+        try:
+            with shr.use_mesh(m22):
+                forward(cfg, params, tokens=toks)
+            refusals[arch] = ""
+        except ValueError as e:
+            refusals[arch] = str(e)
+    out["refusals"] = refusals
+
+    d = inp["draws"]
+    sh = shr.param_shardings(d["cfg"], m22)
+    drawn = init_params(d["cfg"], torch.Generator().manual_seed(d["seed"]), shardings=sh)
+    cut = convert.params_from_reference(d["reference"], d["cfg"], "cpu", shardings=sh)
+    out["draws"] = {"init": [v.to_local() for v in tree.leaves(drawn)],
+                    "convert": [v.to_local() for v in tree.leaves(cut)],
+                    "placements": [str(tuple(v.placements)) for v in tree.leaves(drawn)]}
+    return out

@@ -99,12 +99,15 @@ def test_dryrun_and_report_clis_on_one_cell(tmp_path):
 
 
 def test_dryrun_cli_refuses_a_model_axis(tmp_path):
-    r = _run(["-m", "repro_torch.launch.dryrun", "--arch", "whisper_tiny",
+    """A model axis of 16 under MoE layers: the cell fails naming the
+    ROADMAP item that would split the experts (the attention models run
+    it: test_torch_launch.py)."""
+    r = _run(["-m", "repro_torch.launch.dryrun", "--arch", "deepseek_moe_16b",
               "--shape", "decode_32k", "--mesh", "single", "--device", "cpu",
               "--out", str(tmp_path)])
     assert r.returncode != 0
-    assert "[FAIL] whisper_tiny_decode_32k_single" in r.stdout
-    assert "item 18" in r.stdout
+    assert "[FAIL] deepseek_moe_16b_decode_32k_single" in r.stdout
+    assert "item 23" in r.stdout
 
 
 # ----------------------------------------------------------- examples

@@ -362,10 +362,60 @@ def test_fake_inference_cells_trace_on_one_rank(kind):
 
 
 def test_a_model_axis_cell_raises_naming_item_18():
-    with pytest.raises(ValueError, match="item 18"):
-        dryrun.run_cell("llama3_8b", "train_4k", False)
+    """Since item 18 the attention models run a model axis (the test
+    below); a cell whose MoE or Mamba-2 layers it would split raises the
+    ValueError that names their ROADMAP item, before any process group
+    starts."""
+    with pytest.raises(ValueError, match="item 23"):
+        dryrun.run_cell("deepseek_moe_16b", "train_4k", False)
+    with pytest.raises(ValueError, match="item 22"):
+        dryrun.run_cell("mamba2_780m", "decode_32k", False, variant="tp4")
     assert dryrun.apply_variant(configs.get_config("llama3_8b"), "tp1+kernels")[0] \
         .division.mode == "taylor_pallas"
+
+
+def test_a_model_axis_cell_traces_the_tensor_parallel_step(tmp_path):
+    """llama3_8b train_4k on the single mesh at the default model = 16
+    (data 16; a fake process group of 256 ranks in a child), one
+    microbatch, in the kernel mode. Its all-reduces over the model axis
+    are what models/parallel.py issues: per layer 2 in the forward
+    (attention and MLP outputs), 1 in remat's recompute (which stops after
+    the attention's, the last tensor its backward reads), 4 in the
+    backward (attention and MLP inputs, and the replicated wk and wv: 8 kv
+    heads do not split 16 ways); then 1 at the embedding, 1 at the LM
+    head's input, 3 in the vocab-split loss and 1 in the global norm. Over
+    data: one gradient mean per leaf, and the loss and its two metrics.
+    The rank holds its blocks: 1/16 of the split leaves."""
+    out = tmp_path / "cell.json"
+    code = ("import json, sys; from repro_torch.launch import dryrun; "
+            "json.dump(dryrun.run_cell('llama3_8b', 'train_4k', False, variant='kernels', "
+            "n_micro=1, device='cpu'), open(sys.argv[1], 'w'))")
+    r = subprocess.run([sys.executable, "-c", code, str(out)], capture_output=True, text=True,
+                       timeout=600, cwd=ROOT,
+                       env={**os.environ, "PYTHONPATH": "src", "OMP_NUM_THREADS": "1"})
+    assert r.returncode == 0, r.stdout + r.stderr
+    cell = json.loads(out.read_text())
+    cfg = configs.get_config("llama3_8b")
+    n_leaves = len(tree.leaves(abstract_params(cfg)))
+    assert cell["devices"] == 256 and cell["param_layout"] == "model"
+    by_axis = cell["collectives"]["by_axis"]
+    assert by_axis["model"]["all-reduce"]["count"] == cfg.n_layers * (2 + 1 + 4) + 6
+    assert by_axis["data"]["all-reduce"]["count"] == n_leaves + 3
+    assert set(by_axis) == {"model", "data"}
+    assert cell["unit_calls"]["tsdiv_recip"] == n_leaves
+    mesh = FakeMesh({"data": 16, "model": 16})
+    from repro_torch.models.params import model_specs
+    from repro_torch.sharding import rules as shr
+
+    held = 0      # the rank's blocks of the parameters, m and v (f32)
+    for p, sh in zip(tree.leaves(model_specs(cfg)), tree.leaves(shr.param_shardings(cfg, mesh))):
+        n = int(np.prod(shr.local_shape(p.shape, sh)))
+        held += n * ((4 if p.dtype == "float32" else 2) + 4 + 4)
+    tokens = 2 * 256 * 4096 * 4                       # the global batch, int32
+    assert cell["memory"]["argument_bytes"] == held + 2 * 4 + tokens
+    assert cell["hbm_traffic_model"] == memmodel.hbm_traffic(
+        dryrun.replicated(dryrun.apply_variant(cfg, "kernels")[0]),
+        configs.LM_SHAPES["train_4k"], mesh, n_micro=1)
 
 
 def test_full_width_cell_traces_on_fake_tensors_without_allocating(tmp_path):
