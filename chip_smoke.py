@@ -174,6 +174,31 @@ source, in parallel), then runs, each phase printing one line:
                  every step, and one f32 step against the single-process
                  step (loss within 1e-5 relative, the state within
                  tests/test_torch_tensor_parallel.py's bounds);
+ 13e. ep       — (run third, after golden: its 4 ranks need most of the
+                 card) expert parallelism (models/moe.py over
+                 models/parallel.py's plan), 4 ranks sharing the card over
+                 gloo: deepseek_moe_16b
+                 at full width and depth on (data 2, model 2) in bf16, its
+                 64 experts on data (32 a rank) and expert_mlp on model
+                 (the ranks' blocks drawn from --seed): generate_batch over
+                 4 prompts of 1024 .. 256 tokens, 16 new each, 55 softmax /
+                 57 RMSNorm / 27 reciprocal launches a forward and rank,
+                 every call of one prefill and one decode step held bit for
+                 bit to its plain version on each rank; in f32 at 4 layers
+                 (capacity factor 8) the gate of test_decode_equiv against
+                 this process's unsharded run and serve() against
+                 generate_batch; then deepseek trained at full width cut to
+                 4 layers on (2, 2), its AdamW moments in bf16 (the four
+                 ranks' states share the card), the batch split over data
+                 (the expert exchange: all-to-all and all-gather over
+                 data), 3 steps, the launches a step from the code, every
+                 call of step 1 held to plain on rank 0, each leaf
+                 bit-equal on the ranks that hold the same block; one f32
+                 step at 2 layers against the single-process step (loss, m
+                 and v at the tp phase's bounds, the parameters where the
+                 gradient's sign is resolved, PERF.md §6); the
+                 collectives' share of the prefill, the decode steps and
+                 the train steps;
  14. ilm serve — paper_fpdiv at full width in mode="ilm", teacher-forced
                  against the exact twin in f32 (reported, not gated);
  15. times     — each kernel, its plain version and the torch yardstick: the
@@ -2291,7 +2316,7 @@ def phase_times_mesh(err: dict, launches: dict, mesh: dict) -> list:
 
 TP_ARCH = "llama3_8b"
 TP_SERVE_MESH = (1, 2)            # (data, model): llama3_8b served on 2 ranks
-TP_F32_DEPTH = 32                 # the f32 gate's depth: full (18.6 GiB a rank, PERF.md)
+TP_F32_DEPTH = 16                 # the f32 gate's depth (half of 32: the ep phase takes the time)
 TP_SERVE_LENS = (512, 384, 256, 128)   # f32 serve() against generate_batch
 TP_TRAIN_MESH = (2, 2)            # paper_fpdiv trained on 4 ranks
 TP_TRAIN_BATCH = 8                # x TRAIN_SEQ tokens a step: 4 a data rank, 2 microbatches
@@ -2333,10 +2358,13 @@ def tp_model(seed: int, mesh, param_dtype: str, **repl):
 
 
 class CollectiveClock:
-    """Seconds spent inside ``sharding.comm``'s all-reduce and all-gather
-    (each started after a synchronize, so the clock holds the collective's
-    host copies and gloo's exchange, not the work queued before it), and
-    their count and bytes, while the block runs."""
+    """Seconds spent inside ``sharding.comm``'s all-reduce, all-gather,
+    all-to-all and reduce-scatter (each started after a synchronize, so the
+    clock holds the collective's host copies and gloo's exchange, not the
+    work queued before it), and their count and bytes, while the block
+    runs."""
+
+    NAMES = ("all_reduce", "all_gather", "all_to_all", "reduce_scatter")
 
     def __init__(self):
         self.seconds, self.count, self.bytes = 0.0, 0, 0
@@ -2344,7 +2372,7 @@ class CollectiveClock:
     def __enter__(self):
         from repro_torch.sharding import comm
 
-        self.real = (comm.all_reduce, comm.all_gather)
+        self.real = tuple(getattr(comm, n) for n in self.NAMES)
 
         def clocked(real):
             def run(t, *a, **k):
@@ -2357,25 +2385,27 @@ class CollectiveClock:
                 return out
             return run
 
-        comm.all_reduce, comm.all_gather = (clocked(f) for f in self.real)
+        for n, f in zip(self.NAMES, self.real):
+            setattr(comm, n, clocked(f))
         return self
 
     def __exit__(self, *exc):
         from repro_torch.sharding import comm
 
-        comm.all_reduce, comm.all_gather = self.real
+        for n, f in zip(self.NAMES, self.real):
+            setattr(comm, n, f)
 
 
-def tp_timed(eng, prompts) -> dict:
-    """generate_batch over ``prompts`` (MODEL_NEW new tokens) after a
+def tp_timed(eng, prompts, new: int = MODEL_NEW) -> dict:
+    """generate_batch over ``prompts`` (``new`` new tokens) after a
     warm-up: tokens, launches, the prefill's and the decode steps' times
     (and the collectives' share of each), peak memory."""
-    from repro_torch.kernels import rmsnorm, softmax
+    from repro_torch.kernels import rmsnorm, softmax, tsdiv
 
     eng.generate_batch([prompts[-1][:16]], max_new=2)
     sync()
     torch.cuda.reset_peak_memory_stats()
-    for m in (softmax, rmsnorm):
+    for m in (softmax, rmsnorm, tsdiv):
         m.reset_launches()
     real, seen = eng._prefill_tok, {}
 
@@ -2392,16 +2422,17 @@ def tp_timed(eng, prompts) -> dict:
     t0 = time.perf_counter()
     try:
         with CollectiveClock() as clock:        # the prefill's are counted in both
-            toks = eng.generate_batch(prompts, max_new=MODEL_NEW)
+            toks = eng.generate_batch(prompts, max_new=new)
             sync()
     finally:
         del eng._prefill_tok     # the class's method again, and no cycle holding eng
     wall = time.perf_counter() - t0
     pre = seen["prefill"]
     decode_s = wall - seen["prefill_s"]
-    return {"tokens": toks, "launches": {**softmax.LAUNCHES, **rmsnorm.LAUNCHES},
+    counts = {k: v for m in (softmax, rmsnorm, tsdiv) for k, v in m.LAUNCHES.items() if v}
+    return {"tokens": toks, "launches": counts,
             "generate_batch_s": wall, "prefill_ms": seen["prefill_s"] * 1e3,
-            "decode_ms_per_step": decode_s * 1e3 / MODEL_NEW,
+            "decode_ms_per_step": decode_s * 1e3 / new,
             "prefill_collectives": {"count": pre.count, "bytes": pre.bytes,
                                     "seconds": pre.seconds,
                                     "share": pre.seconds / seen["prefill_s"]},
@@ -2764,6 +2795,425 @@ def phase_tp(seed: int, launches: dict, err: dict) -> dict:
     for k, tol in TP_STEP_RTOL.items():
         check(f32["worst_over_leaf_max"][k] <= tol,
               f"tp train f32: {k} off by {f32['worst_over_leaf_max'][k]} of the leaf's max")
+    return {"serve_s": serve_s, "train_s": train_s}
+
+
+# ---------------------------------------------------------------- the ep phase
+
+EP_ARCH = "deepseek_moe_16b"
+EP_MESH = (2, 2)                  # (data, model): experts on data, expert_mlp on model
+EP_LENS = (1024, 768, 512, 256)
+EP_NEW = 16
+EP_F32_DEPTH = 4                  # the f32 gate's depth: one dense, three MoE layers
+EP_TRAIN_DEPTH = 4                # AdamW's f32 moments of all 16.4 B would be 131 GB
+# The 4 ranks' train states share the one card: with f32 moments a rank of
+# the 4-layer cut peaks at ~20 GiB in AdamW (old and new state, the f32
+# gradients; the vocab blocks are held on both data rows), and 4 of them do
+# not fit in 79 GiB. bf16 moments (the reference's "optbf16" variant) halve
+# them; the f32 step at EP_F32_STEP_DEPTH keeps f32 moments.
+EP_TRAIN_OPT_DTYPE = "bfloat16"
+EP_F32_STEP_DEPTH = 2             # the f32 step beside the single-process one
+EP_TRAIN_BATCH, EP_TRAIN_SEQ = 4, 1024   # 2 rows a data rank, 1 a microbatch
+EP_TRAIN_MICRO, EP_TRAIN_STEPS = 2, 3
+EP_TIMEOUT_S = 900.0
+
+
+def ep_model(seed: int, mesh, param_dtype: str, **repl):
+    """EP_ARCH at full width from ``seed`` as model_setup draws it, the rank
+    keeping its blocks (``init_params(shardings=)``), in taylor_pallas, with
+    prompts of EP_LENS; with ``mesh`` None the whole model here."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.sharding import rules as shr
+
+    cfg = dataclasses.replace(get_config(EP_ARCH), param_dtype=param_dtype, **repl)
+    cfg = dataclasses.replace(cfg, division=dataclasses.replace(cfg.division,
+                                                                mode="taylor_pallas"))
+    sh = None if mesh is None else shr.param_shardings(cfg, mesh)
+    params = init_params(cfg, torch.Generator(device=DEVICE).manual_seed(seed), shardings=sh)
+    rng = np.random.default_rng(seed + 11)
+    prompts = [rng.integers(1, cfg.vocab, n).tolist() for n in EP_LENS]
+    return cfg, params, prompts
+
+
+def ep_want(seed: int) -> dict:
+    """This process's unsharded f32 run of EP_ARCH at EP_F32_DEPTH (capacity
+    factor MOE_GATE_CF): the greedy stream and its logits (replay)."""
+    from repro_torch.serving import ServingEngine
+
+    cfg, params, prompts = ep_model(seed, None, "float32", n_layers=EP_F32_DEPTH,
+                                    capacity_factor=MOE_GATE_CF)
+    torch.cuda.reset_peak_memory_stats()
+    eng = ServingEngine(cfg, params, max_len=cache_len(cfg, prompts, EP_NEW))
+    teacher, logits = replay(eng, prompts, EP_NEW)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del eng, params
+    logits = logits.cpu()
+    torch.cuda.empty_cache()
+    return {"teacher": teacher, "logits": logits, "f32_peak_gib": peak}
+
+
+def ep_serve_rank(rank: int, seed: int, teacher) -> dict:
+    """One rank of the ep phase's serving part on EP_MESH: bf16 at full
+    width (the timed generate_batch, every kernel call of one prefill and
+    one decode step held to its plain version), then f32 at EP_F32_DEPTH
+    (the replay under the unsharded run's teacher stream, generate_batch,
+    serve() with MODEL_SLOTS slots)."""
+    from repro_torch import tree
+    from repro_torch.serving import Request, ServingEngine
+    from repro_torch.sharding import rules as shr
+
+    mesh = tp_mesh(EP_MESH)
+    out = {}
+    t0 = time.perf_counter()
+    cfg, params, prompts = ep_model(seed, mesh, "bfloat16")
+    out["init_s"] = time.perf_counter() - t0
+    err = {"softmax_f32": 0.0, "rmsnorm_f32": 0.0, "tsdiv_recip": 0.0}
+    with shr.use_mesh(mesh):
+        eng = ServingEngine(cfg, params, max_len=cache_len(cfg, prompts, EP_NEW))
+        out["bf16"] = tp_timed(eng, prompts, EP_NEW)
+        t0 = time.perf_counter()
+        rows, _ = held_calls(eng, prompts, err, recip=True, keep=set())
+        out["held"] = {"rows": rows, "err": err, "seconds": time.perf_counter() - t0}
+    out["param_gib"] = sum(t.to_local().numel() * t.to_local().element_size()
+                           for t in tree.leaves(params)) / 2**30
+    del eng, params
+    torch.cuda.empty_cache()
+    cfg, params, prompts = ep_model(seed, mesh, "float32", n_layers=EP_F32_DEPTH,
+                                    capacity_factor=MOE_GATE_CF)
+    torch.cuda.reset_peak_memory_stats()
+    with shr.use_mesh(mesh):
+        eng = ServingEngine(cfg, params, max_len=cache_len(cfg, prompts, EP_NEW))
+        picks, logits = replay(eng, prompts, EP_NEW, teacher)
+        out["f32_picks"], out["f32_logits"] = picks, logits.cpu()
+        del logits
+        gb = eng.generate_batch(prompts, EP_NEW)
+        reqs = [Request(list(p), max_new=EP_NEW) for p in prompts]
+        t0 = time.perf_counter()
+        eng.serve(reqs, slots=MODEL_SLOTS)
+        out["f32_serve_s"] = time.perf_counter() - t0
+    out["f32_generate_batch"], out["f32_serve"] = gb, [r.out for r in reqs]
+    out["f32_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
+
+
+def ep_train_config(param_dtype: str, n_layers: int, **repl):
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(EP_ARCH), param_dtype=param_dtype, n_layers=n_layers,
+                              **repl)
+    return dataclasses.replace(cfg, division=dm_config("taylor_pallas"))
+
+
+def ep_train_launches(cfg, n_micro: int, n_leaves: int) -> dict:
+    """Launches per step and rank, from the code: per microbatch one softmax
+    per attention layer and per MoE layer (its router), two RMSNorms per
+    block plus the final one, one reciprocal per MoE layer (the top-k sums),
+    each block's again in the backward pass when ``cfg.remat``; one
+    reciprocal per parameter leaf in AdamW."""
+    runs = 1 + cfg.remat
+    n_moe = sum(s.ffn == "moe" for s in cfg.layer_specs())
+    return {"softmax_f32": n_micro * (cfg.n_layers + n_moe) * runs,
+            "rmsnorm_f32": n_micro * (2 * cfg.n_layers * runs + 1),
+            "tsdiv_recip": n_micro * n_moe * runs + n_leaves}
+
+
+def ep_train_rank(rank: int, seed: int) -> dict:
+    """One rank of the ep phase's training part on EP_MESH: EP_ARCH at full
+    width and EP_TRAIN_DEPTH layers, EP_TRAIN_STEPS steps in bf16 on
+    SyntheticLM batches split over data (launches, every kernel call of
+    the first step held to its plain version on rank 0, the leaves compared
+    across the ranks that hold the same block after every step), then one
+    f32 step at EP_F32_STEP_DEPTH from the same seed, its state gathered,
+    and on rank 0 the single-process step on the same global batch."""
+    import torch.distributed as dist
+
+    from repro_torch import tree
+    from repro_torch.core.seeds import compute_segments, rsqrt_seed_table
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels import common, rmsnorm, softmax, tsdiv
+    from repro_torch.models import init_params
+    from repro_torch.models.parallel import split_axes, tensor_parallel
+    from repro_torch.optim import adamw
+    from repro_torch.sharding import rules as shr
+    from repro_torch.train import step as ts
+
+    mesh = tp_mesh(EP_MESH)
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    mods = (softmax, rmsnorm, tsdiv)
+    cfg = ep_train_config("bfloat16", EP_TRAIN_DEPTH, opt_state_dtype=EP_TRAIN_OPT_DTYPE)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=EP_TRAIN_SEQ,
+                                  global_batch=EP_TRAIN_BATCH, seed=seed))
+    batch_of = lambda s: {k: torch.from_numpy(v).to(DEVICE) for k, v in data.batch(s).items()}
+
+    def placed(cfg):
+        sh = shr.param_shardings(cfg, mesh)
+        params = init_params(cfg, torch.Generator(device=DEVICE).manual_seed(seed), shardings=sh)
+        opt_cfg = adamw.AdamWConfig(state_dtype=cfg.opt_state_dtype, division=cfg.division)
+        return opt_cfg, ts.init_state(cfg, params, opt_cfg)
+
+    opt_cfg, state = placed(cfg)
+    plan = tensor_parallel(cfg, mesh)
+    split = tree.leaves_at(split_axes(cfg, plan), plan.shardings)
+    # The ranks that hold the same block of a leaf: its coordinates on the
+    # leaf's split axes.
+    block = [tuple(coord[a] for a in (axes or ())) for axes in split]
+    real = (softmax.softmax, rmsnorm.rmsnorm, tsdiv.recip)
+    held = []
+
+    def sm_spy(x, n_iters=2, precision_bits=24, schedule="factored"):
+        got = real[0](x, n_iters, precision_bits, schedule)
+        held.append(("softmax_f32",) + rows_held(got, softmax.softmax_plain, x,
+                                                 compute_segments(n_iters, precision_bits),
+                                                 n_iters, schedule))
+        return got
+
+    def rms_spy(x, w, eps=1e-6, newton_iters=2, n_segments=16):
+        got = real[1](x, w, eps, newton_iters, n_segments)
+        held.append(("rmsnorm_f32",) + rows_held(got, lambda xs: rmsnorm.rmsnorm_plain(
+            xs, w, eps, rsqrt_seed_table(n_segments), newton_iters), x))
+        return got
+
+    def recip_spy(x, n_iters=2, precision_bits=24, schedule="factored"):
+        got = real[2](x, n_iters, precision_bits, schedule)
+        table = compute_segments(n_iters, precision_bits)
+        held.append(("tsdiv_recip",) + held_to_plain(got, lambda v: common.recip_f32_bits(
+            v, table, n_iters, schedule), x))
+        return got
+
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for s in range(EP_TRAIN_STEPS):
+        batch = batch_of(s)
+        for m in mods:
+            m.reset_launches()
+        spying = s == 0 and rank == 0
+        if spying:
+            softmax.softmax, rmsnorm.rmsnorm, tsdiv.recip = sm_spy, rms_spy, recip_spy
+        sync()
+        t0 = time.perf_counter()
+        try:
+            with shr.use_mesh(mesh), CollectiveClock() as clock:
+                state, metrics = ts.train_step(cfg, opt_cfg, state, batch,
+                                               n_micro=EP_TRAIN_MICRO)
+                loss = float(metrics["loss"])
+                sync()
+        finally:
+            softmax.softmax, rmsnorm.rmsnorm, tsdiv.recip = real
+        wall = time.perf_counter() - t0
+        prints = [fingerprint(t.to_local()) for t in
+                  tree.leaves((state.params, state.opt.m, state.opt.v))]
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, (block, prints))
+        n = len(split)
+        same_block = all(e[1][i + k * n] == o[1][i + k * n]
+                         for e in every for o in every for k in range(3) for i in range(n)
+                         if e[0][i] == o[0][i])
+        steps.append({"ms": wall * 1e3, "loss": loss, "spied": spying,
+                      "collectives": {"count": clock.count, "bytes": clock.bytes,
+                                      "seconds": clock.seconds, "share": clock.seconds / wall},
+                      "launches": {k: v for m in mods for k, v in m.LAUNCHES.items() if v},
+                      "same_blocks_bit_equal": same_block})
+    out = {"steps": steps, "n_leaves": len(split), "n_split": sum(a is not None for a in split),
+           "split_axes": sorted({a for axes in split if axes for a in axes}),
+           "held": [(k, int(b), float(e)) for k, b, e in held],
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    del state
+    torch.cuda.empty_cache()
+
+    # One f32 step against the single-process step on the same global batch.
+    cfg32 = ep_train_config("float32", EP_F32_STEP_DEPTH)
+    opt32, state = placed(cfg32)
+    batch = batch_of(EP_TRAIN_STEPS)
+    with shr.use_mesh(mesh):
+        new, metrics = ts.train_step(cfg32, opt32, state, batch, n_micro=EP_TRAIN_MICRO)
+    got = {k: [shr.global_tensor(t).cpu() for t in tree.leaves(v)]
+           for k, v in (("params", new.params), ("m", new.opt.m), ("v", new.opt.v))}
+    ep_loss = float(metrics["loss"])
+    del new, state
+    torch.cuda.empty_cache()
+    dist.barrier()             # the other ranks' states are gone before rank 0's step
+    if rank != 0:
+        return out
+    params = init_params(cfg32, torch.Generator(device=DEVICE).manual_seed(seed))
+    single, m1 = ts.train_step(cfg32, opt32, ts.init_state(cfg32, params, opt32), batch,
+                               n_micro=EP_TRAIN_MICRO)
+    want = {"params": single.params, "m": single.opt.m, "v": single.opt.v}
+    rel = {k: [float((g.to(DEVICE) - w).abs().max()) / float(w.abs().max())
+               for g, w in zip(got[k], tree.leaves(want[k]))] for k in got}
+    # On step 1 AdamW moves every element by lr * m_hat / (sqrt(v_hat) + eps)
+    # ~ lr * sign(g): an element whose gradient lies below the sum-order
+    # noise of the two runs (the m gate's resolution) may take the other
+    # sign, a move of up to 2 lr (PERF.md §6). The parameters are held
+    # to TP_STEP_RTOL where the single run's first moment is above that
+    # resolution; the others are counted, and held to one step's reach.
+    resolved, unresolved = [], {"elements": 0, "over_bound": 0, "max_abs_diff": 0.0}
+    for g, w, m in zip(got["params"], tree.leaves(want["params"]), tree.leaves(want["m"])):
+        d = (g.to(DEVICE) - w).abs()
+        sure = m.abs() > TP_STEP_RTOL["m"] * float(m.abs().max())
+        resolved.append(float(torch.where(sure, d, 0).max()) / float(w.abs().max()))
+        unresolved["elements"] += int((~sure).sum())
+        unresolved["over_bound"] += int(((d > TP_STEP_RTOL["params"] * float(w.abs().max()))
+                                         & ~sure).sum())
+        unresolved["max_abs_diff"] = max(unresolved["max_abs_diff"],
+                                         float(torch.where(sure, 0, d).max()))
+    paths = tree.paths(want["params"])
+    i = int(np.argmax(rel["params"]))
+    diff = (got["params"][i].to(DEVICE) - tree.leaves(want["params"])[i]).abs().reshape(-1)
+    j = int(diff.argmax())
+    out["f32_step"] = {"loss": ep_loss, "single_loss": float(m1["loss"]),
+                       "loss_rel": abs(ep_loss - float(m1["loss"])) / abs(float(m1["loss"])),
+                       "worst_over_leaf_max": {k: max(v) for k, v in rel.items()},
+                       "params_resolved_worst_over_leaf_max": max(resolved),
+                       "params_unresolved": {**unresolved, "one_step_reach": 2 * opt32.lr},
+                       "params_worst_element": {
+                           "path": paths[i], "m_ep": float(got["m"][i].reshape(-1)[j]),
+                           "m_single": float(tree.leaves(want["m"])[i].reshape(-1)[j]),
+                           "m_leaf_max": float(tree.leaves(want["m"])[i].abs().max())}}
+    return out
+
+
+def phase_ep(seed: int, launches: dict, err: dict) -> dict:
+    """The ep phase: expert parallelism for the MoE FFN, 4 ranks sharing the
+    one card over gloo (every collective through host copies: the times
+    are not a speed figure). Serving: EP_ARCH at full width and depth on
+    EP_MESH in bf16 (55 softmax, 57 RMSNorm and 27 reciprocal launches a
+    forward and rank; every call of one prefill and one decode step held to
+    plain on each rank), and in f32 at EP_F32_DEPTH (capacity factor
+    MOE_GATE_CF) the gate of test_decode_equiv against the unsharded run
+    (>= 99% of teacher-forced tokens, logit drift < 5e-3) and serve()
+    against generate_batch (>= 99%); the collectives' share of the prefill
+    and the decode steps. Training: EP_TRAIN_DEPTH layers on EP_MESH,
+    EP_TRAIN_STEPS steps with the batch split over data, AdamW's moments in
+    EP_TRAIN_OPT_DTYPE (launches a step
+    and rank from the code, every call of step 1 held to plain on rank 0,
+    each leaf bit-equal on the ranks that hold the same block after every
+    step), and one f32 step at EP_F32_STEP_DEPTH against the single-process
+    step (loss within 1e-5 relative, m and v within TP_STEP_RTOL, the
+    parameters within it where the single run's first moment is above the m
+    gate's resolution, elsewhere within one AdamW step's reach, 2 lr: there
+    the gradient's sign is the two sum orders' noise)."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import run_ranks
+
+    t0 = time.perf_counter()
+    want = ep_want(seed)
+    want_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    parent = {"allocated_gib": torch.cuda.memory_allocated() / 2**30,
+              "reserved_gib": torch.cuda.memory_reserved() / 2**30,
+              "card_free_gib": torch.cuda.mem_get_info()[0] / 2**30}
+    n_ranks = EP_MESH[0] * EP_MESH[1]
+    t0 = time.perf_counter()
+    ranks = run_ranks(ep_serve_rank, n_ranks, seed, want["teacher"], device_type="cuda",
+                      timeout_s=EP_TIMEOUT_S)
+    serve_s = time.perf_counter() - t0
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    cfg = get_config(EP_ARCH)
+    per_forward = MOE.per_forward
+    forwards = 1 + EP_NEW
+    n_tok = len(EP_LENS) * EP_NEW
+    for o in ranks:
+        add(o["bf16"]["launches"])
+        check(o["bf16"]["launches"] == {k: v * forwards for k, v in per_forward.items()},
+              f"ep serve launches {o['bf16']['launches']}, expected {per_forward} x {forwards}")
+        rows = o["held"]["rows"]
+        calls = {f"{k}/{st}": sum(1 for r in rows if r[:2] == (k, st))
+                 for st in ("prefill", "decode") for k in per_forward}
+        check(calls == {f"{k}/{st}": v for st in ("prefill", "decode")
+                        for k, v in per_forward.items()}, f"ep serve held calls {calls}")
+        check(all(r[3] == 0 for r in rows), f"ep serve: a call differs from the plain version: "
+              f"{[r for r in rows if r[3]]}")
+        for k, e in o["held"]["err"].items():
+            err[k] = max(err[k], e)
+        check(o["f32_picks"].tolist() == ranks[0]["f32_picks"].tolist(),
+              "ep serve: the ranks chose different tokens")
+    # The logits are split over vocab on model: ranks 0 and 1 hold the halves.
+    logits = torch.cat([ranks[r]["f32_logits"] for r in range(EP_MESH[1])], -1)
+    drift = float((logits - want["logits"]).abs().max() / want["logits"].abs().max())
+    agree = float((ranks[0]["f32_picks"] == want["teacher"]).mean())
+    serve_diff = sum(a != b for r, g in zip(ranks[0]["f32_serve"], ranks[0]["f32_generate_batch"])
+                     for a, b in zip(r, g))
+    say("ep", part="serve", arch=EP_ARCH, mesh=dict(zip(("data", "model"), EP_MESH)),
+        experts_per_rank=cfg.n_experts // EP_MESH[0], prompt_lens=list(EP_LENS),
+        max_new=EP_NEW, launches_per_forward=per_forward,
+        bf16={"prefill_ms": [o["bf16"]["prefill_ms"] for o in ranks],
+              "decode_ms_per_step": [o["bf16"]["decode_ms_per_step"] for o in ranks],
+              "prefill_collectives": [o["bf16"]["prefill_collectives"] for o in ranks],
+              "decode_collectives": [o["bf16"]["decode_collectives"] for o in ranks],
+              "generate_batch_s": [o["bf16"]["generate_batch_s"] for o in ranks],
+              "peak_gib": [o["bf16"]["peak_gib"] for o in ranks],
+              "param_gib": [o["param_gib"] for o in ranks],
+              "init_s": [o["init_s"] for o in ranks]},
+        held={"calls_per_rank": len(ranks[0]["held"]["rows"]),
+              "mismatched_lanes": sum(r[3] for o in ranks for r in o["held"]["rows"]),
+              "seconds": [o["held"]["seconds"] for o in ranks]},
+        f32={"depth": EP_F32_DEPTH, "capacity_factor": MOE_GATE_CF,
+             "teacher_forced_agreement": agree, "logit_drift": drift,
+             "serve_slots": MODEL_SLOTS, "serve_tokens_differing": serve_diff,
+             "serve_agreement": 1 - serve_diff / n_tok,
+             "serve_s": [o["f32_serve_s"] for o in ranks],
+             "peak_gib": [o["f32_peak_gib"] for o in ranks],
+             "unsharded_peak_gib": want["f32_peak_gib"]},
+        unsharded_s=want_s, ranks_s=serve_s, parent_memory=parent,
+        note="ranks share one card over gloo: every collective through host copies")
+    check(agree >= 0.99, f"ep serve: teacher-forced agreement {agree} < 0.99")
+    check(drift < 5e-3, f"ep serve: logit drift {drift} >= 5e-3")
+    check(1 - serve_diff / n_tok >= 0.99, f"ep serve: serve() differs on {serve_diff} tokens")
+    check(all(len(o) == EP_NEW for o in ranks[0]["bf16"]["tokens"]), "ep serve: short output")
+    del ranks, want, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ranks = run_ranks(ep_train_rank, n_ranks, seed, device_type="cuda", timeout_s=EP_TIMEOUT_S)
+    train_s = time.perf_counter() - t0
+    per_step = ep_train_launches(ep_train_config("bfloat16", EP_TRAIN_DEPTH), EP_TRAIN_MICRO,
+                                 ranks[0]["n_leaves"])
+    for o in ranks:
+        for st in o["steps"]:
+            add(st["launches"])
+            check(st["launches"] == per_step, f"ep train launches {st['launches']} a step, "
+                  f"want {per_step}")
+            check(st["same_blocks_bit_equal"], "ep train: a block differs across its ranks")
+            check(math.isfinite(st["loss"]), f"ep train: loss {st['loss']}")
+    held = ranks[0]["held"]
+    n_held = {k: sum(1 for h in held if h[0] == k) for k in per_step}
+    check(n_held == per_step, f"ep train: held calls {n_held}, want {per_step}")
+    check(all(h[1] == 0 for h in held), "ep train: a call differs from its plain version")
+    for k, _, e in held:
+        err[k] = max(err[k], e)
+    f32 = ranks[0]["f32_step"]
+    say("ep", part="train", arch=EP_ARCH, mesh=dict(zip(("data", "model"), EP_MESH)),
+        n_layers=EP_TRAIN_DEPTH, opt_state_dtype=EP_TRAIN_OPT_DTYPE, batch=EP_TRAIN_BATCH,
+        seq_len=EP_TRAIN_SEQ,
+        n_micro_per_data_rank=EP_TRAIN_MICRO, n_leaves=ranks[0]["n_leaves"],
+        n_split=ranks[0]["n_split"], split_axes=ranks[0]["split_axes"],
+        launches_per_step=per_step, held_calls=n_held,
+        step_ms=[[st["ms"] for st in o["steps"]] for o in ranks],
+        step_collectives=[[st["collectives"] for st in o["steps"]] for o in ranks],
+        losses=[st["loss"] for st in ranks[0]["steps"]],
+        peak_gib=[o["peak_gib"] for o in ranks], f32_step_depth=EP_F32_STEP_DEPTH,
+        f32_step=f32, ranks_s=train_s,
+        note="4 ranks share one card over gloo; rank 0's step 1 includes its held calls")
+    check(f32["loss_rel"] <= 1e-5, f"ep train f32: loss {f32['loss_rel']} relative")
+    for k in ("m", "v"):
+        check(f32["worst_over_leaf_max"][k] <= TP_STEP_RTOL[k],
+              f"ep train f32: {k} off by {f32['worst_over_leaf_max'][k]} of the leaf's max")
+    check(f32["params_resolved_worst_over_leaf_max"] <= TP_STEP_RTOL["params"],
+          f"ep train f32: params off by {f32['params_resolved_worst_over_leaf_max']} of the "
+          "leaf's max where the gradient's sign is resolved")
+    unresolved = f32["params_unresolved"]
+    check(unresolved["max_abs_diff"] <= unresolved["one_step_reach"],
+          f"ep train f32: an unresolved element moved {unresolved['max_abs_diff']}, more than "
+          "one AdamW step can")
     return {"serve_s": serve_s, "train_s": train_s}
 
 
@@ -3194,6 +3644,10 @@ def main(argv=None) -> int:
                flash_attention_bf16=0.0, ilm_mul_u32=0.0, ilm_square_u32=0.0)
     phase_golden()
     launches = {k: 0 for k in err}
+    # The ep phase's 4 ranks need most of the card: it runs before the later
+    # phases' kept inputs fragment this process's cache (~16 GiB reserved
+    # by the mesh phase).
+    phase_ep(args.seed, launches, err)
     tsdiv.reset_launches()
     phase_gradients(args.seed)
     for k, v in tsdiv.LAUNCHES.items():

@@ -28,16 +28,20 @@ the quantity):
     the storages the step allocates live at once.
   * ``collectives``: ``sharding/comm.py``'s record of the step, tallied by
     ``roofline.tally_collectives``: the gradients' mean over the data
-    axes and, on a ``model`` axis above 1, the tensor-parallel all-reduces
-    (``models/parallel.py``); ``by_axis`` splits them by the mesh axis
-    they ran over.
+    axes, on a ``model`` axis above 1 the tensor-parallel all-reduces
+    (``models/parallel.py``), and the MoE FFN's expert exchange
+    (all-to-all, all-gather and, in the backward pass, reduce-scatter over
+    the axis that holds the experts, ``models/moe.py``); ``by_axis`` splits
+    them by the mesh axis they ran over.
   * ``hbm_traffic_model`` (``launch/memmodel.py``) on the layout the
-    traced rank holds (``param_layout``: ``replicated`` at ``model = 1``,
-    ``model`` above). The config's ``model``-axis rules are the port's
-    own: those leaves are split. The reference's rules also put some
-    leaves on ``data`` (FSDP: jamba's, deepseek's and moonshot's ``embed``
-    and ``experts``), which the port holds whole until ROADMAP Queue 1
-    item 19, so the model is fed rules that replicate those
+    traced rank holds (``param_layout``: the mesh axes that split some
+    leaf, joined by '+', or ``replicated``). The config's ``model``-axis
+    rules and its ``experts`` / ``expert_mlp`` rules are the port's own:
+    those leaves are split (the model counts a leaf on ``data`` as FSDP,
+    gathered before use, where the port's experts stay put and the tokens
+    move). The reference's rules also put jamba's ``embed`` leaves on
+    ``data`` (FSDP), which the port holds whole until ROADMAP Queue 1 item
+    25, so the model is fed rules that replicate those
     (:func:`replicated`), and their weight, gradient and optimizer bytes
     are the whole leaves the rank reads and updates.
   * ``sharding_fallbacks`` (``rules.param_fallbacks``, the reference's
@@ -46,10 +50,10 @@ the quantity):
 Left out: the HLO's bytes-accessed bound (there is no HLO), the reference's
 CPU-upcast tally (see ``launch/roofline.py``) and the cost probes.
 
-A cell whose mesh has ``model > 1`` traces the tensor-parallel program
-(``models/parallel.py``) on the traced rank's blocks, for every
-architecture whose layers are attention and dense MLP; one with Mamba-2 or
-MoE layers raises the ValueError that names its ROADMAP item (22 or 23).
+A cell whose mesh has ``model > 1``, or whose experts lie on ``data``,
+traces the sharded program (``models/parallel.py``) on the traced rank's
+blocks; one whose Mamba-2 layers a ``model`` axis would split raises the
+ValueError that names ROADMAP item 22.
 :func:`run_cell` also takes one rank with an explicit ``ShapeConfig``
 (``chip_smoke.py``'s roofline phase).
 
@@ -218,6 +222,7 @@ def _program(cfg: ModelConfig, shape: ShapeConfig, mesh, *, n_micro: int, device
     tensor-parallel plan) the parameters and the cache are its blocks."""
     from repro_torch.models import abstract_params, forward, make_cache
     from repro_torch.optim import adamw
+    from repro_torch.sharding import rules as shr
     from repro_torch.train import step as train_step_lib
 
     params = abstract_params(cfg, device, fake_mode,
@@ -235,9 +240,12 @@ def _program(cfg: ModelConfig, shape: ShapeConfig, mesh, *, n_micro: int, device
         return (state, batch), fn
 
     local = _local(mesh, batch, B)
+    # The rank's rows are its block of the batch (the MoE FFN's capacity and
+    # positions are the global batch's, its experts reached by the exchange).
+    rows = lambda: shr.split_tokens(() if mesh is None else shr.batch_partition(mesh, B))
     if shape.kind == "prefill":
         def fn():
-            with torch.no_grad():
+            with torch.no_grad(), rows():
                 logits, cache, _ = forward(cfg, params, mode="prefill", **local)
             return logits[:, -1], cache
         return (params, batch), fn
@@ -247,7 +255,7 @@ def _program(cfg: ModelConfig, shape: ShapeConfig, mesh, *, n_micro: int, device
                        fake_mode=fake_mode)
 
     def fn():
-        with torch.no_grad():
+        with torch.no_grad(), rows():
             logits, new_cache, _ = forward(cfg, params, tokens=local["tokens"], cache=cache,
                                            pos=shape.seq_len - 1, mode="decode")
         return logits[:, 0], new_cache
@@ -294,7 +302,7 @@ def run_cell(arch: str, shape_name: Optional[str] = None, multi_pod: bool = Fals
     reference's microbatch count (a data shard's batch over the config's
     ``train_microbatch_size``). ``one_rank``: no mesh, one device (the
     sharding fallbacks are then empty). Raises ValueError for a ``model``
-    axis above 1 under a model with Mamba-2 or MoE layers."""
+    axis above 1 under a model with Mamba-2 layers."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.utils.flop_counter import FlopCounterMode
 
@@ -365,7 +373,7 @@ def run_cell(arch: str, shape_name: Optional[str] = None, multi_pod: bool = Fals
     return {
         "arch": arch, "shape": shape.name, "mesh": mesh_name, "variant": variant,
         "devices": n_dev, "n_micro": n_micro, "device": device,
-        "param_layout": "replicated" if tp is None else "model",
+        "param_layout": _layout(cfg, tp),
         "sharding_fallbacks": [] if one_rank else shr.param_fallbacks(cfg, sizes),
         "trace_s": t_trace,
         "memory": {
@@ -383,13 +391,29 @@ def run_cell(arch: str, shape_name: Optional[str] = None, multi_pod: bool = Fals
 
 
 def replicated(cfg: ModelConfig) -> ModelConfig:
-    """``cfg`` with every rule that names ``data`` (or ``pod``) None: the
-    parameter layout that the port's program holds on each rank, split over
-    ``model`` as its rules say and whole over the data axes (FSDP is ROADMAP
-    Queue 1 item 19)."""
+    """``cfg`` with every rule that names ``data`` (or ``pod``) None, except
+    the ``experts`` and ``expert_mlp`` rules: the parameter layout that the
+    port's program holds on each rank, split over ``model`` and the experts
+    as its rules say and whole elsewhere over the data axes (jamba's
+    ``embed``: FSDP is ROADMAP Queue 1 item 25)."""
+    from repro_torch.models.parallel import EXPERT_AXES
+
     rules = rules_for(cfg)
     return dataclasses.replace(cfg, sharding_rules={
-        k: (None if v in ("data", "pod") else v) for k, v in rules.items()})
+        k: (None if v in ("data", "pod") and k not in EXPERT_AXES else v)
+        for k, v in rules.items()})
+
+
+def _layout(cfg: ModelConfig, tp) -> str:
+    """The mesh axes that split some leaf on the traced rank, '+'-joined in
+    mesh order; ``replicated`` for none."""
+    from repro_torch.models.parallel import split_axes
+
+    if tp is None:
+        return "replicated"
+    used = {a for axes in tree.leaves_at(split_axes(cfg, tp), tp.shardings) if axes
+            for a in axes}
+    return "+".join(a for a in tp.mesh.mesh_dim_names if a in used) or "replicated"
 
 
 # ------------------------------------------------------------ perf variants
@@ -402,8 +426,7 @@ def apply_variant(cfg: ModelConfig, variant: str):
 
     Left out: ``seq_shard`` and ``kvseq``, which place activations and
     the KV cache's sequence on the ``model`` axis (ROADMAP Queue 1 item
-    24), and ``ep_tp`` and ``ep_model``, which place the experts there
-    (items 19 and 23)."""
+    24)."""
     from repro_torch.core.division_modes import DivisionConfig
 
     rep = dataclasses.replace
@@ -424,6 +447,12 @@ def apply_variant(cfg: ModelConfig, variant: str):
             cfg = rep(cfg, train_microbatch_size=max(1, cfg.train_microbatch_size // 2))
         elif v == "flash":          # fused flash-attention kernel (memmodel)
             cfg = rep(cfg, use_flash_kernel=True)
+        elif v == "ep_tp":          # MoE: experts local, expert-FF over model
+            cfg = rep(cfg, sharding_rules={**cfg.sharding_rules, "experts": None,
+                                           "expert_mlp": "model"})
+        elif v == "ep_model":       # MoE: experts over the model axis
+            cfg = rep(cfg, sharding_rules={**cfg.sharding_rules, "experts": "model",
+                                           "expert_mlp": None})
         elif v == "sort_dispatch":  # megablocks-style MoE position assignment
             cfg = rep(cfg, moe_dispatch="sort")
         elif v == "local_dispatch":  # shard-local dispatch

@@ -21,9 +21,13 @@ reference.
 
 Under an active mesh whose ``model`` axis holds more than one rank
 (``sharding.rules.use_mesh``) the attention, MLP and vocab weights run
-split over it (``models/parallel.py``): each rank takes its blocks of the
-parameters (DTensors, the global tree or its own blocks), the logits are
-its vocab block, and the cache holds its KV heads.
+split over it, and wherever the experts' specs put them on a live axis
+the MoE FFN's experts run split too (``models/parallel.py``,
+``models/moe.py``): each rank takes its blocks of the parameters
+(DTensors, the global tree or its own blocks), the logits are its vocab
+block, and the cache holds its KV heads. The tokens given are the whole
+batch on every rank, unless ``sharding.rules.split_tokens`` says they are
+the rank's block of it (the train step).
 """
 from __future__ import annotations
 
@@ -38,7 +42,7 @@ from .attention import (abstract_cache_attn, decode_attention, decode_positions,
                         full_attention, init_cache_attn, project_kv, sliding_attention)
 from .layers import embed_tokens, gated_mlp, lm_logits, rms_norm
 from .mamba2 import abstract_cache_mamba, decode_mamba, init_cache_mamba, mamba_mixer
-from .moe import moe_ffn
+from .moe import moe_ffn, where
 from .parallel import local_params, tensor_parallel
 from .params import torch_dtype
 
@@ -81,13 +85,15 @@ def _ring_from_prefill(k, window: int, lengths=None):
 
 
 def block_forward(bp: Dict, x, spec: LayerSpec, cfg: ModelConfig, positions,
-                  *, mode: str, cache=None, pos=None, enc_out=None, lengths=None, tp=None):
+                  *, mode: str, cache=None, pos=None, enc_out=None, lengths=None, tp=None,
+                  at=None):
     """One block; returns (x, new_cache, aux). ``enc_out`` (train and
     prefill of an encoder-decoder): the encoder's output, which the cross
     attention projects to K/V. ``lengths`` (prefill only): the real prompt
     lengths of a right-padded batch, which make pad tokens SSM no-ops and
     keep them out of sliding-window rings. ``tp``: the rank's tensor-parallel
-    plan (``models/parallel.py``), ``bp`` its blocks."""
+    plan (``models/parallel.py``), ``bp`` its blocks; ``at``: where the MoE
+    FFN routes (``moe.where``)."""
     div = cfg.division
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache: Dict[str, Any] = {}
@@ -135,7 +141,7 @@ def block_forward(bp: Dict, x, spec: LayerSpec, cfg: ModelConfig, positions,
     if spec.ffn != "none":
         h2 = rms_norm(x, bp["ffn_norm"], div, cfg.norm_eps)
         if spec.ffn == "moe":
-            ff, a = moe_ffn(bp["ffn"], h2, cfg)
+            ff, a = moe_ffn(bp["ffn"], h2, cfg, at)
             aux = aux + a
         else:
             ff = gated_mlp(bp["ffn"], h2, tp)
@@ -204,6 +210,7 @@ def forward(cfg: ModelConfig, params, *, tokens=None, embeds=None, cache=None, p
         if lengths is not None:
             lengths = torch.as_tensor(lengths, dtype=torch.int32, device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    at = where(cfg) if any(s.ffn == "moe" for s in cfg.layer_specs()) else None
     block = (_remat_block if cfg.remat and mode == "train" and torch.is_grad_enabled()
              else block_forward)
     new_groups = []
@@ -214,7 +221,7 @@ def forward(cfg: ModelConfig, params, *, tokens=None, embeds=None, cache=None, p
             lc = cache["groups"][gi]["layers"][li] if mode == "decode" else None
             x, nc, a = block(layers[li], x, spec, cfg, positions,
                              mode=mode, cache=lc, pos=pos,
-                             enc_out=enc_out, lengths=lengths, tp=tp)
+                             enc_out=enc_out, lengths=lengths, tp=tp, at=at)
             caches.append(nc)
             aux = aux + a
         new_groups.append({"layers": caches})

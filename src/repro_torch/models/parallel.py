@@ -24,10 +24,18 @@ KV heads than ranks), a rank projects only the KV heads its own query heads
 read, from the replicated weights (whose gradients are summed over the
 ranks). The decode cache holds those local KV heads.
 
-The Mamba-2 mixer and the MoE FFN are not split: a model with either layer
-under a ``model`` axis above 1 raises a ValueError naming its ROADMAP item.
-Only the ``model`` entries of a spec are executed here; a leaf on ``data``
-(FSDP, ROADMAP Queue 1 item 19) is held whole.
+The MoE FFN's expert leaves (``wi``, ``wg``, ``wo``) are split by their
+``experts`` and ``expert_mlp`` dims over whatever axes their specs name --
+``data`` (expert parallelism, the MoE models' own rules), ``model`` (the
+``ep_model`` and ``ep_tp`` layouts) or both -- and its shared experts over
+``mlp`` as the dense MLP; :class:`ExpertParallel` records the axes and
+``models/moe.py`` runs the exchange. A plan is needed wherever a leaf is
+split: a ``model`` axis above 1, or experts on a ``data`` axis above 1.
+
+The Mamba-2 mixer is not split: a model with Mamba-2 layers under a
+``model`` axis above 1 raises a ValueError naming its ROADMAP item. Every
+other leaf that a spec puts on ``data`` (jamba's ``embed``: FSDP, ROADMAP
+Queue 1 item 25) is held whole.
 """
 from __future__ import annotations
 
@@ -39,12 +47,26 @@ import torch
 from repro_torch import tree
 from repro_torch.configs.base import ModelConfig, rules_for
 
-__all__ = ["AXIS", "TensorParallel", "tensor_parallel", "refuse_split", "local_params",
-           "wrap_like", "split_axes"]
+__all__ = ["AXIS", "ExpertParallel", "TensorParallel", "tensor_parallel", "refuse_split",
+           "local_params", "wrap_like", "split_axes", "executed_spec"]
 
 AXIS = "model"
 SSM_ITEM = "ROADMAP Queue 1 item 22"
-MOE_ITEM = "ROADMAP Queue 1 item 23"
+EXPERT_AXES = ("experts", "expert_mlp")
+
+
+@dataclass(frozen=True)
+class ExpertParallel:
+    """Where the MoE FFN's leaves lie: the mesh axis (above one rank) that
+    holds the routed experts and this rank's place on it, the axis of their
+    ``expert_mlp`` dim, and the axis of the shared experts' ``mlp`` dim;
+    None where a dim is whole."""
+
+    experts: Optional[str]
+    n_split: int        # ranks along ``experts`` (1 without)
+    index: int          # this rank's block of experts
+    mlp: Optional[str]
+    shared: Optional[str]
 
 
 @dataclass(frozen=True)
@@ -62,7 +84,8 @@ class TensorParallel:
     vocab: bool         # the embedding's rows and the LM head's columns
     n_heads: int
     n_kv_heads: int
-    shardings: Any      # NamedSharding tree, the model axis only
+    shardings: Any      # NamedSharding tree of the executed specs (executed_spec)
+    moe: Optional[ExpertParallel] = None
 
     def copy(self, x: torch.Tensor) -> torch.Tensor:
         """Identity forward, gradient summed over the ranks backward."""
@@ -120,14 +143,55 @@ def _dims(spec) -> Tuple[int, ...]:
 
 def refuse_split(cfg: ModelConfig, size: int) -> None:
     """Raise the ValueError naming its ROADMAP item for a model whose
-    Mamba-2 or MoE layers a model axis of ``size`` > 1 would split."""
-    specs = cfg.layer_specs()
-    if any(s.mixer == "mamba" for s in specs):
+    Mamba-2 layers a model axis of ``size`` > 1 would split."""
+    if any(s.mixer == "mamba" for s in cfg.layer_specs()):
         raise ValueError(f"{cfg.name}: the Mamba-2 mixer is not split over a model axis of "
                          f"{size} ({SSM_ITEM}); it is never run replicated there")
-    if any(s.ffn == "moe" for s in specs):
-        raise ValueError(f"{cfg.name}: the MoE FFN is not split over a model axis of {size} "
-                         f"({MOE_ITEM}); it is never run replicated there")
+
+
+def executed_spec(p, spec):
+    """The part of a leaf's resolved spec that the port executes: its
+    ``model`` entries and the entries of its ``experts`` and ``expert_mlp``
+    dims; any other dim is held whole."""
+    return tuple(part if part == AXIS or ax in EXPERT_AXES else None
+                 for part, ax in zip(spec, p.axes))
+
+
+def _live_axis(part, sizes):
+    return part if part is not None and sizes[part] > 1 else None
+
+
+def _expert_plan(cfg: ModelConfig, mesh, spec) -> Optional[ExpertParallel]:
+    """The MoE FFN's axes from the resolved specs of its leaves; None for a
+    model without MoE layers."""
+    from repro_torch.models.params import _moe_specs
+    from repro_torch.sharding import rules as shr
+
+    if not any(s.ffn == "moe" for s in cfg.layer_specs()):
+        return None
+    sizes = shr.mesh_shape(mesh)
+    moe = _moe_specs(cfg)
+    wi, wg, wo = (tuple(_live_axis(a, sizes) for a in spec(moe[n])) for n in ("wi", "wg", "wo"))
+    experts, mlp = wi[0], wi[2]
+    if wg != wi or wo != (experts, mlp, None):
+        raise ValueError(f"{cfg.name}: the expert leaves are split differently: wi {wi}, "
+                         f"wg {wg}, wo {wo}")
+    if any(spec(moe["router"])):
+        raise ValueError(f"{cfg.name}: the router is split ({spec(moe['router'])}); the "
+                         "MoE FFN routes on a whole router")
+    shared = None
+    if "shared" in moe:
+        sh = {n: tuple(_live_axis(a, sizes) for a in spec(moe["shared"][n]))
+              for n in ("wi", "wg", "wo")}
+        shared = sh["wi"][1]
+        if sh["wi"][0] or sh["wg"] != sh["wi"] or sh["wo"] != (shared, None):
+            raise ValueError(f"{cfg.name}: the shared experts are split as {sh}; only "
+                             "their mlp dim is split")
+    if experts is not None and experts == mlp:
+        raise ValueError(f"{cfg.name}: experts and expert_mlp on one axis {experts!r}")
+    return ExpertParallel(experts=experts, n_split=sizes[experts] if experts else 1,
+                          index=shr.axis_index(mesh, experts) if experts else 0,
+                          mlp=mlp, shared=shared)
 
 
 def _plan(cfg: ModelConfig, mesh) -> TensorParallel:
@@ -135,10 +199,12 @@ def _plan(cfg: ModelConfig, mesh) -> TensorParallel:
     from repro_torch.sharding import rules as shr
 
     sizes = shr.mesh_shape(mesh)
-    size = sizes[AXIS]
-    refuse_split(cfg, size)
+    size = sizes.get(AXIS, 1)
+    if size > 1:
+        refuse_split(cfg, size)
     rules = rules_for(cfg)
-    spec = lambda p: shr.only_axes(shr.spec_for(p.shape, p.axes, rules, mesh), (AXIS,))
+    executed = lambda p: executed_spec(p, shr.spec_for(p.shape, p.axes, rules, mesh))
+    spec = lambda p: shr.only_axes(executed(p), (AXIS,))
     split = {}
     expected = {"wq": (1,), "wk": (1,), "wv": (1,), "attn_wo": (0,), "wi": (1,), "wg": (1,),
                 "mlp_wo": (0,), "embed": (0,), "lm_head": (1,)}
@@ -163,11 +229,13 @@ def _plan(cfg: ModelConfig, mesh) -> TensorParallel:
     vocab = [split[n] for n in ("embed", "lm_head") if n in split]
     if len(set(vocab)) > 1:
         raise ValueError(f"{cfg.name}: embed and lm_head are split differently over '{AXIS}'")
-    shardings = tree.map_tree(lambda p: shr.NamedSharding(mesh, spec(p)), top)
-    return TensorParallel(mesh=mesh, size=size, rank=shr.axis_index(mesh, AXIS),
+    shardings = tree.map_tree(lambda p: shr.NamedSharding(mesh, executed(p)), top)
+    return TensorParallel(mesh=mesh, size=size,
+                          rank=shr.axis_index(mesh, AXIS) if AXIS in sizes else 0,
                           heads=split["wq"], kv=split["wk"], mlp=split["wi"],
                           vocab=bool(vocab and vocab[0]), n_heads=cfg.n_heads,
-                          n_kv_heads=cfg.n_kv_heads, shardings=shardings)
+                          n_kv_heads=cfg.n_kv_heads, shardings=shardings,
+                          moe=_expert_plan(cfg, mesh, executed))
 
 
 _PLANS: dict = {}
@@ -175,17 +243,21 @@ _PLANS: dict = {}
 
 def tensor_parallel(cfg: ModelConfig, mesh=None) -> Optional[TensorParallel]:
     """The plan of ``cfg`` on ``mesh`` (the active mesh by default); None
-    where there is no mesh, or its ``model`` axis holds one rank. Raises
-    ValueError for a model whose Mamba-2 or MoE layers would have to split."""
+    where there is no mesh, or no leaf of the model is split on it (a
+    ``model`` axis of one rank, the experts whole). Raises ValueError for a
+    model whose Mamba-2 layers would have to split."""
     from repro_torch.sharding import rules as shr
 
     mesh = shr.active_mesh() if mesh is None else mesh
-    if mesh is None or shr.mesh_shape(mesh).get(AXIS, 1) == 1:
+    if mesh is None:
         return None
     key = (id(cfg), id(mesh))
     hit = _PLANS.get(key)
     if hit is None or hit[0] is not cfg or hit[1] is not mesh:
-        hit = _PLANS[key] = (cfg, mesh, _plan(cfg, mesh))
+        plan = _plan(cfg, mesh)
+        moe = plan.moe
+        split = plan.size > 1 or (moe is not None and any((moe.experts, moe.mlp, moe.shared)))
+        hit = _PLANS[key] = (cfg, mesh, plan if split else None)
     return hit[2]
 
 
@@ -209,12 +281,20 @@ def local_params(cfg: ModelConfig, params, tp: TensorParallel):
 
 
 def split_axes(cfg: ModelConfig, tp: TensorParallel):
-    """Tree matching the parameters: ``AXIS`` for a leaf split over the
-    model axis (``rules.model_dims``), None for a replicated one
-    (``optim.adamw.global_norm``)."""
+    """Tree matching the parameters: the tuple of mesh axes (above one rank,
+    in mesh order) that a leaf's executed spec splits it over, None for a
+    replicated leaf (``optim.adamw.global_norm``, the train step's mean)."""
     from repro_torch.sharding import rules as shr
 
-    return tree.map_tree(lambda d: None if d is None else AXIS, shr.model_dims(cfg, tp.mesh))
+    sizes = shr.mesh_shape(tp.mesh)
+
+    def axes(sh):
+        used = {a for part in sh.spec
+                for a in (part if isinstance(part, tuple) else (part,)) if a is not None}
+        live = tuple(a for a in sizes if a in used and sizes[a] > 1)
+        return live or None
+
+    return tree.map_tree(axes, tp.shardings)
 
 
 def wrap_like(like, local, tp: TensorParallel):

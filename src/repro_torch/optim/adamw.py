@@ -98,20 +98,22 @@ def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
 
 def global_norm(grads, split=None) -> torch.Tensor:
     """sqrt of the sum of the per-leaf sums of squares, in f32. ``split``
-    (a tree matching ``grads``: the mesh axis each leaf is split over, None
-    for none) makes ``grads`` a rank's blocks on the active mesh: a split
-    leaf's sum is summed over its ranks (one all-reduce per axis), a
-    replicated leaf's is its own; every rank gets the same bits."""
-    sums = [torch.sum(torch.square(g.to(F32))) for g in tree.leaves(grads)]
+    (a tree matching ``grads``: the tuple of mesh axes each leaf is split
+    over, None for none) makes ``grads`` a rank's blocks on the active
+    mesh: a split leaf's sum is summed over the ranks of each of its axes
+    (one all-reduce per set of axes), a replicated leaf's is its own; every
+    rank gets the same bits."""
+    leaves = tree.leaves(grads)
+    sums = [torch.sum(torch.square(g.to(F32))) for g in leaves]
     if split is not None:
         from repro_torch.sharding import comm
         from repro_torch.sharding import rules as shr
 
-        axes = tree.leaves(split)
-        for axis in sorted({a for a in axes if a is not None}):
-            idx = [i for i, a in enumerate(axes) if a == axis]
+        axes = [(a,) if isinstance(a, str) else a for a in tree.leaves_at(split, grads)]
+        for group in sorted({a for a in axes if a is not None}):
+            idx = [i for i, a in enumerate(axes) if a == group]
             total = comm.all_reduce(torch.stack([sums[i] for i in idx]), shr.active_mesh(),
-                                    (axis,))
+                                    group)
             for j, i in enumerate(idx):
                 sums[i] = total[j]
     return sqrt_f32(torch.sum(torch.stack(sums)))

@@ -25,12 +25,17 @@ configs from ``enc_embeds`` plus token prompts, through
 ``generate_batch`` / ``generate``; ``serve()`` refuses both, as the
 reference does.
 
-Under an active mesh with a ``model`` axis above 1
-(``sharding.rules.use_mesh``) the engine runs the tensor-parallel model
+Under an active mesh that splits some leaf -- a ``model`` axis above 1,
+or the experts on ``data`` (``sharding.rules.use_mesh``) -- the engine runs
+the split model
 (``models/parallel.py``): each rank holds its vocab block of the logits
 and its KV heads of the cache, and the greedy choice is a split argmax
 (the largest logit over the ranks, on ties the lowest vocab index, as
-``torch.argmax`` takes it).
+``torch.argmax`` takes it). Every rank is given the whole batch: under the
+MoE models' ``experts -> data`` each rank routes every token, runs its own
+experts' rows and the partial outputs are summed over ``data``
+(``models/moe.py``), so the batch is the reference's global one and the
+greedy argmax is unchanged.
 
 ``ServingEngine.serve`` is the continuous-batching loop: admit a request
 into a free slot (single-row prefill + cache row insert), decode all active

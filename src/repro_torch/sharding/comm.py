@@ -22,6 +22,13 @@ partial sum. :func:`all_reduce_sum_grad` sums both ways: right for a value
 that every rank's loss reads in full (MoE's aux), wrong for these two, where
 it would scale the gradients by the number of ranks.
 
+The expert exchange of the MoE FFN (``models/moe.py``) uses two more, each
+differentiated: :func:`exchange` (an all-to-all over one axis: block j of
+a dim goes to rank j; its backward is the same all-to-all of the
+gradients) and :func:`gather_blocks` (an all-gather whose backward is the
+reduce-scatter of the gradients: summed over the ranks, sliced to the
+rank's block).
+
 :func:`record` lists the collectives issued inside a block, one entry per
 process-group call: the op, the bytes of its result and the ranks of its
 group. ``launch/roofline.py`` ``tally_collectives`` turns the list into
@@ -36,8 +43,8 @@ import torch
 
 from .rules import mesh_shape
 
-__all__ = ["all_reduce", "all_gather", "all_reduce_sum_grad", "copy_to_split",
-           "reduce_from_split", "record"]
+__all__ = ["all_reduce", "all_gather", "all_to_all", "reduce_scatter", "all_reduce_sum_grad",
+           "copy_to_split", "reduce_from_split", "exchange", "gather_blocks", "record"]
 
 _RECORD: Optional[List[dict]] = None
 
@@ -46,8 +53,10 @@ _RECORD: Optional[List[dict]] = None
 def record():
     """Yields a list that receives ``{"op", "bytes", "ranks"}`` for each
     collective issued in the block (``op`` as HLO names it: ``all-reduce``,
-    ``all-gather``; ``bytes`` of the result; ``ranks`` of the group, global
-    ranks in order)."""
+    ``all-gather``, ``all-to-all``, ``reduce-scatter``; ``bytes`` of the
+    whole operand the ranks exchange -- the result, except for a
+    reduce-scatter, whose result is one block of it; ``ranks`` of the group,
+    global ranks in order)."""
     global _RECORD
     prev, _RECORD = _RECORD, []
     try:
@@ -56,11 +65,11 @@ def record():
         _RECORD = prev
 
 
-def _note(op: str, result: torch.Tensor, group) -> None:
+def _note(op: str, whole: torch.Tensor, group) -> None:
     if _RECORD is not None:
         import torch.distributed as dist
 
-        _RECORD.append({"op": op, "bytes": result.numel() * result.element_size(),
+        _RECORD.append({"op": op, "bytes": whole.numel() * whole.element_size(),
                         "ranks": list(dist.get_process_group_ranks(group))})
 
 
@@ -98,6 +107,41 @@ def all_gather(t: torch.Tensor, mesh, axes: Sequence[str], dim: int = 0) -> torc
         buf = torch.cat(parts, 0)
         _note("all-gather", buf, group)
     return buf.movedim(0, dim).to(t.device)
+
+
+def all_to_all(t: torch.Tensor, mesh, axis: str, dim: int = 0) -> torch.Tensor:
+    """``t``'s ``dim`` cut into as many equal blocks as ``axis`` has ranks:
+    block j goes to rank j, and the result holds at block i what rank i
+    sent this rank. ``t`` itself on an axis of one rank."""
+    import torch.distributed as dist
+
+    if not _live(mesh, (axis,)):
+        return t
+    group = mesh.get_group(axis)
+    buf = t.detach().to("cpu", copy=True).movedim(dim, 0).contiguous()
+    out = torch.empty_like(buf)
+    dist.all_to_all_single(out, buf, group=group)
+    _note("all-to-all", out, group)
+    return out.movedim(0, dim).to(t.device)
+
+
+def reduce_scatter(t: torch.Tensor, mesh, axis: str, dim: int = 0) -> torch.Tensor:
+    """The sum of the ranks' ``t`` along ``axis``, of which this rank keeps
+    its block of ``dim`` (cut into as many equal blocks as the axis has
+    ranks, in rank order)."""
+    import torch.distributed as dist
+
+    if not _live(mesh, (axis,)):
+        return t
+    group = mesh.get_group(axis)
+    buf = t.detach().to("cpu", copy=True).movedim(dim, 0).contiguous()
+    out = torch.empty((buf.shape[0] // dist.get_world_size(group), *buf.shape[1:]),
+                      dtype=buf.dtype)
+    # reduce_scatter_single is the newer name of reduce_scatter_tensor.
+    (getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor)(
+        out, buf, group=group)
+    _note("reduce-scatter", buf, group)
+    return out.movedim(0, dim).to(t.device)
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -159,3 +203,45 @@ def reduce_from_split(t: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tenso
     if not _live(mesh, axes):
         return t
     return _ReduceFromSplit.apply(t, mesh, tuple(axes))
+
+
+class _Exchange(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return all_to_all(t, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        # Block i of the output came from rank i's block j: its gradient
+        # goes back the same way.
+        return all_to_all(g, ctx.mesh, ctx.axis, ctx.dim), None, None, None
+
+
+class _GatherBlocks(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return all_gather(t, mesh, (axis,), dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        # Every rank read the gathered tensor: a block's gradient is the sum
+        # of the ranks' gradients of it.
+        return reduce_scatter(g, ctx.mesh, ctx.axis, ctx.dim), None, None, None
+
+
+def exchange(t: torch.Tensor, mesh, axis: str, dim: int = 0) -> torch.Tensor:
+    """:func:`all_to_all` that autograd differentiates: the backward pass is
+    the all-to-all of the output's gradient."""
+    if not _live(mesh, (axis,)):
+        return t
+    return _Exchange.apply(t, mesh, axis, dim)
+
+
+def gather_blocks(t: torch.Tensor, mesh, axis: str, dim: int = 0) -> torch.Tensor:
+    """:func:`all_gather` over one axis that autograd differentiates: the
+    backward pass is the :func:`reduce_scatter` of the output's gradient."""
+    if not _live(mesh, (axis,)):
+        return t
+    return _GatherBlocks.apply(t, mesh, axis, dim)

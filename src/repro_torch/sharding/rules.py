@@ -29,8 +29,12 @@ DTensors, or of a global tree that is the same on every rank);
 
 The active mesh (:func:`use_mesh`, :func:`suspend_mesh`,
 :func:`active_mesh`) is what the launcher registers; the kernels' mesh
-dispatch (``kernels/ops.py``), the sharded workloads, MoE's local dispatch
-and the train step read it. Importing this module starts no process group.
+dispatch (``kernels/ops.py``), the sharded workloads, the MoE FFN and the
+train step read it. :func:`split_tokens` says, for a scope, over which batch
+axes the rows that the model is given are split (the train step's block of
+the batch); outside one, every rank holds the whole batch (a forward or the
+serving engine), and :func:`token_axes` is empty. Importing this module
+starts no process group.
 """
 from __future__ import annotations
 
@@ -44,7 +48,8 @@ import torch
 __all__ = ["mesh_shape", "spec_for", "placements", "NamedSharding",
            "param_shardings", "param_fallbacks", "batch_axes",
            "batch_partition", "data_spec", "data_sharding", "replicated",
-           "use_mesh", "suspend_mesh", "active_mesh", "shard_dim",
+           "use_mesh", "suspend_mesh", "active_mesh", "split_tokens", "token_axes",
+           "shard_dim",
            "axes_size", "local_offset", "local_block", "batch_sharding", "batch_local",
            "same_placements",
            "distribute", "axis_index", "only_axes", "local_shape", "model_dims", "local_tree",
@@ -395,6 +400,30 @@ def suspend_mesh():
 
 def active_mesh():
     return getattr(_ACTIVE, "mesh", None)
+
+
+@contextlib.contextmanager
+def split_tokens(axes: Tuple[str, ...]):
+    """For a scope, the rows the model is given are this rank's block of the
+    global batch, split over ``axes`` (batch axes of the active mesh, the
+    first major) -- what the MoE FFN's capacity and positions are reckoned
+    over."""
+    prev = getattr(_ACTIVE, "tokens", ())
+    _ACTIVE.tokens = tuple(axes)
+    try:
+        yield
+    finally:
+        _ACTIVE.tokens = prev
+
+
+def token_axes() -> Tuple[str, ...]:
+    """The batch axes (above one rank) that the active rows are split over
+    (:func:`split_tokens`); () where every rank holds the whole batch."""
+    mesh = active_mesh()
+    if mesh is None:
+        return ()
+    sizes = mesh_shape(mesh)
+    return tuple(ax for ax in getattr(_ACTIVE, "tokens", ()) if sizes.get(ax, 1) > 1)
 
 
 def shard_dim(x, dim: int, axis: str = "model"):

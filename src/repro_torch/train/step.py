@@ -13,25 +13,33 @@ into an f32 accumulator that starts at zero; the sum is scaled by
 Under an active mesh (``sharding.rules.use_mesh``) the step is data
 parallel: each rank takes its block of the batch along the batch axes
 (``rules.data_spec``: the largest prefix of ('pod', 'data') that divides
-the batch) and computes its own gradients as above; the gradients are then
-meaned over the batch axes other than ``compress_axis`` (an f32 all-reduce
-of the sum, times 1/n, as the reference's ``inv``) and over
+the batch) -- of each microbatch: microbatch i of a rank is its block of
+the global batch's microbatch i, as the reference's microbatch i is the
+global one -- and computes its own gradients as above, with the model told
+that its rows are that block (``rules.split_tokens``: the MoE FFN's
+capacity and positions are the global microbatch's). The gradients are
+then meaned over the batch axes other than ``compress_axis`` (an f32
+all-reduce of the sum, times 1/n, as the reference's ``inv``) and over
 ``compress_axis`` through ``optim.compress.psum_compressed`` (int8 with
 error feedback). Every rank then holds the same gradients, runs the same
 AdamW (its ``tsdiv_recip`` per leaf) and keeps the same replicated
 parameters. The reported loss and metrics are meaned over the batch axes:
 the global batch's, as the reference's.
 
-Under a mesh whose ``model`` axis holds more than one rank the step is
-tensor parallel too (``models/parallel.py``): each rank takes its blocks of
-the parameters and moments (DTensors, the global tree or its own blocks),
-the model runs split over ``model``, the loss is a vocab-split logsumexp
-with each label's logit taken from the rank that holds it, and the batch,
-the gradients' mean and the loss's mean go over the data axes only. AdamW
-runs on the rank's blocks, with the gradients' global norm summed over the
-ranks for a split leaf and counted once for a replicated one, so every
-rank gets the same clip factor. The new state is DTensors where the
-parameters came as DTensors, the rank's blocks otherwise.
+Where a leaf is split over some of its ranks (``models/parallel.py``) each
+rank takes its blocks of the parameters and moments (DTensors, the global
+tree or its own blocks). Under a ``model`` axis above 1 the model runs
+split over it, the loss is a vocab-split logsumexp with each label's logit
+taken from the rank that holds it, and the batch, the gradients' mean and
+the loss's mean go over the data axes only. An expert leaf split over
+``data`` holds other experts on each data rank: its gradient is not summed
+over that axis -- the owner's gradient already holds every rank's tokens,
+through the expert exchange's backward pass -- and takes the factor 1/n
+all the same. AdamW runs on the rank's blocks, with the gradients' global
+norm summed over the ranks of each split axis of a leaf and counted once
+for a replicated one, so every rank gets the same clip factor. The new
+state is DTensors where the parameters came as DTensors, the rank's blocks
+otherwise.
 """
 from __future__ import annotations
 
@@ -151,15 +159,37 @@ def grads_fn(cfg: ModelConfig, params, batch, n_micro: int):
     return loss, {"ce": loss, "aux": torch.zeros_like(loss)}, grads
 
 
-def _mean_over(t: torch.Tensor, mesh, axes) -> torch.Tensor:
-    """The mean of ``t`` over the ranks along ``axes``: an f32 sum, times 1/n."""
+def _mean_over(t: torch.Tensor, mesh, axes, split=None) -> torch.Tensor:
+    """The mean of ``t`` over the ranks along ``axes``: an f32 sum, times
+    1/n. ``split``: the axes of a leaf split over its ranks, whose blocks
+    are not summed (the factor 1/n stays)."""
     from repro_torch.sharding import comm
     from repro_torch.sharding import rules as shr
 
     n = shr.axes_size(mesh, axes)
     if n == 1:
         return t
-    return comm.all_reduce(t, mesh, axes) * (1.0 / n)
+    return comm.all_reduce(t, mesh, [a for a in axes if a not in (split or ())]) * (1.0 / n)
+
+
+def _rank_rows(x, mesh, axes, n_micro: int) -> torch.Tensor:
+    """This rank's rows of a batch entry along ``axes``: its block of each of
+    the ``n_micro`` microbatches of the global batch, in order. ``x`` is the
+    global tensor, the same on every rank, or a DTensor placed over
+    ``axes`` (its blocks are gathered first when ``n_micro`` > 1)."""
+    from repro_torch.sharding import rules as shr
+
+    sh = shr.batch_sharding(mesh, axes, x.ndim)
+    if n_micro <= 1:
+        return shr.batch_local(x, sh)
+    shr.batch_local(x, sh)            # a DTensor placed otherwise raises
+    x = shr.global_tensor(x)
+    if x.shape[0] % (n_micro * shr.axes_size(mesh, axes)):
+        raise ValueError(f"a batch of {x.shape[0]} rows does not split into {n_micro} "
+                         f"microbatches over {axes}")
+    per = shr.batch_sharding(mesh, axes, x.ndim + 1)
+    blocks = shr.local_block(x.reshape(n_micro, -1, *x.shape[1:]).movedim(0, 1), per)
+    return blocks.movedim(1, 0).reshape(-1, *x.shape[1:])
 
 
 def train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, state: TrainState,
@@ -176,10 +206,11 @@ def train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, state: TrainState,
                          "with that axis (sharding.rules.use_mesh); there is none")
     tp = tensor_parallel(cfg)
     if tp is not None and compress_axis is not None:
-        raise ValueError(f"train_step(compress_axis={compress_axis!r}) under a model axis of "
-                         f"{tp.size}: the int8 mean takes one scale per tensor of the "
-                         "reference's layout, which a split leaf does not hold "
-                         "(ROADMAP Queue 1 item 18)")
+        raise ValueError(f"train_step(compress_axis={compress_axis!r}) with leaves split "
+                         f"over the mesh (model axis {tp.size}, experts "
+                         f"{tp.moe.experts if tp.moe else None}): the int8 mean takes one "
+                         "scale per tensor of the reference's layout, which a split leaf "
+                         "does not hold (ROADMAP Queue 1 item 18)")
     like = state.params
     if tp is not None:
         state = TrainState(params=local_params(cfg, state.params, tp),
@@ -192,18 +223,19 @@ def train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, state: TrainState,
         size = next(iter(batch.values())).shape[0]
         axes = shr.batch_partition(mesh, size)
         if axes:
-            batch = {k: shr.batch_local(v, shr.batch_sharding(mesh, axes, v.ndim))
-                     for k, v in batch.items()}
-    loss, metrics, grads = grads_fn(cfg, state.params, batch, n_micro)
+            batch = {k: _rank_rows(v, mesh, axes, n_micro) for k, v in batch.items()}
+    with shr.split_tokens(axes):
+        loss, metrics, grads = grads_fn(cfg, state.params, batch, n_micro)
     new_err = None
+    split = None if tp is None else split_axes(cfg, tp)
     if mesh is not None:
         plain = tuple(ax for ax in axes if ax != compress_axis)
-        grads = tree.map_tree(lambda g: _mean_over(g, mesh, plain), grads)
+        grads = (tree.map_tree(lambda g: _mean_over(g, mesh, plain), grads) if split is None
+                 else tree.map_tree(lambda g, a: _mean_over(g, mesh, plain, a), grads, split))
         if compress_axis is not None:
             grads, new_err = compress.psum_compressed(grads, err_tree, compress_axis)
         loss = _mean_over(loss, mesh, axes)
         metrics = {k: _mean_over(v, mesh, axes) for k, v in metrics.items()}
-    split = None if tp is None else split_axes(cfg, tp)
     new_params, new_opt = adamw.update(grads, state.opt, state.params, opt_cfg, lr_scale,
                                        split=split)
     if tp is not None:

@@ -15,7 +15,7 @@ from typing import Any, Callable, List
 
 import torch
 
-__all__ = ["leaves", "paths", "unflatten", "map_tree", "abstract", "abstract_like"]
+__all__ = ["leaves", "leaves_at", "paths", "unflatten", "map_tree", "abstract", "abstract_like"]
 
 
 def _is_named_tuple(t) -> bool:
@@ -46,6 +46,15 @@ def leaves(tree) -> List[Any]:
     if items is None:
         return [tree]
     return [leaf for _, c in items for leaf in leaves(c)]
+
+
+def leaves_at(tree, like) -> List[Any]:
+    """The entries of ``tree`` at the leaves of ``like``, in leaf order: a
+    tuple there is one entry (a leaf's mesh axes), not a container."""
+    items = _items(like)
+    if items is None:
+        return [tree]
+    return [leaf for k, c in items for leaf in leaves_at(tree[k], c)]
 
 
 def unflatten(like, new_leaves) -> Any:

@@ -150,7 +150,7 @@ def paths_rank(rank: int, inp: dict) -> dict:
     blk = slice(r * T, (r + 1) * T)
     got, counts = moe._dispatch(m["p"], m["xt"][blk], m["gates"][blk], m["idx"][blk], m["cfg"])
     p = {k: (v.clone().requires_grad_() if k == "router" else v) for k, v in m["p"].items()}
-    with shr.use_mesh(d4):
+    with shr.use_mesh(d4), shr.split_tokens(("data",)):
         y, aux = moe.moe_ffn(p, m["x"][r:r + 1], m["cfg"])
         (g_router,) = torch.autograd.grad(aux, p["router"])
     out["moe"] = {"dispatch": got, "counts": comm.all_reduce(counts, d4, ["data"]),
@@ -349,4 +349,156 @@ def tp_rank(rank: int, inp: dict) -> dict:
     out["draws"] = {"init": [v.to_local() for v in tree.leaves(drawn)],
                     "convert": [v.to_local() for v in tree.leaves(cut)],
                     "placements": [str(tuple(v.placements)) for v in tree.leaves(drawn)]}
+    return out
+
+
+# --------------------------------------------- expert parallelism (data, model)
+
+def _data_pairs(rank: int):
+    """The two (data 2, model 1) meshes of ranks {0, 1} and {2, 3}, every
+    rank building both; returns this rank's."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    pairs = [DeviceMesh("cpu", torch.tensor([[2 * p], [2 * p + 1]]),
+                        mesh_dim_names=("data", "model")) for p in range(2)]
+    return pairs[rank // 2]
+
+
+def _ep_meshes():
+    from repro_torch.launch.mesh import make_mesh
+
+    return {"2x2": make_mesh((2, 2), ("data", "model"), "cpu"),
+            "4x1": make_mesh((4, 1), ("data", "model"), "cpu"),
+            "1x4": make_mesh((1, 4), ("data", "model"), "cpu")}
+
+
+def _row_block(mesh, n_rows: int) -> slice:
+    """This rank's rows of a batch split over 'data'."""
+    from repro_torch.sharding import rules as shr
+
+    n, i = shr.mesh_shape(mesh)["data"], shr.axis_index(mesh, "data")
+    return slice(i * n_rows // n, (i + 1) * n_rows // n)
+
+
+def _moe_kept(p, x, cfg):
+    """The kept mask of the rank's (token, choice) pairs, as the MoE FFN
+    routes them under the active mesh."""
+    from repro_torch.core import division_modes as dm
+    from repro_torch.models import moe
+
+    xt = x.reshape(-1, x.shape[-1])
+    probs = dm.softmax(xt.float() @ p["router"].float(), axis=-1, cfg=cfg.division)
+    _, idx = moe.top_k(probs, cfg.experts_per_tok)
+    return moe._assign(idx.reshape(-1), cfg, moe.route(cfg, xt.shape[0]))[1].reshape(idx.shape)
+
+
+def _remat_grads(c: dict, mesh) -> dict:
+    """The gradients of one remat train forward of the rank's rows, with the
+    backward pass run on this thread and on another one (where no mesh is
+    active, as autograd's device threads on the card)."""
+    import threading
+
+    from repro_torch import tree
+    from repro_torch.models import forward
+    from repro_torch.models.parallel import local_params, tensor_parallel
+    from repro_torch.sharding import rules as shr
+
+    cfg = c["cfg"]
+    out = {}
+    for where in ("same", "other"):
+        with shr.use_mesh(mesh):
+            params = local_params(cfg, c["params"], tensor_parallel(cfg))
+            live = [p.detach().clone().requires_grad_() for p in tree.leaves(params)]
+            toks = c["tokens"][_row_block(mesh, c["tokens"].shape[0])]
+            with shr.split_tokens(("data",)):
+                logits, _, aux = forward(cfg, tree.unflatten(params, live), tokens=toks,
+                                         mode="train")
+                loss = logits.square().mean() + aux
+                if where == "same":
+                    grads = torch.autograd.grad(loss, live)
+        if where == "other":
+            got = {}
+
+            def backward():
+                try:
+                    got["g"] = torch.autograd.grad(loss, live)
+                except Exception as e:            # reported: the test names it
+                    got["error"] = repr(e)
+
+            worker = threading.Thread(target=backward)
+            worker.start()
+            worker.join()
+            out["error"] = got.get("error")
+            grads = got.get("g", ())
+        out[where] = [g.detach() for g in grads]
+    return out
+
+
+def ep_rank(rank: int, inp: dict) -> dict:
+    """Every multi-rank check of tests/test_torch_expert_parallel.py, on one
+    of 4 CPU ranks: the data-parallel MoE FFN on two (data 2) pairs, the
+    MoE models' forward, split forward and greedy tokens on each layout,
+    the local dispatch, and the train steps (DTensor state, one checkpoint)."""
+    from repro_torch import convert, tree
+    from repro_torch.models import forward, init_params, moe
+    from repro_torch.models.parallel import tensor_parallel
+    from repro_torch.sharding import comm
+    from repro_torch.sharding import rules as shr
+    from repro_torch.train import step
+
+    out = {"fault": {}, "forward": {}, "split": {}, "generate": {}, "local": {}, "train": {}}
+    pair = _data_pairs(rank)
+    for key, (cfg, p, x) in inp["fault"].items():
+        xl = x[_row_block(pair, x.shape[0])]
+        with torch.no_grad(), shr.use_mesh(pair), shr.split_tokens(("data",)):
+            y, aux = moe.moe_ffn(p, xl, cfg)
+            out["fault"][key] = {"y": y, "aux": float(aux), "kept": _moe_kept(p, xl, cfg)}
+
+    meshes = _ep_meshes()
+    for (arch, layout), c in inp["cases"].items():
+        mesh = meshes[c["mesh"]]
+        with shr.use_mesh(mesh):
+            out["forward"][arch, layout] = _tp_forward(c)
+            toks = c["kw"]["tokens"]
+            with torch.no_grad(), shr.split_tokens(("data",)), comm.record() as ops:
+                logits, _, aux = forward(c["cfg"], c["params"], tokens=toks[
+                    _row_block(mesh, toks.shape[0])], mode="train")
+            out["split"][arch, layout] = {"logits": logits, "aux": float(aux),
+                                          "ops": [o["op"] for o in ops]}
+            out["generate"][arch, layout] = _tp_generate({**c, "cfg": c["gen_cfg"]})
+
+    for name, (cfg, p, x, mesh_name, split) in inp["local"].items():
+        mesh = meshes[mesh_name]
+        xl = x[_row_block(mesh, x.shape[0])] if split else x
+        blocks = shr.local_tree(p, tensor_parallel(cfg, mesh).shardings["groups"][1][
+            "layers"][0]["ffn"])
+        with torch.no_grad(), shr.use_mesh(mesh), shr.split_tokens(("data",) if split else ()):
+            y, aux = moe.moe_ffn(blocks, xl, cfg)
+        out["local"][name] = {"y": y, "aux": float(aux)}
+
+    out["remat"] = _remat_grads(inp["remat"], meshes["2x2"])
+
+    d = inp["draws"]
+    sh = shr.param_shardings(d["cfg"], meshes["2x2"])
+    drawn = init_params(d["cfg"], torch.Generator().manual_seed(d["seed"]), shardings=sh)
+    cut = convert.params_from_reference(d["reference"], d["cfg"], "cpu", shardings=sh)
+    out["draws"] = {"init": [v.to_local() for v in tree.leaves(drawn)],
+                    "convert": [v.to_local() for v in tree.leaves(cut)],
+                    "coord": dict(zip(("data", "model"), meshes["2x2"].get_coordinate()))}
+
+    t = inp["train"]["moonshot_4x1"]
+    try:
+        with shr.use_mesh(meshes["4x1"]):
+            step.train_step(t["cfg"], t["opt_cfg"], step.init_state(t["cfg"], t["params"],
+                                                                    t["opt_cfg"]),
+                            t["batch"], compress_axis="data")
+        out["compress_refusal"] = ""
+    except ValueError as e:
+        out["compress_refusal"] = str(e)
+
+    for name, t in inp["train"].items():
+        mesh = meshes[t["mesh"]]
+        out["train"][name] = _tp_train(t["cfg"], t["opt_cfg"], t["params"], t["batch"], mesh,
+                                       t["n_micro"], t.get("ckpt_dir"))
+        out["train"][name]["coord"] = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
     return out

@@ -99,15 +99,15 @@ def test_dryrun_and_report_clis_on_one_cell(tmp_path):
 
 
 def test_dryrun_cli_refuses_a_model_axis(tmp_path):
-    """A model axis of 16 under MoE layers: the cell fails naming the
-    ROADMAP item that would split the experts (the attention models run
-    it: test_torch_launch.py)."""
-    r = _run(["-m", "repro_torch.launch.dryrun", "--arch", "deepseek_moe_16b",
+    """A model axis of 16 under Mamba-2 layers: the cell fails naming the
+    ROADMAP item that would split the mixer (the attention and MoE models
+    run it: test_torch_launch.py)."""
+    r = _run(["-m", "repro_torch.launch.dryrun", "--arch", "mamba2_780m",
               "--shape", "decode_32k", "--mesh", "single", "--device", "cpu",
               "--out", str(tmp_path)])
     assert r.returncode != 0
-    assert "[FAIL] deepseek_moe_16b_decode_32k_single" in r.stdout
-    assert "item 23" in r.stdout
+    assert "[FAIL] mamba2_780m_decode_32k_single" in r.stdout
+    assert "item 22" in r.stdout
 
 
 # ----------------------------------------------------------- examples

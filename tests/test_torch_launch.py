@@ -361,13 +361,31 @@ def test_fake_inference_cells_trace_on_one_rank(kind):
             assert cell["memory"]["alias_bytes"] == 0
 
 
-def test_a_model_axis_cell_raises_naming_item_18():
+def test_a_model_axis_cell_raises_naming_item_18(tmp_path):
     """Since item 18 the attention models run a model axis (the test
-    below); a cell whose MoE or Mamba-2 layers it would split raises the
-    ValueError that names their ROADMAP item, before any process group
-    starts."""
-    with pytest.raises(ValueError, match="item 23"):
-        dryrun.run_cell("deepseek_moe_16b", "train_4k", False)
+    below), and since items 19 and 23 the MoE models too: deepseek's
+    train_4k cell (a fake process group of 256 ranks in a child; the kernel
+    mode, one microbatch) traces with its 64 experts on data (4 a rank)
+    and expert_mlp on model, its exchange an all-to-all over data (forward,
+    remat's recompute, backward) and the reduce-scatter of its all-gather's
+    backward, once per MoE layer each. A cell whose Mamba-2 layers a model
+    axis would split raises the ValueError that names item 22, before any
+    process group starts."""
+    out = tmp_path / "cell.json"
+    code = ("import json, sys; from repro_torch.launch import dryrun; "
+            "json.dump(dryrun.run_cell('deepseek_moe_16b', 'train_4k', False, "
+            "variant='kernels', n_micro=1, device='cpu'), open(sys.argv[1], 'w'))")
+    r = subprocess.run([sys.executable, "-c", code, str(out)], capture_output=True, text=True,
+                       timeout=600, cwd=ROOT,
+                       env={**os.environ, "PYTHONPATH": "src", "OMP_NUM_THREADS": "1"})
+    assert r.returncode == 0, r.stdout + r.stderr
+    cell = json.loads(out.read_text())
+    cfg = configs.get_config("deepseek_moe_16b")
+    n_moe = sum(s.ffn == "moe" for s in cfg.layer_specs())
+    assert cell["param_layout"] == "data+model" and n_moe == 27
+    data = cell["collectives"]["by_axis"]["data"]
+    assert data["all-to-all"]["count"] == 3 * n_moe
+    assert data["reduce-scatter"]["count"] == n_moe
     with pytest.raises(ValueError, match="item 22"):
         dryrun.run_cell("mamba2_780m", "decode_32k", False, variant="tp4")
     assert dryrun.apply_variant(configs.get_config("llama3_8b"), "tp1+kernels")[0] \

@@ -70,8 +70,7 @@ CASES = {"paper_fpdiv": ("paper_fpdiv", {}),
          "whisper_tiny": ("whisper_tiny", {}),
          "whisper_drops": ("whisper_tiny", {"n_heads": 6, "n_kv_heads": 6, "vocab": 257})}
 MESHES = {"1x4": 4, "2x2": 2, "1x2": 2}          # name: model-axis size
-REFUSED = {"deepseek_moe_16b": "item 23", "mamba2_780m": "item 22",
-           "jamba_1_5_large": "item 22"}
+REFUSED = {"mamba2_780m": "item 22", "jamba_1_5_large": "item 22"}
 TRAIN_BATCH, TRAIN_SEQ, N_MICRO = 8, 32, 2
 CLIP_SHARE = 0.5                  # grad_clip at this share of the gradients' norm
 
@@ -534,8 +533,9 @@ def test_a_rank_draws_and_converts_only_its_blocks(run):
 
 @pytest.mark.parametrize("arch", list(REFUSED))
 def test_ssm_and_moe_layers_refuse_a_model_axis(run, arch):
-    """Mamba-2 and MoE layers under model = 2 raise a ValueError naming
-    their ROADMAP item, on every rank: they never run replicated."""
+    """Mamba-2 layers under model = 2 raise a ValueError naming their
+    ROADMAP item, on every rank: they never run replicated (the MoE models
+    run split: test_torch_expert_parallel.py)."""
     for out in run["ranks"]:
         msg = out["refusals"][arch]
         assert REFUSED[arch] in msg and "model axis of 2" in msg
