@@ -12,6 +12,10 @@ source, in parallel), then runs, each phase printing one line:
                  2^22 seeded inputs per schedule, bit for bit;
   3. golden    — the reference's committed golden stores through the port
                  on the card, 0 int ulp (every cell, recip/ilm included);
+                 then the port's generators on the card into build/golden:
+                 every array of the reciprocal, divide and rsqrt stores
+                 equal to the committed one, the softmax store's int-ulp
+                 distance on its oracle-normal lanes reported (<= 16);
   4. gradients — autograd through div and rsqrt, against the analytic rule
                  evaluated with the plain versions on the card;
   5. kmeans    — K-Means at N=10^6, D=128, K=1024, 10 Lloyd steps (an
@@ -147,7 +151,7 @@ source, in parallel), then runs, each phase printing one line:
                  4096 x 64 x 64 both ways, bit-equal to the batched run
                  (position-weighted fingerprints of Q and R a rank);
                  paper_fpdiv trained on a ("pod", "data") = (2, 1) mesh
-                 with compress_axis="pod", 3 steps of 16 x 2048 tokens a
+                 with compress_axis="pod", 2 steps of 16 x 2048 tokens a
                  rank: the ranks' parameters bit-equal after every step,
                  step 1's int8 mean within max|g'|/127 + 1e-6 of the
                  exact f32 mean (the max over the reference's tensor: a
@@ -156,17 +160,18 @@ source, in parallel), then runs, each phase printing one line:
  13d. tp       — tensor parallelism over the model axis (models/parallel.py),
                  its ranks sharing the card over gloo (every all-reduce
                  through host copies: not a speed figure): llama3_8b at
-                 full width and depth on (data 1, model 2) in bf16 (the
-                 ranks' blocks drawn from --seed): generate_batch over
-                 MODEL_LENS prompts, 32 new tokens each, 32 softmax and 65
-                 RMSNorm launches a forward and rank, every call of one
+                 full width, cut to TP_SERVE_DEPTH (16) layers, on (data 1,
+                 model 2) in bf16 (the ranks' blocks drawn from --seed):
+                 generate_batch over MODEL_LENS prompts, 32 new tokens
+                 each, 16 softmax and 33 RMSNorm launches a forward and
+                 rank, every call of one
                  prefill and one decode step held bit for bit to its plain
                  version, tokens against this process's unsharded run
                  (reported); in f32 at TP_F32_DEPTH layers the gate of
                  test_decode_equiv against the unsharded run (>= 99% of
                  teacher-forced tokens, logit drift < 5e-3) and serve()
                  with 2 slots against generate_batch; then paper_fpdiv
-                 trained on (data 2, model 2), 3 steps of 8 x 2048 tokens,
+                 trained on (data 2, model 2), 2 steps of 8 x 2048 tokens,
                  2 microbatches a data rank: 48 softmax / 98 RMSNorm / 111
                  reciprocal launches a step and rank, every call of step 1
                  held to plain on rank 0, replicated leaves bit-equal on
@@ -191,12 +196,34 @@ source, in parallel), then runs, each phase printing one line:
                  4 layers on (2, 2), its AdamW moments in bf16 (the four
                  ranks' states share the card), the batch split over data
                  (the expert exchange: all-to-all and all-gather over
-                 data), 3 steps, the launches a step from the code, every
+                 data), 2 steps, the launches a step from the code, every
                  call of step 1 held to plain on rank 0, each leaf
                  bit-equal on the ranks that hold the same block; one f32
                  step at 2 layers against the single-process step (loss, m
                  and v at the tp phase's bounds, the parameters where the
                  gradient's sign is resolved, PERF.md §6); the
+                 collectives' share of the prefill, the decode steps and
+                 the train steps;
+ 13f. tp_ssm   — (run fourth, after ep) the Mamba-2 mixer split by heads
+                 over the model axis (models/mamba2.py over
+                 models/parallel.py's plan), its ranks sharing the card
+                 over gloo: mamba2_780m at full width and depth and
+                 jamba_1_5_large at its 5-layer cut on (data 1, model 2)
+                 in bf16: generate_batch over 4 prompts of 512 .. 128
+                 tokens, 8 new each, the unsharded serving phases'
+                 launches a forward and rank (97 RMSNorm; 3 softmax / 15
+                 RMSNorm / 2 reciprocal), every call of one prefill and
+                 one decode step held to plain on each rank; in f32
+                 (mamba2 at full depth, jamba at 2 layers, capacity factor
+                 8) the gate of test_decode_equiv against this process's
+                 unsharded run and serve() against generate_batch; then
+                 mamba2_780m trained at full width and depth on (2, 2), 2
+                 steps of 8 x 256 tokens split over data, f32 moments,
+                 the launches a step from the code, every call of step 1
+                 held to plain on rank 0, each leaf bit-equal on the ranks
+                 that hold the same block; one f32 step at 8 layers
+                 against the single-process step, leaf by leaf in the L2
+                 norm; the
                  collectives' share of the prefill, the decode steps and
                  the train steps;
  14. ilm serve — paper_fpdiv at full width in mode="ilm", teacher-forced
@@ -225,7 +252,7 @@ source, in parallel), then runs, each phase printing one line:
                  from torch.profiler, and ``library_device_ms`` (flash: also
                  ``library_kernels``, the device kernels of the SDPA call).
 
-Phases 4-6, 9, 9a-9g, 12, 13, 13a, 13c and 13d are the main path: launch counts are reset before
+Phases 4-6, 9, 9a-9g, 12, 13, 13a, 13c, 13d, 13e and 13f are the main path: launch counts are reset before
 each and read after it. The command's wall time, the build included, is
 printed on a ``wall`` line. Any failed check raises, and the script then exits non-zero
 without printing a result. It needs a CUDA card and the repository around
@@ -532,15 +559,45 @@ def phase_kernels(seed: int):
     return err
 
 
+GOLDEN_OUT = ROOT / "build" / "golden"     # the generators' stores (build/ is gitignored)
+
+
 def phase_golden():
+    """The committed stores checked through the port on the card (0 int
+    ulp), then regenerated there into GOLDEN_OUT: every array of the
+    reciprocal, divide and rsqrt stores equal to the committed one, the
+    softmax store's int-ulp distance on its oracle-normal lanes reported
+    and held to golden.SOFTMAX_TOLERANCE_ULP."""
     from repro_torch.eval import golden
 
     failures = (golden.check(device="cuda") + golden.check_divide(device="cuda")
                 + golden.check_rsqrt(device="cuda"))
     n = (len(golden.golden_cells()) + len(golden.golden_div_cells())
          + len(golden.golden_rsqrt_cells()))
-    say("golden", cells=n, failures=failures)
+    t0 = time.perf_counter()
+    differing = {}
+    for gen, committed in ((golden.generate, golden.GOLDEN_PATH),
+                           (golden.generate_divide, golden.DIVIDE_PATH),
+                           (golden.generate_rsqrt, golden.RSQRT_PATH)):
+        path = gen(GOLDEN_OUT / committed.name, device="cuda")
+        with np.load(path) as got, np.load(committed) as want:
+            keys = [k for k in want.files if k != "meta"]
+            # Bit patterns, so that a nan input is equal to itself.
+            differing[committed.name] = {
+                k: int((got[k].view(np.uint32) != want[k].view(np.uint32)).sum())
+                if k in got.files else -1 for k in keys}
+    golden.generate_softmax(GOLDEN_OUT / golden.SOFTMAX_PATH.name, device="cuda")
+    drift = golden.softmax_drift(device="cuda")
+    say("golden", cells=n, failures=failures, generated=str(GOLDEN_OUT),
+        generated_arrays_differing=differing, generate_s=time.perf_counter() - t0,
+        softmax_max_int_ulp={k: v["max_ulp"] for k, v in drift.items()},
+        softmax_lanes_differing={k: v["lanes"] for k, v in drift.items()},
+        softmax_tolerance_ulp=golden.SOFTMAX_TOLERANCE_ULP)
     check(not failures, f"golden cells drifted: {failures}")
+    check(all(v == 0 for d in differing.values() for v in d.values()),
+          f"a generated store differs from the committed one: {differing}")
+    check(all(v["max_ulp"] <= golden.SOFTMAX_TOLERANCE_ULP for v in drift.values()),
+          f"the softmax store drifted past {golden.SOFTMAX_TOLERANCE_ULP} int ulp: {drift}")
 
 
 def phase_gradients(seed: int):
@@ -1824,7 +1881,7 @@ MESH_PLANE = (N_PLANE, 1024)    # the K-Means distance plane
 MESH_CHUNK_ROWS = 15625         # the plane in 64 chunks of 15625 x 1024, 32 a rank
 MESH_KM_ITERS = 10              # the K-Means cell (N_PLANE, D, K)
 MESH_QR = (4096, 64, 64)
-MESH_TRAIN_STEPS = 3            # the train phase's 32 x 2048 step, 16 x 2048 a rank
+MESH_TRAIN_STEPS = 2            # the train phase's 32 x 2048 step, 16 x 2048 a rank
 MESH_TIMEOUT_S = 600.0
 
 
@@ -2316,12 +2373,16 @@ def phase_times_mesh(err: dict, launches: dict, mesh: dict) -> list:
 
 TP_ARCH = "llama3_8b"
 TP_SERVE_MESH = (1, 2)            # (data, model): llama3_8b served on 2 ranks
-TP_F32_DEPTH = 16                 # the f32 gate's depth (half of 32: the ep phase takes the time)
+# The command must stay well inside its time limit beside the ep and tp_ssm
+# phases: the timed bf16 run is cut to 16 of llama3_8b's 32 layers, the f32
+# gate to 8.
+TP_SERVE_DEPTH = 16
+TP_F32_DEPTH = 8
 TP_SERVE_LENS = (512, 384, 256, 128)   # f32 serve() against generate_batch
 TP_TRAIN_MESH = (2, 2)            # paper_fpdiv trained on 4 ranks
 TP_TRAIN_BATCH = 8                # x TRAIN_SEQ tokens a step: 4 a data rank, 2 microbatches
 TP_TRAIN_MICRO = 2
-TP_TRAIN_STEPS = 3
+TP_TRAIN_STEPS = 2
 TP_STEP_RTOL = {"params": 1e-4, "m": 1e-5, "v": 1e-5}   # tests/test_torch_tensor_parallel.py
 TP_TIMEOUT_S = 900.0
 
@@ -2477,7 +2538,7 @@ def tp_want(seed: int) -> dict:
     TP_F32_DEPTH in f32 the greedy stream and its logits (replay)."""
     from repro_torch.serving import ServingEngine
 
-    cfg, params, prompts = tp_model(seed, None, "bfloat16")
+    cfg, params, prompts = tp_model(seed, None, "bfloat16", n_layers=TP_SERVE_DEPTH)
     eng = ServingEngine(cfg, params, max_len=cache_len(cfg, prompts, MODEL_NEW))
     bf16 = tp_timed(eng, prompts)
     del eng, params
@@ -2505,7 +2566,7 @@ def tp_serve_rank(rank: int, seed: int, teacher) -> dict:
 
     mesh = tp_mesh(TP_SERVE_MESH)
     out = {}
-    cfg, params, prompts = tp_model(seed, mesh, "bfloat16")
+    cfg, params, prompts = tp_model(seed, mesh, "bfloat16", n_layers=TP_SERVE_DEPTH)
     out["allreduce_ms"] = allreduce_times(mesh, len(MODEL_LENS) * max(MODEL_LENS), cfg.d_model)
     err = {"softmax_f32": 0.0, "rmsnorm_f32": 0.0, "tsdiv_recip": 0.0}
     with shr.use_mesh(mesh):
@@ -2662,7 +2723,7 @@ def phase_tp(seed: int, launches: dict, err: dict) -> dict:
     """The tp phase: tensor parallelism over the model axis, its ranks
     sharing the one card over gloo (every all-reduce through host copies:
     the times are not a speed figure). Serving: TP_ARCH at full width and
-    depth on TP_SERVE_MESH in bf16 (32 softmax and 65 RMSNorm launches a
+    depth TP_SERVE_DEPTH on TP_SERVE_MESH in bf16 (16 softmax and 33 RMSNorm launches a
     forward and rank; every call of one prefill and one decode step held to
     plain on each rank; tokens against this process's unsharded run,
     reported), and in f32 at TP_F32_DEPTH the gate of test_decode_equiv
@@ -2701,8 +2762,8 @@ def phase_tp(seed: int, launches: dict, err: dict) -> dict:
     from repro_torch.configs import get_config
 
     # One softmax an attention layer, two RMSNorms a block and the final
-    # one: 32 and 65 on llama3_8b.
-    depth = get_config(TP_ARCH).n_layers
+    # one: 16 and 33 at TP_SERVE_DEPTH.
+    depth = TP_SERVE_DEPTH
     per_forward = {"softmax_f32": depth, "rmsnorm_f32": 2 * depth + 1}
     forwards = 1 + MODEL_NEW
     n_tok = len(MODEL_LENS) * MODEL_NEW
@@ -2814,7 +2875,7 @@ EP_TRAIN_DEPTH = 4                # AdamW's f32 moments of all 16.4 B would be 1
 EP_TRAIN_OPT_DTYPE = "bfloat16"
 EP_F32_STEP_DEPTH = 2             # the f32 step beside the single-process one
 EP_TRAIN_BATCH, EP_TRAIN_SEQ = 4, 1024   # 2 rows a data rank, 1 a microbatch
-EP_TRAIN_MICRO, EP_TRAIN_STEPS = 2, 3
+EP_TRAIN_MICRO, EP_TRAIN_STEPS = 2, 2
 EP_TIMEOUT_S = 900.0
 
 
@@ -2916,6 +2977,36 @@ def ep_train_launches(cfg, n_micro: int, n_leaves: int) -> dict:
     return {"softmax_f32": n_micro * (cfg.n_layers + n_moe) * runs,
             "rmsnorm_f32": n_micro * (2 * cfg.n_layers * runs + 1),
             "tsdiv_recip": n_micro * n_moe * runs + n_leaves}
+
+
+def on_rank0(x):
+    """The global value of the DTensor ``x`` on rank 0, on the host (None on
+    the other ranks): each rank sends its block to rank 0 once (a gather
+    over the default group), where an all-gather through every mesh axis
+    would hand every rank the whole leaf."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Shard
+
+    local = x.to_local().detach().to("cpu").contiguous()
+    parts = ([torch.empty_like(local) for _ in range(dist.get_world_size())]
+             if dist.get_rank() == 0 else None)
+    dist.gather(local, parts, dst=0)
+    if parts is None:
+        return None
+    mesh = x.device_mesh
+    coords = {int(r): c for c, r in np.ndenumerate(mesh.mesh.numpy())}
+    out = torch.empty(tuple(x.shape), dtype=local.dtype)
+    for r, part in enumerate(parts):
+        where = []
+        for d in range(x.dim()):
+            n, i = 1, 0
+            for md, pl in enumerate(x.placements):       # the first mesh axis major
+                if isinstance(pl, Shard) and pl.dim == d:
+                    n, i = n * mesh.shape[md], i * mesh.shape[md] + coords[r][md]
+            step = x.shape[d] // n
+            where.append(slice(i * step, (i + 1) * step))
+        out[tuple(where)] = part
+    return out
 
 
 def ep_train_rank(rank: int, seed: int) -> dict:
@@ -3027,7 +3118,7 @@ def ep_train_rank(rank: int, seed: int) -> dict:
     batch = batch_of(EP_TRAIN_STEPS)
     with shr.use_mesh(mesh):
         new, metrics = ts.train_step(cfg32, opt32, state, batch, n_micro=EP_TRAIN_MICRO)
-    got = {k: [shr.global_tensor(t).cpu() for t in tree.leaves(v)]
+    got = {k: [on_rank0(t) for t in tree.leaves(v)]
            for k, v in (("params", new.params), ("m", new.opt.m), ("v", new.opt.v))}
     ep_loss = float(metrics["loss"])
     del new, state
@@ -3038,38 +3129,7 @@ def ep_train_rank(rank: int, seed: int) -> dict:
     params = init_params(cfg32, torch.Generator(device=DEVICE).manual_seed(seed))
     single, m1 = ts.train_step(cfg32, opt32, ts.init_state(cfg32, params, opt32), batch,
                                n_micro=EP_TRAIN_MICRO)
-    want = {"params": single.params, "m": single.opt.m, "v": single.opt.v}
-    rel = {k: [float((g.to(DEVICE) - w).abs().max()) / float(w.abs().max())
-               for g, w in zip(got[k], tree.leaves(want[k]))] for k in got}
-    # On step 1 AdamW moves every element by lr * m_hat / (sqrt(v_hat) + eps)
-    # ~ lr * sign(g): an element whose gradient lies below the sum-order
-    # noise of the two runs (the m gate's resolution) may take the other
-    # sign, a move of up to 2 lr (PERF.md §6). The parameters are held
-    # to TP_STEP_RTOL where the single run's first moment is above that
-    # resolution; the others are counted, and held to one step's reach.
-    resolved, unresolved = [], {"elements": 0, "over_bound": 0, "max_abs_diff": 0.0}
-    for g, w, m in zip(got["params"], tree.leaves(want["params"]), tree.leaves(want["m"])):
-        d = (g.to(DEVICE) - w).abs()
-        sure = m.abs() > TP_STEP_RTOL["m"] * float(m.abs().max())
-        resolved.append(float(torch.where(sure, d, 0).max()) / float(w.abs().max()))
-        unresolved["elements"] += int((~sure).sum())
-        unresolved["over_bound"] += int(((d > TP_STEP_RTOL["params"] * float(w.abs().max()))
-                                         & ~sure).sum())
-        unresolved["max_abs_diff"] = max(unresolved["max_abs_diff"],
-                                         float(torch.where(sure, 0, d).max()))
-    paths = tree.paths(want["params"])
-    i = int(np.argmax(rel["params"]))
-    diff = (got["params"][i].to(DEVICE) - tree.leaves(want["params"])[i]).abs().reshape(-1)
-    j = int(diff.argmax())
-    out["f32_step"] = {"loss": ep_loss, "single_loss": float(m1["loss"]),
-                       "loss_rel": abs(ep_loss - float(m1["loss"])) / abs(float(m1["loss"])),
-                       "worst_over_leaf_max": {k: max(v) for k, v in rel.items()},
-                       "params_resolved_worst_over_leaf_max": max(resolved),
-                       "params_unresolved": {**unresolved, "one_step_reach": 2 * opt32.lr},
-                       "params_worst_element": {
-                           "path": paths[i], "m_ep": float(got["m"][i].reshape(-1)[j]),
-                           "m_single": float(tree.leaves(want["m"])[i].reshape(-1)[j]),
-                           "m_leaf_max": float(tree.leaves(want["m"])[i].abs().max())}}
+    out["f32_step"] = step_gate(got, single, ep_loss, float(m1["loss"]), opt32.lr)
     return out
 
 
@@ -3203,17 +3263,536 @@ def phase_ep(seed: int, launches: dict, err: dict) -> dict:
         peak_gib=[o["peak_gib"] for o in ranks], f32_step_depth=EP_F32_STEP_DEPTH,
         f32_step=f32, ranks_s=train_s,
         note="4 ranks share one card over gloo; rank 0's step 1 includes its held calls")
-    check(f32["loss_rel"] <= 1e-5, f"ep train f32: loss {f32['loss_rel']} relative")
+    check_step_gate("ep", f32)
+    return {"serve_s": serve_s, "train_s": train_s}
+
+
+# -------------------------------------------------------------- the tp_ssm phase
+
+SSM_TP_MESH = (1, 2)              # (data, model): the Mamba-2 mixers by heads on 2 ranks
+SSM_TP_SERVED = (SSM, HYBRID)     # mamba2_780m at full depth; jamba at its 5-layer cut
+SSM_TP_LENS = TP_SERVE_LENS       # (512, 384, 256, 128): the tp phase's f32 serve() prompts
+SSM_TP_NEW = 8
+SSM_TP_TRAIN_MESH = (2, 2)        # mamba2_780m trained on 4 ranks at full width and depth
+SSM_TP_TRAIN_BATCH, SSM_TP_TRAIN_SEQ = 8, 256   # 4 rows a data rank, 2 a microbatch
+SSM_TP_TRAIN_MICRO, SSM_TP_TRAIN_STEPS = 2, 2
+# The f32 step's depth: its state is gathered through host copies (params,
+# m and v of all 48 layers: 9.4 GB in f32) before it is held to the single
+# process, which took most of a minute on the H100.
+SSM_TP_F32_STEP_DEPTH = 8
+SSM_TP_TIMEOUT_S = 900.0
+# The f32 step against the single process. At full width the Mamba leaves'
+# gradients (A_log, dt_bias, conv_B / conv_C, wB / wC: sums over every token
+# and head, with much cancellation) carry a sum-order noise far above
+# TP_STEP_RTOL's elementwise 1e-5 of a leaf's max: m 3.9e-4 to 1.4e-3 and v
+# 3.8e-4 to 2.2e-3 there, the more the fewer tokens a step has (8 x 1024, 8 x
+# 256 and 4 x 256 tokens; PERF.md §6, tp_ssm), and AdamW's first step moves an
+# element by ~lr * sign(g), so where g lies below that noise the two runs'
+# parameters differ by up to 2 lr (PERF.md §6, ep). So the step is held
+# leaf by leaf in the L2 norm: m and v within SSM_TP_STATE_L2 of the leaf's
+# norm (read 2.2e-4 and 3.2e-4 on 8 x 256 tokens, 7.2e-4 and 1.9e-3 on 4 x
+# 256; on the CPU at full width and 3 layers 1.7e-5 and 2.0e-5,
+# tools/ssm_step_noise.py), the parameters within SSM_TP_PARAMS_L2 (1.3e-4
+# and 1.8e-4; the CPU 1.8e-5; the zero-init A_log
+# and dt_bias, whose norm is the step's own, are not) and every parameter
+# within one AdamW step's reach, 2 lr, plus TP_STEP_RTOL of its leaf's
+# largest value. A missing sum over a mesh axis moves m by 7-8% and v by 15%
+# of a leaf's largest value (tests/test_torch_ssm_parallel.py run on a copy
+# with the wB / wC sum dropped), past either bound.
+SSM_TP_STATE_L2 = 1e-2
+SSM_TP_PARAMS_L2 = 1e-3
+
+
+def in_turn(fn):
+    """``fn()`` on each rank of the process group in turn, the others
+    waiting at a barrier, and the cache it leaves freed: each rank's
+    ``init_params(shardings=)`` draws every leaf whole before it keeps its
+    block (jamba's expert leaves are 12.9 GB in f32), and two ranks doing
+    so at once do not fit beside their blocks on the shared card."""
+    import torch.distributed as dist
+
+    out = None
+    for r in range(dist.get_world_size()):
+        if dist.get_rank() == r:
+            out = fn()
+            sync()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return out
+
+
+def ssm_model(sv: Serving, seed: int, mesh, param_dtype: str, lens, **repl):
+    """``sv.arch`` at full width from ``seed`` as model_setup draws it
+    (``repl`` cuts its depth), the rank keeping its blocks
+    (``init_params(shardings=)``, the ranks drawing in turn), in
+    taylor_pallas, with prompts of ``lens``; with ``mesh`` None the whole
+    model here."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.sharding import rules as shr
+
+    cfg = dataclasses.replace(get_config(sv.arch), param_dtype=param_dtype, **repl)
+    cfg = dataclasses.replace(cfg, division=dm_config("taylor_pallas"))
+    draw = lambda sh=None: init_params(cfg, torch.Generator(device=DEVICE).manual_seed(seed),
+                                       shardings=sh)
+    params = draw() if mesh is None else in_turn(lambda: draw(shr.param_shardings(cfg, mesh)))
+    rng = np.random.default_rng(seed + 11)
+    return cfg, params, [rng.integers(1, cfg.vocab, n).tolist() for n in lens]
+
+
+def ssm_gate(sv: Serving) -> tuple:
+    """(config replacements, prompt lengths) of ``sv``'s f32 gate: its
+    gate depth and capacity factor; jamba's prompts of 512 and 256."""
+    repl = dict(sv.gate_depth)
+    if sv.gate_cf is not None:
+        repl["capacity_factor"] = sv.gate_cf
+    return repl, sv.gate_lens or SSM_TP_LENS
+
+
+def ssm_want(seed: int) -> dict:
+    """This process's unsharded f32 runs at each served model's gate: the
+    greedy stream and its logits (replay)."""
+    from repro_torch.serving import ServingEngine
+
+    out = {}
+    for sv in SSM_TP_SERVED:
+        repl, lens = ssm_gate(sv)
+        cfg, params, prompts = ssm_model(sv, seed, None, "float32", lens, **repl)
+        torch.cuda.reset_peak_memory_stats()
+        eng = ServingEngine(cfg, params, max_len=cache_len(cfg, prompts, SSM_TP_NEW))
+        teacher, logits = replay(eng, prompts, SSM_TP_NEW)
+        out[sv.phase] = {"teacher": teacher, "logits": logits.cpu(), "depth": cfg.n_layers,
+                         "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        del eng, params, logits
+        torch.cuda.empty_cache()
+    return out
+
+
+def ssm_serve_rank(rank: int, seed: int, teachers: dict) -> dict:
+    """One rank of the tp_ssm phase's serving part on SSM_TP_MESH, for each
+    model of SSM_TP_SERVED: bf16 at full width and its serving depth (the
+    timed generate_batch, every kernel call of one prefill and one decode
+    step held to its plain version), then f32 at its gate (the replay
+    under the unsharded run's teacher stream, generate_batch and serve()
+    with MODEL_SLOTS slots)."""
+    from repro_torch import tree
+    from repro_torch.models.parallel import tensor_parallel
+    from repro_torch.serving import Request, ServingEngine
+    from repro_torch.sharding import rules as shr
+
+    mesh = tp_mesh(SSM_TP_MESH)
+    out = {}
+    for sv in SSM_TP_SERVED:
+        o, t0 = {}, time.perf_counter()
+        cfg, params, prompts = ssm_model(sv, seed, mesh, "bfloat16", SSM_TP_LENS, **sv.depth)
+        o["init_s"] = time.perf_counter() - t0
+        o["ssm_split"] = tensor_parallel(cfg, mesh).ssm
+        err = {"softmax_f32": 0.0, "rmsnorm_f32": 0.0, "tsdiv_recip": 0.0}
+        with shr.use_mesh(mesh):
+            eng = ServingEngine(cfg, params, max_len=cache_len(cfg, prompts, SSM_TP_NEW))
+            o["bf16"] = tp_timed(eng, prompts, SSM_TP_NEW)
+            t0 = time.perf_counter()
+            rows, _ = held_calls(eng, prompts, err, recip="tsdiv_recip" in sv.per_forward,
+                                 keep=set())
+            o["held"] = {"rows": rows, "err": err, "seconds": time.perf_counter() - t0}
+        o["param_gib"] = sum(t.to_local().numel() * t.to_local().element_size()
+                             for t in tree.leaves(params)) / 2**30
+        del eng, params
+        torch.cuda.empty_cache()
+        repl, lens = ssm_gate(sv)
+        t0 = time.perf_counter()
+        cfg, params, prompts = ssm_model(sv, seed, mesh, "float32", lens, **repl)
+        o["f32_init_s"] = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        with shr.use_mesh(mesh):
+            eng = ServingEngine(cfg, params, max_len=cache_len(cfg, prompts, SSM_TP_NEW))
+            t0 = time.perf_counter()
+            picks, logits = replay(eng, prompts, SSM_TP_NEW, teachers[sv.phase])
+            o["f32_replay_s"] = time.perf_counter() - t0
+            o["f32_picks"], o["f32_logits"] = picks, logits.cpu()
+            del logits
+            gb = eng.generate_batch(prompts, SSM_TP_NEW)
+            reqs = [Request(list(p), max_new=SSM_TP_NEW) for p in prompts]
+            t0 = time.perf_counter()
+            eng.serve(reqs, slots=MODEL_SLOTS)
+            o["f32_serve_s"] = time.perf_counter() - t0
+        o["f32_generate_batch"], o["f32_serve"] = gb, [r.out for r in reqs]
+        o["f32_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        del eng, params
+        torch.cuda.empty_cache()
+        out[sv.phase] = o
+    return out
+
+
+def ssm_train_config(param_dtype: str, **repl):
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(SSM.arch), param_dtype=param_dtype, **repl)
+    return dataclasses.replace(cfg, division=dm_config("taylor_pallas"))
+
+
+def ssm_train_launches(cfg, n_micro: int, n_leaves: int) -> dict:
+    """Launches per step and rank of a Mamba-2 model with no FFN, from the
+    code: per microbatch two RMSNorms per block (the block norm and the
+    gated norm over d_inner, on the gathered rows) plus the final one,
+    each block's again in the backward pass when ``cfg.remat``; one
+    reciprocal per parameter leaf in AdamW."""
+    runs = 1 + cfg.remat
+    return {"rmsnorm_f32": n_micro * (2 * cfg.n_layers * runs + 1), "tsdiv_recip": n_leaves}
+
+
+def ssm_train_rank(rank: int, seed: int) -> dict:
+    """One rank of the tp_ssm phase's training part on SSM_TP_TRAIN_MESH:
+    mamba2_780m at full width, SSM_TP_TRAIN_STEPS steps in bf16 on
+    SyntheticLM batches split over data (launches, every kernel call of
+    the first step held to its plain version on rank 0, each leaf compared
+    across the ranks that hold the same block after every step), then one
+    f32 step from the same seed, its state gathered, and on rank 0 the
+    single-process step on the same global batch."""
+    import torch.distributed as dist
+
+    from repro_torch import tree
+    from repro_torch.core.seeds import rsqrt_seed_table
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels import common, rmsnorm, tsdiv
+    from repro_torch.core.seeds import compute_segments
+    from repro_torch.models import init_params
+    from repro_torch.models.params import model_specs
+    from repro_torch.models.parallel import split_axes, tensor_parallel
+    from repro_torch.optim import adamw
+    from repro_torch.sharding import rules as shr
+    from repro_torch.train import step as ts
+
+    mesh = tp_mesh(SSM_TP_TRAIN_MESH)
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    mods = (rmsnorm, tsdiv)
+    cfg = ssm_train_config("bfloat16")
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=SSM_TP_TRAIN_SEQ,
+                                  global_batch=SSM_TP_TRAIN_BATCH, seed=seed))
+    batch_of = lambda s: {k: torch.from_numpy(v).to(DEVICE) for k, v in data.batch(s).items()}
+
+    def placed(cfg):
+        sh = shr.param_shardings(cfg, mesh)
+        params = init_params(cfg, torch.Generator(device=DEVICE).manual_seed(seed), shardings=sh)
+        opt_cfg = adamw.AdamWConfig(state_dtype=cfg.opt_state_dtype, division=cfg.division)
+        return opt_cfg, ts.init_state(cfg, params, opt_cfg)
+
+    opt_cfg, state = placed(cfg)
+    plan = tensor_parallel(cfg, mesh)
+    split = tree.leaves_at(split_axes(cfg, plan), plan.shardings)
+    block = [tuple(coord[a] for a in (axes or ())) for axes in split]
+    real = (rmsnorm.rmsnorm, tsdiv.recip)
+    held = []
+
+    def rms_spy(x, w, eps=1e-6, newton_iters=2, n_segments=16):
+        got = real[0](x, w, eps, newton_iters, n_segments)
+        held.append(("rmsnorm_f32",) + rows_held(got, lambda xs: rmsnorm.rmsnorm_plain(
+            xs, w, eps, rsqrt_seed_table(n_segments), newton_iters), x))
+        return got
+
+    def recip_spy(x, n_iters=2, precision_bits=24, schedule="factored"):
+        got = real[1](x, n_iters, precision_bits, schedule)
+        table = compute_segments(n_iters, precision_bits)
+        held.append(("tsdiv_recip",) + held_to_plain(got, lambda v: common.recip_f32_bits(
+            v, table, n_iters, schedule), x))
+        return got
+
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for s in range(SSM_TP_TRAIN_STEPS):
+        batch = batch_of(s)
+        for m in mods:
+            m.reset_launches()
+        spying = s == 0 and rank == 0
+        if spying:
+            rmsnorm.rmsnorm, tsdiv.recip = rms_spy, recip_spy
+        sync()
+        t0 = time.perf_counter()
+        try:
+            with shr.use_mesh(mesh), CollectiveClock() as clock:
+                state, metrics = ts.train_step(cfg, opt_cfg, state, batch,
+                                               n_micro=SSM_TP_TRAIN_MICRO)
+                loss = float(metrics["loss"])
+                sync()
+        finally:
+            rmsnorm.rmsnorm, tsdiv.recip = real
+        wall = time.perf_counter() - t0
+        prints = [fingerprint(t.to_local()) for t in
+                  tree.leaves((state.params, state.opt.m, state.opt.v))]
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, (block, prints))
+        n = len(split)
+        same_block = all(e[1][i + k * n] == o[1][i + k * n]
+                         for e in every for o in every for k in range(3) for i in range(n)
+                         if e[0][i] == o[0][i])
+        steps.append({"ms": wall * 1e3, "loss": loss, "spied": spying,
+                      "collectives": {"count": clock.count, "bytes": clock.bytes,
+                                      "seconds": clock.seconds, "share": clock.seconds / wall},
+                      "launches": {k: v for m in mods for k, v in m.LAUNCHES.items() if v},
+                      "same_blocks_bit_equal": same_block})
+    out = {"steps": steps, "n_leaves": len(split), "n_split": sum(a is not None for a in split),
+           "ssm_split": plan.ssm, "held": [(k, int(b), float(e)) for k, b, e in held],
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    del state
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    cfg32 = ssm_train_config("float32", n_layers=SSM_TP_F32_STEP_DEPTH)
+    opt32, state = placed(cfg32)
+    batch = batch_of(SSM_TP_TRAIN_STEPS)
+    with shr.use_mesh(mesh):
+        new, metrics = ts.train_step(cfg32, opt32, state, batch, n_micro=SSM_TP_TRAIN_MICRO)
+    got = {k: [on_rank0(t) for t in tree.leaves(v)]
+           for k, v in (("params", new.params), ("m", new.opt.m), ("v", new.opt.v))}
+    mesh_loss = float(metrics["loss"])
+    del new, state
+    torch.cuda.empty_cache()
+    out["f32_mesh_s"] = time.perf_counter() - t0
+    dist.barrier()             # the other ranks' states are gone before rank 0's step
+    if rank != 0:
+        return out
+    t0 = time.perf_counter()
+    params = init_params(cfg32, torch.Generator(device=DEVICE).manual_seed(seed))
+    single, m1 = ts.train_step(cfg32, opt32, ts.init_state(cfg32, params, opt32), batch,
+                               n_micro=SSM_TP_TRAIN_MICRO * SSM_TP_TRAIN_MESH[0])
+    zero = [p.init == "zeros" for p in tree.leaves(model_specs(cfg32))]
+    out["f32_step"] = l2_gate(got, single, mesh_loss, float(m1["loss"]), opt32.lr, zero)
+    out["f32_single_s"] = time.perf_counter() - t0
+    return out
+
+
+def l2_gate(got: dict, single, mesh_loss: float, single_loss: float, lr: float,
+            zero_init: list) -> dict:
+    """A mesh step's gathered state (``got``: params, m, v leaf lists, on
+    the host) against the single-process step ``single``, leaf by leaf:
+    the L2 distance over the leaf's norm (``l2``; not for the zero-init
+    leaves' parameters) and the largest elementwise distance over its
+    largest value (``max``), the leaves past SSM_TP_STATE_L2 (m, v) or
+    SSM_TP_PARAMS_L2, and the parameters past 2 lr + TP_STEP_RTOL of their
+    leaf's largest value."""
+    from repro_torch import tree
+
+    out = {"loss": mesh_loss, "single_loss": single_loss,
+           "loss_rel": abs(mesh_loss - single_loss) / abs(single_loss)}
+    paths = tree.paths(single.params)
+    for k, want in (("params", single.params), ("m", single.opt.m), ("v", single.opt.v)):
+        rows = []
+        for path, g, w, z in zip(paths, got[k], tree.leaves(want), zero_init):
+            d = (g.to(DEVICE) - w).abs()
+            top, norm = float(w.abs().max()), float(w.norm())
+            l2 = 0.0 if (k == "params" and z) or not norm else float(d.norm()) / norm
+            bound = SSM_TP_PARAMS_L2 if k == "params" else SSM_TP_STATE_L2
+            far = l2 > bound or (k == "params" and float(d.max()) >
+                                 2 * lr + TP_STEP_RTOL["params"] * top)
+            rows.append((path, l2, float(d.max()) / top if top else 0.0, float(d.max()), far))
+        worst = max(rows, key=lambda r: r[1])
+        out[k] = {"l2": worst[1], "l2_leaf": worst[0], "max": max(r[2] for r in rows),
+                  "leaves_over_bound": [r[0] for r in rows if r[4]]}
+        if k == "params":
+            out[k]["max_abs_over_lr"] = max(r[3] for r in rows) / lr
+    return out
+
+
+def step_gate(got: dict, single, mesh_loss: float, single_loss: float, lr: float) -> dict:
+    """A mesh step's gathered state (``got``: params, m, v leaf lists, on
+    the host) against the single-process step ``single``: the loss's
+    relative distance, each leaf's worst distance over its largest value,
+    and the parameters split as the ep phase gates them (PERF.md §6). On step 1
+    AdamW moves every element by lr * m_hat / (sqrt(v_hat) + eps) ~ lr *
+    sign(g): an element whose gradient lies below the two runs' sum-order
+    noise (the m gate's resolution) may take the other sign, a move of up
+    to 2 lr. Where the single run's first moment is above that resolution
+    the parameters are held to TP_STEP_RTOL; the others are counted, and
+    held to one step's reach."""
+    from repro_torch import tree
+
+    want = {"params": single.params, "m": single.opt.m, "v": single.opt.v}
+    rel = {k: [float((g.to(DEVICE) - w).abs().max()) / float(w.abs().max())
+               for g, w in zip(got[k], tree.leaves(want[k]))] for k in got}
+    resolved, unresolved = [], {"elements": 0, "over_bound": 0, "max_abs_diff": 0.0}
+    for g, w, m in zip(got["params"], tree.leaves(want["params"]), tree.leaves(want["m"])):
+        d = (g.to(DEVICE) - w).abs()
+        sure = m.abs() > TP_STEP_RTOL["m"] * float(m.abs().max())
+        resolved.append(float(torch.where(sure, d, 0).max()) / float(w.abs().max()))
+        unresolved["elements"] += int((~sure).sum())
+        unresolved["over_bound"] += int(((d > TP_STEP_RTOL["params"] * float(w.abs().max()))
+                                         & ~sure).sum())
+        unresolved["max_abs_diff"] = max(unresolved["max_abs_diff"],
+                                         float(torch.where(sure, 0, d).max()))
+    paths = tree.paths(want["params"])
+    i = int(np.argmax(rel["params"]))
+    diff = (got["params"][i].to(DEVICE) - tree.leaves(want["params"])[i]).abs().reshape(-1)
+    j = int(diff.argmax())
+    return {"loss": mesh_loss, "single_loss": single_loss,
+            "loss_rel": abs(mesh_loss - single_loss) / abs(single_loss),
+            "worst_over_leaf_max": {k: max(v) for k, v in rel.items()},
+            "params_resolved_worst_over_leaf_max": max(resolved),
+            "params_unresolved": {**unresolved, "one_step_reach": 2 * lr},
+            "params_worst_element": {
+                "path": paths[i], "m_mesh": float(got["m"][i].reshape(-1)[j]),
+                "m_single": float(tree.leaves(want["m"])[i].reshape(-1)[j]),
+                "m_leaf_max": float(tree.leaves(want["m"])[i].abs().max())}}
+
+
+def check_step_gate(phase: str, f32: dict) -> None:
+    check(f32["loss_rel"] <= 1e-5, f"{phase} train f32: loss {f32['loss_rel']} relative")
     for k in ("m", "v"):
         check(f32["worst_over_leaf_max"][k] <= TP_STEP_RTOL[k],
-              f"ep train f32: {k} off by {f32['worst_over_leaf_max'][k]} of the leaf's max")
+              f"{phase} train f32: {k} off by {f32['worst_over_leaf_max'][k]} of the leaf's max")
     check(f32["params_resolved_worst_over_leaf_max"] <= TP_STEP_RTOL["params"],
-          f"ep train f32: params off by {f32['params_resolved_worst_over_leaf_max']} of the "
-          "leaf's max where the gradient's sign is resolved")
+          f"{phase} train f32: params off by {f32['params_resolved_worst_over_leaf_max']} of "
+          "the leaf's max where the gradient's sign is resolved")
     unresolved = f32["params_unresolved"]
     check(unresolved["max_abs_diff"] <= unresolved["one_step_reach"],
-          f"ep train f32: an unresolved element moved {unresolved['max_abs_diff']}, more than "
-          "one AdamW step can")
+          f"{phase} train f32: an unresolved element moved {unresolved['max_abs_diff']}, more "
+          "than one AdamW step can")
+
+
+def phase_tp_ssm(seed: int, launches: dict, err: dict) -> dict:
+    """The tp_ssm phase: the Mamba-2 mixer split by heads over the model
+    axis (models/mamba2.py over models/parallel.py's plan), the ranks
+    sharing the one card over gloo (every collective through host copies:
+    the times are not a speed figure). Serving on SSM_TP_MESH, for
+    mamba2_780m at full width and depth and jamba_1_5_large at its 5-layer
+    cut (Mamba, attention and MoE with expert_mlp on model): bf16
+    generate_batch over SSM_TP_LENS prompts, SSM_TP_NEW new tokens each, the
+    launches a forward and rank of the unsharded serving phases (the gated
+    norm runs on the gathered rows), every call of one prefill and one
+    decode step held to plain on each rank; in f32 at each model's gate
+    (mamba2 at full depth, jamba at 2 layers on prompts of 512 and 256,
+    capacity factor 8) the gate of test_decode_equiv against this
+    process's unsharded run (>= 99% of teacher-forced tokens, logit drift
+    < 5e-3) and serve() against generate_batch (>= 99%); the collectives'
+    share of the prefill and the decode steps. Training: mamba2_780m at
+    full width on SSM_TP_TRAIN_MESH, SSM_TP_TRAIN_STEPS steps in bf16 with
+    f32 moments (launches a step and rank from the code, every call of
+    step 1 held to plain on rank 0, each leaf bit-equal on the ranks that
+    hold the same block after every step), and one f32 step at
+    SSM_TP_F32_STEP_DEPTH layers against the single-process step, leaf by
+    leaf in the L2 norm (l2_gate)."""
+    import gc
+
+    from repro_torch.launch.mesh import run_ranks
+
+    t0 = time.perf_counter()
+    want = ssm_want(seed)
+    want_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    parent = {"allocated_gib": torch.cuda.memory_allocated() / 2**30,
+              "reserved_gib": torch.cuda.memory_reserved() / 2**30,
+              "card_free_gib": torch.cuda.mem_get_info()[0] / 2**30}
+    n_serve = SSM_TP_MESH[0] * SSM_TP_MESH[1]
+    t0 = time.perf_counter()
+    ranks = run_ranks(ssm_serve_rank, n_serve, seed,
+                      {k: v["teacher"] for k, v in want.items()}, device_type="cuda",
+                      timeout_s=SSM_TP_TIMEOUT_S)
+    serve_s = time.perf_counter() - t0
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    forwards = 1 + SSM_TP_NEW
+    for sv in SSM_TP_SERVED:
+        outs = [r[sv.phase] for r in ranks]
+        for o in outs:
+            check(o["ssm_split"], f"tp_ssm {sv.arch}: the mixer is not split by heads")
+            add(o["bf16"]["launches"])
+            check(o["bf16"]["launches"] == {k: v * forwards for k, v in sv.per_forward.items()},
+                  f"tp_ssm {sv.arch} launches {o['bf16']['launches']}, expected "
+                  f"{sv.per_forward} x {forwards}")
+            rows = o["held"]["rows"]
+            calls = {f"{k}/{st}": sum(1 for r in rows if r[:2] == (k, st))
+                     for st in ("prefill", "decode") for k in sv.per_forward}
+            check(calls == {f"{k}/{st}": v for st in ("prefill", "decode")
+                            for k, v in sv.per_forward.items()},
+                  f"tp_ssm {sv.arch} held calls {calls}")
+            check(all(r[3] == 0 for r in rows), f"tp_ssm {sv.arch}: a call differs from the "
+                  f"plain version: {[r for r in rows if r[3]]}")
+            for k, e in o["held"]["err"].items():
+                err[k] = max(err[k], e)
+            check(o["f32_picks"].tolist() == outs[0]["f32_picks"].tolist(),
+                  f"tp_ssm {sv.arch}: the ranks chose different tokens")
+        w = want[sv.phase]
+        full = w["logits"].shape[-1]
+        parts = [o["f32_logits"] for o in outs]
+        logits = parts[0] if parts[0].shape[-1] == full else torch.cat(parts, -1)
+        drift = float((logits - w["logits"]).abs().max() / w["logits"].abs().max())
+        agree = float((outs[0]["f32_picks"] == w["teacher"]).mean())
+        n_tok = sum(len(t) for t in outs[0]["f32_generate_batch"])
+        serve_diff = sum(a != b for r, g in zip(outs[0]["f32_serve"],
+                                                outs[0]["f32_generate_batch"])
+                         for a, b in zip(r, g))
+        say("tp_ssm", part="serve", arch=sv.arch, mesh=dict(zip(("data", "model"), SSM_TP_MESH)),
+            layers=sv.depth.get("n_layers"), prompt_lens=list(SSM_TP_LENS), max_new=SSM_TP_NEW,
+            launches_per_forward=sv.per_forward,
+            bf16={k: [o["bf16"][k] for o in outs]
+                  for k in ("prefill_ms", "decode_ms_per_step", "prefill_collectives",
+                            "decode_collectives", "generate_batch_s", "peak_gib")}
+            | {"param_gib": [o["param_gib"] for o in outs],
+               "init_s": [o["init_s"] for o in outs]},
+            held={"calls_per_rank": len(outs[0]["held"]["rows"]),
+                  "mismatched_lanes": sum(r[3] for o in outs for r in o["held"]["rows"]),
+                  "seconds": [o["held"]["seconds"] for o in outs]},
+            f32={"depth": w["depth"], "teacher_forced_agreement": agree, "logit_drift": drift,
+                 "serve_tokens_differing": serve_diff, "serve_agreement": 1 - serve_diff / n_tok,
+                 "serve_slots": MODEL_SLOTS, "serve_s": [o["f32_serve_s"] for o in outs],
+                 "replay_s": [o["f32_replay_s"] for o in outs],
+                 "init_s": [o["f32_init_s"] for o in outs],
+                 "peak_gib": [o["f32_peak_gib"] for o in outs],
+                 "unsharded_peak_gib": w["peak_gib"]},
+            note="ranks share one card over gloo: every collective through host copies")
+        check(agree >= 0.99, f"tp_ssm {sv.arch}: teacher-forced agreement {agree} < 0.99")
+        check(drift < 5e-3, f"tp_ssm {sv.arch}: logit drift {drift} >= 5e-3")
+        check(1 - serve_diff / n_tok >= 0.99,
+              f"tp_ssm {sv.arch}: serve() differs on {serve_diff} tokens")
+        check(all(len(t) == SSM_TP_NEW for t in outs[0]["bf16"]["tokens"]),
+              f"tp_ssm {sv.arch}: short output")
+    say("tp_ssm", part="serve_wall", unsharded_s=want_s, ranks_s=serve_s, parent_memory=parent)
+    del ranks, want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    n_train = SSM_TP_TRAIN_MESH[0] * SSM_TP_TRAIN_MESH[1]
+    t0 = time.perf_counter()
+    ranks = run_ranks(ssm_train_rank, n_train, seed, device_type="cuda",
+                      timeout_s=SSM_TP_TIMEOUT_S)
+    train_s = time.perf_counter() - t0
+    cfg = ssm_train_config("bfloat16")
+    per_step = ssm_train_launches(cfg, SSM_TP_TRAIN_MICRO, ranks[0]["n_leaves"])
+    for o in ranks:
+        check(o["ssm_split"], "tp_ssm train: the mixer is not split by heads")
+        for st in o["steps"]:
+            add(st["launches"])
+            check(st["launches"] == per_step, f"tp_ssm train launches {st['launches']} a step, "
+                  f"want {per_step}")
+            check(st["same_blocks_bit_equal"], "tp_ssm train: a block differs across its ranks")
+            check(math.isfinite(st["loss"]), f"tp_ssm train: loss {st['loss']}")
+    held = ranks[0]["held"]
+    n_held = {k: sum(1 for h in held if h[0] == k) for k in per_step}
+    check(n_held == per_step, f"tp_ssm train: held calls {n_held}, want {per_step}")
+    check(all(h[1] == 0 for h in held), "tp_ssm train: a call differs from its plain version")
+    for k, _, e in held:
+        err[k] = max(err[k], e)
+    f32 = ranks[0]["f32_step"]
+    say("tp_ssm", part="train", arch=SSM.arch, mesh=dict(zip(("data", "model"),
+                                                            SSM_TP_TRAIN_MESH)),
+        n_layers=cfg.n_layers, opt_state_dtype=cfg.opt_state_dtype, batch=SSM_TP_TRAIN_BATCH,
+        seq_len=SSM_TP_TRAIN_SEQ, n_micro_per_data_rank=SSM_TP_TRAIN_MICRO,
+        n_leaves=ranks[0]["n_leaves"], n_split=ranks[0]["n_split"],
+        launches_per_step=per_step, held_calls=n_held,
+        step_ms=[[st["ms"] for st in o["steps"]] for o in ranks],
+        step_collectives=[[st["collectives"] for st in o["steps"]] for o in ranks],
+        losses=[st["loss"] for st in ranks[0]["steps"]],
+        peak_gib=[o["peak_gib"] for o in ranks], f32_step_depth=SSM_TP_F32_STEP_DEPTH,
+        f32_step=f32, f32_mesh_s=[o["f32_mesh_s"] for o in ranks],
+        f32_single_s=ranks[0]["f32_single_s"], ranks_s=train_s,
+        note="4 ranks share one card over gloo; rank 0's step 1 includes its held calls")
+    check(f32["loss_rel"] <= 1e-5, f"tp_ssm train f32: loss {f32['loss_rel']} relative")
+    for k in ("params", "m", "v"):
+        check(not f32[k]["leaves_over_bound"], f"tp_ssm train f32: {k} of "
+              f"{f32[k]['leaves_over_bound'][:5]} past its bound (l2 {f32[k]['l2']})")
     return {"serve_s": serve_s, "train_s": train_s}
 
 
@@ -3648,6 +4227,7 @@ def main(argv=None) -> int:
     # phases' kept inputs fragment this process's cache (~16 GiB reserved
     # by the mesh phase).
     phase_ep(args.seed, launches, err)
+    phase_tp_ssm(args.seed, launches, err)
     tsdiv.reset_launches()
     phase_gradients(args.seed)
     for k, v in tsdiv.LAUNCHES.items():

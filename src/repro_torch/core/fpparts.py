@@ -29,7 +29,7 @@ __all__ = [
     "F32_IMPLICIT", "UNDERFLOW_POLICIES", "mul_add", "two_product",
     "refine_quotient", "split_f32", "repack_f32", "bit_divide",
     "bit_reciprocal", "finite_or_zero", "jnp_divide", "jnp_reciprocal",
-    "jnp_rsqrt",
+    "jnp_rsqrt", "ldexp64", "recip64", "divide64",
 ]
 
 # f32 field layout as int32 values (0x8000_0000 does not fit an int32).
@@ -65,20 +65,85 @@ def mul_add(a, b, c):
 
 
 def two_product(a, b):
-    """Error-free product of f32 tensors: (p, e) with a*b == p + e exactly.
+    """Error-free product: (p, e) with a*b == p + e exactly.
 
-    Veltkamp split with 2^12 + 1. The four partial products are exact in
-    f32, so fusing any of them into its add would not change ``e``.
+    Veltkamp split with 2^ceil(prec/2) + 1: 2^12 + 1 for f32, 2^27 + 1 for
+    the f64 oracles. The four partial products are exact, so fusing any of
+    them into its add would not change ``e``.
     """
     p = a * b
-    ta = 4097.0 * a
+    c = 134217729.0 if a.dtype == torch.float64 else 4097.0
+    ta = c * a
     ah = ta - (ta - a)
     al = a - ah
-    tb = 4097.0 * b
+    tb = c * b
     bh = tb - (tb - b)
     bl = b - bh
     e = ((ah * bh - p) + ah * bl + al * bh) + al * bl
     return p, e
+
+
+def _pow2_64(k: torch.Tensor) -> torch.Tensor:
+    """2^k as f64 for int64 k in [-1022, 1023], from its bits."""
+    return ((k + 1023) << 52).view(torch.float64)
+
+
+def ldexp64(x: torch.Tensor, k) -> torch.Tensor:
+    """x * 2^k on an f64 tensor, rounded once, as numpy's ``ldexp``.
+
+    ``torch.ldexp`` is documented as ``x * 2**k``, whose power of two is inf
+    from k = 1024 and 0 below k = -1074 even where x * 2^k is a finite
+    nonzero f64 (``ldexp(0.5, 1024)``, ``ldexp(3.0, -1075)``). Here x = f *
+    2^ex (``frexp``, f in [0.5, 1)) takes two normal powers of two: the
+    first product is exact, the second rounds once (into the subnormal
+    lattice, or to inf or 0 past the range).
+    """
+    f, ex = torch.frexp(x)
+    t = ex.to(torch.int64) + torch.as_tensor(k, device=x.device).to(torch.int64)
+    a = torch.where(t < -1021, torch.full_like(t, -500), torch.div(t, 2, rounding_mode="floor"))
+    a = a.clamp(-1022, 1023)
+    return f * _pow2_64(a) * _pow2_64((t - a).clamp(-1022, 1023))
+
+
+def recip64(x: torch.Tensor, mantissa_fn) -> torch.Tensor:
+    """The f64 oracles' reciprocal frame (``src/repro/core/taylor.py``
+    ``_reciprocal_impl``, numpy branch): frexp, ``mantissa_fn`` on the
+    [1, 2) mantissa, an exact recombine, and the unit's edges: 0 -> +-inf,
+    inf -> +-0, nan -> nan."""
+    sign = torch.sign(x)
+    ax = x.abs()
+    frac, e = torch.frexp(ax)
+    r = ldexp64(mantissa_fn(frac * 2.0), 1 - e.to(torch.int64)) * sign
+    inf = torch.tensor(float("inf"), dtype=x.dtype)
+    r = torch.where(ax == 0, torch.copysign(inf, x), r)
+    r = torch.where(torch.isinf(ax), torch.copysign(torch.zeros((), dtype=x.dtype), x), r)
+    return torch.where(torch.isnan(x), torch.tensor(float("nan"), dtype=x.dtype), r)
+
+
+def divide64(a: torch.Tensor, b: torch.Tensor, mantissa_fn) -> torch.Tensor:
+    """The f64 oracles' exponent-separated divide (``decompose_div``,
+    ``recombine_div`` in two ldexp steps, ``div_edges`` of
+    ``src/repro/core/fpparts.py``). ``mantissa_fn(man_a, man_b)`` returns
+    the quotient's mantissa first."""
+    a, b = torch.broadcast_tensors(a, b)
+    one = torch.ones((), dtype=a.dtype)
+    s = torch.copysign(one, a) * torch.copysign(one, b)
+    aa, ab = a.abs(), b.abs()
+    fa, ea = torch.frexp(aa)
+    fb, eb = torch.frexp(ab)
+    q_man = mantissa_fn(fa * 2.0, fb * 2.0)[0]
+    de = ea.to(torch.int64) - eb.to(torch.int64)
+    h = torch.div(de, 2, rounding_mode="floor")
+    q = ldexp64(ldexp64(q_man, h), de - h) * s
+    inf, nan = torch.tensor(float("inf"), dtype=a.dtype), torch.tensor(float("nan"),
+                                                                       dtype=a.dtype)
+    q = torch.where((ab == 0) & (aa != 0), torch.copysign(inf, s), q)
+    q = torch.where(torch.isinf(aa) & ~torch.isinf(ab), torch.copysign(inf, s), q)
+    q = torch.where(torch.isinf(ab) & ~torch.isinf(aa),
+                    torch.copysign(torch.zeros((), dtype=a.dtype), s), q)
+    q = torch.where((aa == 0) & (ab == 0), nan, q)
+    q = torch.where(torch.isinf(aa) & torch.isinf(ab), nan, q)
+    return torch.where(torch.isnan(a) | torch.isnan(b), nan, q)
 
 
 def refine_quotient(q0, man_a, man_b, rman, madd=mul_add):

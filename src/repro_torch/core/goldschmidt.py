@@ -3,7 +3,9 @@
 The PyTorch counterpart of ``src/repro/core/goldschmidt.py``: the
 residual-register form N <- N + N*r, r <- r*r, with the first residual from
 :func:`taylor.exact_residual`. ``iters_for_terms(n)`` iterations cover the
-same series terms as the factored Taylor schedule.
+same series terms as the factored Taylor schedule. :func:`reciprocal_np`
+and :func:`divide_np` are the reference's f64 numpy oracles, run in torch
+f64 on the CPU with the 53-bit table.
 """
 from __future__ import annotations
 
@@ -11,9 +13,9 @@ import math
 
 from . import fpparts
 from .seeds import SeedTable, compute_segments
-from .taylor import exact_residual, mul_add, seed_eval
+from .taylor import _f64, exact_residual, mul_add, seed_eval
 
-__all__ = ["iters_for_terms", "reciprocal", "divide"]
+__all__ = ["iters_for_terms", "reciprocal", "divide", "reciprocal_np", "divide_np"]
 
 
 def iters_for_terms(n_terms: int) -> int:
@@ -60,3 +62,26 @@ def divide(a, b, table: SeedTable | None = None, *, iters: int = 2,
 
     return fpparts.jnp_divide(
         a, b, lambda af, bf: fpparts.bit_divide(af, bf, mantissa_fn, underflow))
+
+
+def reciprocal_np(x, table: SeedTable | None = None, *, iters: int = 2):
+    """The f64 oracle of the Goldschmidt 1/x (``compute_segments(5, 53)``),
+    with the Taylor oracle's frame and edges; a numpy f64 array."""
+    table = table or compute_segments(5, 53)
+
+    def mantissa_fn(man):
+        y0 = seed_eval(man, table)
+        return refine(y0, man, y0, iters)
+
+    return fpparts.recip64(_f64(x), mantissa_fn).numpy()
+
+
+def divide_np(a, b, table: SeedTable | None = None, *, iters: int = 2):
+    """The f64 oracle of the Goldschmidt a/b (joint N/D refinement)."""
+    table = table or compute_segments(5, 53)
+
+    def mantissa_fn(man_a, man_b):
+        y0 = seed_eval(man_b, table)
+        return refine(man_a * y0, man_b, y0, iters, with_recip=True)
+
+    return fpparts.divide64(_f64(a), _f64(b), mantissa_fn).numpy()

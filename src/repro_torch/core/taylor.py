@@ -1,8 +1,10 @@
 """Taylor-series reciprocal / divide / rsqrt on f32 tensors (paper §2-3, §6).
 
 The PyTorch counterpart of the reference's jnp twins (``src/repro/core/
-taylor.py``). The f64 numpy oracles stay in the reference; the port holds
-its twins bit for bit against the reference's.
+taylor.py``), held bit for bit against them, and of its f64 numpy oracles
+(:func:`reciprocal_np`, :func:`divide_np`, :func:`rsqrt_np`): the same
+series, seed and Newton code run in torch f64 on the CPU with the 53-bit
+tables, returning numpy f64 arrays.
 
 Series schedules for  s = sum_{k=1}^{n'} m^k  (m = 1 - x*y0):
 
@@ -29,7 +31,8 @@ from .seeds import SeedTable, compute_segments, rsqrt_seed_table
 
 __all__ = [
     "default_table", "exact_residual", "series_sum", "seed_eval",
-    "divide_mantissa", "reciprocal", "divide", "rsqrt",
+    "divide_mantissa", "reciprocal", "divide", "rsqrt", "reciprocal_np",
+    "divide_np", "rsqrt_np",
 ]
 
 mul_add = fpparts.mul_add
@@ -85,12 +88,12 @@ def series_sum(m, n: int, schedule: str, madd=mul_add):
 
 
 def seed_eval(man, table: SeedTable, madd=mul_add):
-    """PWL seed y0(man): segment index by compare-sum, then slope*man + icpt."""
-    slopes = torch.tensor(table.slopes.astype(np.float32), device=man.device)
-    intercepts = torch.tensor(table.intercepts.astype(np.float32),
-                              device=man.device)
-    inner = torch.tensor(table.inner_boundaries.astype(np.float32),
-                         device=man.device)
+    """PWL seed y0(man): segment index by compare-sum, then slope*man + icpt,
+    with the table rounded to man's dtype (f32, or f64 for the oracles)."""
+    dt = np.float64 if man.dtype == torch.float64 else np.float32
+    slopes = torch.tensor(table.slopes.astype(dt), device=man.device)
+    intercepts = torch.tensor(table.intercepts.astype(dt), device=man.device)
+    inner = torch.tensor(table.inner_boundaries.astype(dt), device=man.device)
     idx = (man[..., None] >= inner).sum(-1)
     return madd(slopes[idx], man, intercepts[idx])
 
@@ -181,3 +184,49 @@ def rsqrt(x, table: SeedTable | None = None, *, newton_iters: int = 2,
     table = table or rsqrt_seed_table()
     return fpparts.jnp_rsqrt(
         x, lambda xf: rsqrt_bits(xf, table, newton_iters, underflow))
+
+
+# ------------------------------------------------------------ f64 oracles
+
+def _f64(x) -> torch.Tensor:
+    """An array-like as a CPU f64 tensor (a copy)."""
+    return torch.from_numpy(np.array(x, dtype=np.float64))
+
+
+def reciprocal_np(x, table: SeedTable | None = None, *, n_iters: int | None = None,
+                  schedule: str = "paper") -> np.ndarray:
+    """The f64 oracle of 1/x on the 53-bit table (``compute_segments(5,
+    53)``): the frexp frame and edges of the reference's ``reciprocal_np``
+    (0 -> +-inf, inf -> +-0, nan -> nan)."""
+    table = table or compute_segments(5, 53)
+    n = table.n_iters if n_iters is None else n_iters
+    return fpparts.recip64(_f64(x), lambda man: _reciprocal_mantissa(
+        man, table, n, schedule)).numpy()
+
+
+def divide_np(a, b, table: SeedTable | None = None, *, n_iters: int | None = None,
+              schedule: str = "paper") -> np.ndarray:
+    """The f64 oracle of a/b: exponent-separated, Markstein-corrected."""
+    table = table or compute_segments(5, 53)
+    n = table.n_iters if n_iters is None else n_iters
+    return fpparts.divide64(_f64(a), _f64(b), lambda ma, mb: divide_mantissa(
+        ma, mb, table, n, schedule)).numpy()
+
+
+def rsqrt_np(x, table: SeedTable | None = None, *, newton_iters: int = 3) -> np.ndarray:
+    """The f64 oracle of 1/sqrt(x): the even/odd exponent split onto u in
+    [0.5, 2), the chord seed, Newton with the compensated last step, and
+    the edges of ``jax.lax.rsqrt`` (+-0 -> +-inf, inf -> 0, x < 0 -> nan)."""
+    table = table or rsqrt_seed_table()
+    x = _f64(x)
+    frac, e = torch.frexp(x)
+    e = e.to(torch.int64)
+    s = e >> 1
+    u = fpparts.ldexp64(frac, e - 2 * s)
+    r = fpparts.ldexp64(newton_rsqrt(u, seed_eval(u, table), newton_iters), -s)
+    inf, nan = torch.tensor(float("inf"), dtype=x.dtype), torch.tensor(float("nan"),
+                                                                       dtype=x.dtype)
+    r = torch.where(x == 0, torch.copysign(inf, x), r)
+    r = torch.where(torch.isinf(x) & (x > 0), torch.zeros((), dtype=x.dtype), r)
+    r = torch.where(x < 0, nan, r)
+    return torch.where(torch.isnan(x), nan, r).numpy()

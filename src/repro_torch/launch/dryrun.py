@@ -52,8 +52,10 @@ CPU-upcast tally (see ``launch/roofline.py``) and the cost probes.
 
 A cell whose mesh has ``model > 1``, or whose experts lie on ``data``,
 traces the sharded program (``models/parallel.py``) on the traced rank's
-blocks; one whose Mamba-2 layers a ``model`` axis would split raises the
-ValueError that names ROADMAP item 22.
+blocks: the attention models' split heads, MLP and vocab, the MoE models'
+experts, and the Mamba-2 mixer by heads (per Mamba layer and forward one
+all-gather of the gated norm's rows and one all-reduce of the output
+projection's partial sums over ``model``).
 :func:`run_cell` also takes one rank with an explicit ``ShapeConfig``
 (``chip_smoke.py``'s roofline phase).
 
@@ -301,13 +303,12 @@ def run_cell(arch: str, shape_name: Optional[str] = None, multi_pod: bool = Fals
     the architecture's config (before ``variant``), ``n_micro`` the
     reference's microbatch count (a data shard's batch over the config's
     ``train_microbatch_size``). ``one_rank``: no mesh, one device (the
-    sharding fallbacks are then empty). Raises ValueError for a ``model``
-    axis above 1 under a model with Mamba-2 layers."""
+    sharding fallbacks are then empty)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.utils.flop_counter import FlopCounterMode
 
     from repro_torch.kernels import fake
-    from repro_torch.models.parallel import refuse_split, tensor_parallel
+    from repro_torch.models.parallel import tensor_parallel
     from repro_torch.models.params import active_param_count
     from repro_torch.sharding import comm
     from repro_torch.sharding import rules as shr
@@ -318,8 +319,6 @@ def run_cell(arch: str, shape_name: Optional[str] = None, multi_pod: bool = Fals
     if one_rank:
         mesh, sizes, mesh_name = None, MeshShape({}), "one"
     else:
-        if model_axis > 1:
-            refuse_split(cfg, model_axis)      # before a fake process group starts
         mesh = production_mesh(multi_pod, model_axis)
         sizes, mesh_name = MeshShape(shr.mesh_shape(mesh)), "multi" if multi_pod else "single"
     tp = None if mesh is None else tensor_parallel(cfg, mesh)

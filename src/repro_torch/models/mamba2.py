@@ -15,6 +15,21 @@ before. The reference's three-operand einsums are written as batched
 matmuls over (batch, chunk) so that no (b, nc, q, h, n) product is ever
 materialised; the sums run in another order than XLA's. The output goes
 through the gated RMSNorm, the division unit's consumer.
+
+With ``tp`` (a ``models.parallel.TensorParallel`` whose ``ssm`` is set) a
+rank runs its own heads: ``p`` holds its blocks of the ``ssm_inner`` and
+``ssm_heads`` leaves and the whole ``ssm_state`` ones. The input enters
+through ``comm.copy_to_split``; the whole ``wB``, ``wC``, ``conv_B`` and
+``conv_C`` enter the same way (one sum of their four gradients over the
+ranks: a rank reads them for its heads only). The gated RMSNorm is the one
+reduction across heads: the rank's (b, l, d_inner/M) slice of its input is
+gathered into whole rows (all-gather; reduce-scatter backward), normed by
+the same kernel in the unsplit row order, and the rank keeps its columns
+for ``wout``, whose partial sums go to ``comm.reduce_from_split``. The
+norm's weight is the rank's block, set into a zero row of ``d_inner``: the
+columns the rank keeps read only their own weights, and the others carry
+no gradient. The decode cache holds the rank's heads: ``state`` (b, h/M,
+p, n), ``conv_x`` (b, w-1, d_inner/M), ``conv_B`` and ``conv_C`` whole.
 """
 from __future__ import annotations
 
@@ -57,11 +72,37 @@ def _segsum_decay(a):
     return torch.exp(diff.masked_fill(upper, float("-inf")))
 
 
-def _gated_out(p: Dict, y, z, x, cfg: ModelConfig):
-    """y * silu(z), RMSNorm (cast to x's dtype, f32 weight), out-projection."""
-    y = y * F.silu(z.to(torch.float32))
-    y = rms_norm(y.to(x.dtype), p["norm"], cfg.division, cfg.norm_eps)
-    return y @ p["wout"]
+def _split(tp) -> bool:
+    return tp is not None and tp.ssm
+
+
+def _enter(p: Dict, x, tp):
+    """The input and the parameters as the rank's heads read them: under a
+    split, ``x`` and the whole ``ssm_state`` leaves through one
+    ``copy_to_split`` each (the four leaves' gradients summed in one
+    all-reduce). Both are the identity forward: without autograd, nothing."""
+    if not _split(tp) or not torch.is_grad_enabled():
+        return p, x
+    whole = ("wB", "wC", "conv_B", "conv_C")
+    flat = tp.copy(torch.cat([p[k].reshape(-1) for k in whole]))
+    p = dict(p)
+    for k, piece in zip(whole, flat.split([p[k].numel() for k in whole])):
+        p[k] = piece.view(p[k].shape)
+    return p, tp.copy(x)
+
+
+def _gated_out(p: Dict, y, z, x, cfg: ModelConfig, tp=None):
+    """y * silu(z), RMSNorm (cast to x's dtype, f32 weight), out-projection;
+    under a split, the norm on the gathered rows and the projection's
+    partial sums added over the ranks."""
+    y = (y * F.silu(z.to(torch.float32))).to(x.dtype)
+    if not _split(tp):
+        return rms_norm(y, p["norm"], cfg.division, cfg.norm_eps) @ p["wout"]
+    n = y.shape[-1]
+    lo = tp.rank * n
+    w = F.pad(p["norm"], (lo, (tp.size - 1) * n - lo))
+    y = rms_norm(tp.gather(y), w, cfg.division, cfg.norm_eps)[..., lo:lo + n]
+    return tp.reduce(y @ p["wout"])
 
 
 def _tail(u, wm1: int, lengths):
@@ -77,7 +118,7 @@ def _tail(u, wm1: int, lengths):
 
 
 def mamba_mixer(p: Dict, x, cfg: ModelConfig, *, initial_state=None,
-                return_state: bool = False, lengths=None):
+                return_state: bool = False, lengths=None, tp=None):
     """x: (b, l, d_model) -> (b, l, d_model), chunked over ``cfg.ssm_chunk``.
 
     ``lengths`` (the real lengths of a right-padded batch) zeroes dt at pad
@@ -85,9 +126,11 @@ def mamba_mixer(p: Dict, x, cfg: ModelConfig, *, initial_state=None,
     the returned state is the state after each row's real tokens, and the
     conv tails are its last real positions. With ``return_state`` also
     returns the decode cache ``{"state", "conv_x", "conv_B", "conv_C"}``.
+    ``tp``: the rank's plan (module docstring); ``p`` then holds its blocks.
     """
     b, l, _ = x.shape
-    h, pdim, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    p, x = _enter(p, x, tp)
+    h, pdim, n = p["A_log"].shape[0], cfg.ssm_head_dim, cfg.ssm_state
     q = min(cfg.ssm_chunk, l)
     if l % q:
         raise ValueError(f"seq {l} not divisible by chunk {q}")
@@ -145,7 +188,7 @@ def mamba_mixer(p: Dict, x, cfg: ModelConfig, *, initial_state=None,
 
     y = (y_intra + y_inter).reshape(b, l, h, pdim)
     y = y + p["D"].to(f32)[None, None, :, None] * xh
-    out = _gated_out(p, y.reshape(b, l, h * pdim), z, x, cfg)
+    out = _gated_out(p, y.reshape(b, l, h * pdim), z, x, cfg, tp)
     if not return_state:
         return out
     wm1 = cfg.conv_width - 1
@@ -154,29 +197,32 @@ def mamba_mixer(p: Dict, x, cfg: ModelConfig, *, initial_state=None,
                  "conv_C": _tail(C_raw, wm1, lengths)}
 
 
-def _cache_leaves(cfg: ModelConfig, batch: int, dtype):
+def _cache_leaves(cfg: ModelConfig, batch: int, dtype, tp=None):
     """{name: (shape, dtype)} of the decode cache: the f32 state and the
-    conv windows in ``dtype``."""
-    h, pdim, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    conv windows in ``dtype``; under a split, of the rank's heads."""
+    m = tp.size if _split(tp) else 1
+    h, pdim, n = cfg.ssm_heads // m, cfg.ssm_head_dim, cfg.ssm_state
     wm1 = cfg.conv_width - 1
     return {"state": ((batch, h, pdim, n), torch.float32),
-            "conv_x": ((batch, wm1, cfg.d_inner), dtype),
+            "conv_x": ((batch, wm1, cfg.d_inner // m), dtype),
             "conv_B": ((batch, wm1, n), dtype),
             "conv_C": ((batch, wm1, n), dtype)}
 
 
-def init_cache_mamba(cfg: ModelConfig, batch: int, dtype=torch.float32, device=None):
-    """A zero decode cache: the f32 state and the conv windows in ``dtype``."""
+def init_cache_mamba(cfg: ModelConfig, batch: int, dtype=torch.float32, device=None,
+                     tp=None):
+    """A zero decode cache: the f32 state and the conv windows in ``dtype``
+    (the rank's heads under ``tp``)."""
     return {k: torch.zeros(shape, dtype=dt, device=device)
-            for k, (shape, dt) in _cache_leaves(cfg, batch, dtype).items()}
+            for k, (shape, dt) in _cache_leaves(cfg, batch, dtype, tp).items()}
 
 
 def abstract_cache_mamba(cfg: ModelConfig, batch: int, dtype=torch.float32, device=None,
-                         fake_mode=None):
+                         fake_mode=None, tp=None):
     """:func:`init_cache_mamba`'s tree as stand-ins that allocate nothing
     (``repro_torch.tree.abstract``)."""
     return {k: tree.abstract(shape, dt, device, fake_mode)
-            for k, (shape, dt) in _cache_leaves(cfg, batch, dtype).items()}
+            for k, (shape, dt) in _cache_leaves(cfg, batch, dtype, tp).items()}
 
 
 def _conv_step(u_new, conv_state, w):
@@ -188,10 +234,12 @@ def _conv_step(u_new, conv_state, w):
     return out[:, None, :], window[:, 1:]
 
 
-def decode_mamba(p: Dict, x, cache, cfg: ModelConfig):
-    """One recurrent step. x: (b, 1, d_model). Returns (out, a new cache)."""
+def decode_mamba(p: Dict, x, cache, cfg: ModelConfig, tp=None):
+    """One recurrent step. x: (b, 1, d_model). Returns (out, a new cache).
+    ``tp``: as :func:`mamba_mixer`'s; the cache holds the rank's heads."""
     b = x.shape[0]
-    h, pdim = cfg.ssm_heads, cfg.ssm_head_dim
+    p, x = _enter(p, x, tp)
+    h, pdim = p["A_log"].shape[0], cfg.ssm_head_dim
     f32 = torch.float32
 
     z = x @ p["wz"]
@@ -210,5 +258,5 @@ def decode_mamba(p: Dict, x, cache, cfg: ModelConfig):
          + (dt[..., None] * xh)[..., None] * Bc[:, None, None, :])   # (b, h, p, n)
     y = (S @ Cc[:, None, :, None])[..., 0]                            # (b, h, p)
     y = y + p["D"].to(f32)[None, :, None] * xh
-    out = _gated_out(p, y.reshape(b, 1, h * pdim), z, x, cfg)
+    out = _gated_out(p, y.reshape(b, 1, h * pdim), z, x, cfg, tp)
     return out, {"state": S, "conv_x": cx, "conv_B": cB, "conv_C": cC}

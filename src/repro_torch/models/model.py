@@ -20,14 +20,15 @@ twice. The encoder and the final norm are not recomputed, as in the
 reference.
 
 Under an active mesh whose ``model`` axis holds more than one rank
-(``sharding.rules.use_mesh``) the attention, MLP and vocab weights run
-split over it, and wherever the experts' specs put them on a live axis
+(``sharding.rules.use_mesh``) the attention, MLP, Mamba-2 and vocab weights
+run split over it, and wherever the experts' specs put them on a live axis
 the MoE FFN's experts run split too (``models/parallel.py``,
 ``models/moe.py``): each rank takes its blocks of the parameters
 (DTensors, the global tree or its own blocks), the logits are its vocab
-block, and the cache holds its KV heads. The tokens given are the whole
-batch on every rank, unless ``sharding.rules.split_tokens`` says they are
-the rank's block of it (the train step).
+block, and the cache holds its KV heads and Mamba-2 heads. The tokens
+given are the whole batch on every rank, unless
+``sharding.rules.split_tokens`` says they are the rank's block of it (the
+train step).
 """
 from __future__ import annotations
 
@@ -100,12 +101,12 @@ def block_forward(bp: Dict, x, spec: LayerSpec, cfg: ModelConfig, positions,
     h = rms_norm(x, bp["mixer_norm"], div, cfg.norm_eps)
     if spec.mixer == "mamba":
         if mode == "decode":
-            mh, new_cache["mamba"] = decode_mamba(bp["mamba"], h, cache["mamba"], cfg)
+            mh, new_cache["mamba"] = decode_mamba(bp["mamba"], h, cache["mamba"], cfg, tp)
         elif mode == "prefill":
             mh, new_cache["mamba"] = mamba_mixer(bp["mamba"], h, cfg, return_state=True,
-                                                 lengths=lengths)
+                                                 lengths=lengths, tp=tp)
         else:
-            mh = mamba_mixer(bp["mamba"], h, cfg)
+            mh = mamba_mixer(bp["mamba"], h, cfg, tp=tp)
         x = x + mh
     else:
         window = cfg.sliding_window if spec.mixer == "swa" else 0
@@ -239,17 +240,16 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int, device=None,
     ``encoder_seq``-long cross K/V. ``abstract``: the same tree as stand-ins
     that allocate nothing (``repro_torch.tree.abstract``; ``fake_mode``'s
     fake tensors on ``device``, or ``meta`` tensors). Under an active mesh
-    with a ``model`` axis above 1, the rank's KV heads."""
+    with a ``model`` axis above 1, the rank's KV heads and Mamba-2 heads."""
     dt = torch_dtype(cfg.param_dtype)
     tp = tensor_parallel(cfg)
-    kv = cfg.n_kv_heads if tp is None else tp.kv_local
     if abstract:
         attn = lambda *a: abstract_cache_attn(*a, device=device, fake_mode=fake_mode, tp=tp)
-        mamba = lambda *a: abstract_cache_mamba(*a, device=device, fake_mode=fake_mode)
+        mamba = lambda *a: abstract_cache_mamba(*a, device=device, fake_mode=fake_mode, tp=tp)
         zeros = lambda shape: tree.abstract(shape, dt, device, fake_mode)
     else:
         attn = lambda *a: init_cache_attn(*a, device=device, tp=tp)
-        mamba = lambda *a: init_cache_mamba(*a, device=device)
+        mamba = lambda *a: init_cache_mamba(*a, device=device, tp=tp)
         zeros = lambda shape: torch.zeros(shape, dtype=dt, device=device)
     groups = []
     for g in cfg.groups():
@@ -261,6 +261,7 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int, device=None,
                 window = cfg.sliding_window if spec.mixer == "swa" else 0
                 lc = {"attn": attn(cfg, batch, max_len, window, dt)}
             if cfg.is_encoder_decoder:
+                kv = cfg.n_kv_heads if tp is None else tp.kv_local
                 shape = (batch, cfg.encoder_seq, kv, cfg.head_dim)
                 lc["cross"] = {"ck": zeros(shape), "cv": zeros(shape)}
             layers.append(lc)

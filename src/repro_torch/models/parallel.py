@@ -32,10 +32,20 @@ The MoE FFN's expert leaves (``wi``, ``wg``, ``wo``) are split by their
 ``models/moe.py`` runs the exchange. A plan is needed wherever a leaf is
 split: a ``model`` axis above 1, or experts on a ``data`` axis above 1.
 
-The Mamba-2 mixer is not split: a model with Mamba-2 layers under a
-``model`` axis above 1 raises a ValueError naming its ROADMAP item. Every
-other leaf that a spec puts on ``data`` (jamba's ``embed``: FSDP, ROADMAP
-Queue 1 item 25) is held whole.
+The Mamba-2 mixer splits over ``model`` by heads (``ssm_inner`` and
+``ssm_heads``, the reference's ``DEFAULT_RULES`` and jamba's rules):
+``wz``, ``wx``, ``conv_x``, the gated norm's weight and ``wout``'s rows by
+the ``ssm_inner`` columns, ``wdt``, ``A_log``, ``D`` and ``dt_bias`` by
+heads; ``wB``, ``wC``, ``conv_B`` and ``conv_C`` (``ssm_state``) are whole
+on every rank, which reads them for its own heads only, so their gradients
+are summed over the ranks (``models/mamba2.py``). The mixer cuts ``xs``
+into heads contiguous in ``d_inner``, so a column split is a head split
+only where ``ssm_heads`` divides too: where ``ssm_inner`` splits and
+``ssm_heads`` does not (48 heads at model 32), the mixer's leaves are held
+whole and the mixer runs whole on every rank, as a divisibility drop
+(``TensorParallel.ssm`` False; place such leaves by the plan's
+``shardings``). Every other leaf that a spec puts on ``data`` (jamba's
+``embed``: FSDP, ROADMAP Queue 1 item 25) is held whole.
 """
 from __future__ import annotations
 
@@ -47,12 +57,17 @@ import torch
 from repro_torch import tree
 from repro_torch.configs.base import ModelConfig, rules_for
 
-__all__ = ["AXIS", "ExpertParallel", "TensorParallel", "tensor_parallel", "refuse_split",
-           "local_params", "wrap_like", "split_axes", "executed_spec"]
+__all__ = ["AXIS", "ExpertParallel", "TensorParallel", "tensor_parallel", "local_params",
+           "wrap_like", "split_axes", "executed_spec"]
 
 AXIS = "model"
-SSM_ITEM = "ROADMAP Queue 1 item 22"
 EXPERT_AXES = ("experts", "expert_mlp")
+SSM_AXES = ("ssm_inner", "ssm_heads")
+# The Mamba-2 mixer's leaves by how they split over ``model``, with the dim
+# each lies on there; the ``ssm_state`` leaves stay whole.
+SSM_INNER = {"wz": (1,), "wx": (1,), "conv_x": (1,), "norm": (0,), "wout": (0,)}
+SSM_HEADS = {"wdt": (1,), "A_log": (0,), "D": (0,), "dt_bias": (0,)}
+SSM_WHOLE = ("wB", "wC", "conv_B", "conv_C")
 
 
 @dataclass(frozen=True)
@@ -86,6 +101,7 @@ class TensorParallel:
     n_kv_heads: int
     shardings: Any      # NamedSharding tree of the executed specs (executed_spec)
     moe: Optional[ExpertParallel] = None
+    ssm: bool = False   # the Mamba-2 mixer by heads (ssm_inner and ssm_heads split)
 
     def copy(self, x: torch.Tensor) -> torch.Tensor:
         """Identity forward, gradient summed over the ranks backward."""
@@ -136,17 +152,17 @@ class TensorParallel:
     def vocab_offset(self, local_vocab: int) -> int:
         return self.rank * local_vocab if self.vocab else 0
 
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The ranks' blocks of ``x``'s last dim side by side (all-gather);
+        the gradient's sum over the ranks, sliced to this rank's block,
+        backward (reduce-scatter)."""
+        from repro_torch.sharding import comm
+
+        return comm.gather_blocks(x, self.mesh, AXIS, x.dim() - 1)
+
 
 def _dims(spec) -> Tuple[int, ...]:
     return tuple(d for d, part in enumerate(spec) if part == AXIS)
-
-
-def refuse_split(cfg: ModelConfig, size: int) -> None:
-    """Raise the ValueError naming its ROADMAP item for a model whose
-    Mamba-2 layers a model axis of ``size`` > 1 would split."""
-    if any(s.mixer == "mamba" for s in cfg.layer_specs()):
-        raise ValueError(f"{cfg.name}: the Mamba-2 mixer is not split over a model axis of "
-                         f"{size} ({SSM_ITEM}); it is never run replicated there")
 
 
 def executed_spec(p, spec):
@@ -194,16 +210,48 @@ def _expert_plan(cfg: ModelConfig, mesh, spec) -> Optional[ExpertParallel]:
                           mlp=mlp, shared=shared)
 
 
+def _ssm_split(cfg: ModelConfig, spec) -> bool:
+    """Whether the Mamba-2 mixer runs by heads on ``model``: both its
+    ``ssm_inner`` and its ``ssm_heads`` leaves split there (``spec``: a
+    leaf's resolved spec on ``model``). False without Mamba-2 layers, and
+    for the divisibility drop (the columns split, the heads not)."""
+    from repro_torch.models.params import _mamba_specs
+
+    if not any(s.mixer == "mamba" for s in cfg.layer_specs()):
+        return False
+    leaves = _mamba_specs(cfg)
+    got = {name: _dims(spec(p)) for name, p in leaves.items()}
+    for name in SSM_WHOLE:
+        if got[name]:
+            raise ValueError(f"{cfg.name}: the Mamba-2 {name} lies on '{AXIS}' at dims "
+                             f"{got[name]}; the mixer reads it whole")
+    kinds = []
+    for group in (SSM_INNER, SSM_HEADS):
+        for name, want in group.items():
+            if got[name] not in ((), want):
+                raise ValueError(f"{cfg.name}: the Mamba-2 {name} lies on '{AXIS}' at dims "
+                                 f"{got[name]}; the mixer splits only dims {want}")
+        split = {bool(got[name]) for name in group}
+        if len(split) > 1:
+            raise ValueError(f"{cfg.name}: the Mamba-2 leaves {sorted(group)} are split "
+                             f"differently over '{AXIS}'")
+        kinds.append(split.pop())
+    return kinds[0] and kinds[1]
+
+
 def _plan(cfg: ModelConfig, mesh) -> TensorParallel:
     from repro_torch.models.params import _attn_specs, _mlp_specs, model_specs
     from repro_torch.sharding import rules as shr
 
     sizes = shr.mesh_shape(mesh)
     size = sizes.get(AXIS, 1)
-    if size > 1:
-        refuse_split(cfg, size)
     rules = rules_for(cfg)
-    executed = lambda p: executed_spec(p, shr.spec_for(p.shape, p.axes, rules, mesh))
+    resolved = lambda p: executed_spec(p, shr.spec_for(p.shape, p.axes, rules, mesh))
+    ssm = _ssm_split(cfg, lambda p: shr.only_axes(resolved(p), (AXIS,)))
+    # A divisibility drop of the mixer holds its leaves whole.
+    executed = (resolved if ssm else lambda p: (tuple(None for _ in p.shape)
+                                                if set(p.axes) & set(SSM_AXES)
+                                                else resolved(p)))
     spec = lambda p: shr.only_axes(executed(p), (AXIS,))
     split = {}
     expected = {"wq": (1,), "wk": (1,), "wv": (1,), "attn_wo": (0,), "wi": (1,), "wg": (1,),
@@ -235,7 +283,7 @@ def _plan(cfg: ModelConfig, mesh) -> TensorParallel:
                           heads=split["wq"], kv=split["wk"], mlp=split["wi"],
                           vocab=bool(vocab and vocab[0]), n_heads=cfg.n_heads,
                           n_kv_heads=cfg.n_kv_heads, shardings=shardings,
-                          moe=_expert_plan(cfg, mesh, executed))
+                          moe=_expert_plan(cfg, mesh, executed), ssm=ssm)
 
 
 _PLANS: dict = {}
@@ -244,8 +292,7 @@ _PLANS: dict = {}
 def tensor_parallel(cfg: ModelConfig, mesh=None) -> Optional[TensorParallel]:
     """The plan of ``cfg`` on ``mesh`` (the active mesh by default); None
     where there is no mesh, or no leaf of the model is split on it (a
-    ``model`` axis of one rank, the experts whole). Raises ValueError for a
-    model whose Mamba-2 layers would have to split."""
+    ``model`` axis of one rank, the experts whole)."""
     from repro_torch.sharding import rules as shr
 
     mesh = shr.active_mesh() if mesh is None else mesh

@@ -173,11 +173,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None, shard
             scale = p.scale if p.scale is not None else 1.0 / np.sqrt(p.shape[0])
             x = torch.randn(p.shape, generator=generator, dtype=torch.float32,
                             device=generator.device)
-            x = (x * np.float32(scale)).to(device=device, dtype=dt)
+            x.mul_(np.float32(scale))
         if sh is None:
-            return x
-        # The block alone stays: a copy, so the global draw is freed.
-        return _dtensor(shr.local_block(x, sh).clone(), sh)
+            return x.to(device=device, dtype=dt)
+        # The block alone stays, cast from the f32 draw: a copy, so the
+        # global draw is freed, and no cast of the whole leaf is made.
+        return _dtensor(shr.local_block(x, sh).to(device=device, dtype=dt, copy=True), sh)
 
     if shardings is None:
         return tree.map_tree(leaf, model_specs(cfg))

@@ -39,7 +39,10 @@ all the same. AdamW runs on the rank's blocks, with the gradients' global
 norm summed over the ranks of each split axis of a leaf and counted once
 for a replicated one, so every rank gets the same clip factor. The new
 state is DTensors where the parameters came as DTensors, the rank's blocks
-otherwise.
+otherwise. A whole leaf that each rank reads for its own heads only (GQA's
+replicated ``wk`` / ``wv``, the Mamba-2 mixer's ``wB``, ``wC``, ``conv_B``
+and ``conv_C``) has its gradient summed over ``model`` inside the backward
+pass (``comm.copy_to_split``), so the step holds it as a replicated leaf.
 """
 from __future__ import annotations
 

@@ -266,8 +266,12 @@ def _tp_forward(c: dict) -> dict:
             logits, cache, _ = forward(cfg, params, tokens=tok, cache=cache, pos=s + t,
                                        mode="decode")
             steps.append(logits)
-    kv_heads = {lc["attn"]["k"].shape[2] for g in cache["groups"] for lc in g["layers"]}
-    return {"train": train, "prefill": prefill, "decode": steps, "cache_kv_heads": kv_heads}
+    layers = [lc for g in cache["groups"] for lc in g["layers"]]
+    kv_heads = {lc["attn"]["k"].shape[2] for lc in layers if "attn" in lc}
+    ssm = {(lc["mamba"]["state"].shape[1], lc["mamba"]["conv_x"].shape[2],
+            lc["mamba"]["conv_B"].shape[2]) for lc in layers if "mamba" in lc}
+    return {"train": train, "prefill": prefill, "decode": steps, "cache_kv_heads": kv_heads,
+            "cache_ssm": ssm}
 
 
 def _tp_generate(c: dict) -> dict:
@@ -308,7 +312,7 @@ def tp_rank(rank: int, inp: dict) -> dict:
     of 4 CPU ranks: the forward of each case on (1, 4), (2, 2) and the two
     (1, 2) pairs (each pair takes every other case), greedy tokens on (1,
     4), train steps on (2, 2) and (1, 4), the (2, 2) checkpoint, the
-    refusals, the cut draws."""
+    Mamba-2 models on (2, 2), the cut draws."""
     from repro_torch import convert, tree
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import forward, init_params
@@ -332,15 +336,10 @@ def tp_rank(rank: int, inp: dict) -> dict:
                     "1x4": _tp_train(t["cfg14"], t["opt_cfg"], t["params14"], t["batch"], m14,
                                      t["n_micro"])}
 
-    refusals = {}
-    for arch, (cfg, params, toks) in inp["refuse"].items():
-        try:
-            with shr.use_mesh(m22):
-                forward(cfg, params, tokens=toks)
-            refusals[arch] = ""
-        except ValueError as e:
-            refusals[arch] = str(e)
-    out["refusals"] = refusals
+    out["ssm"] = {}
+    for arch, (cfg, params, toks) in inp["ssm"].items():
+        with torch.no_grad(), shr.use_mesh(m22):
+            out["ssm"][arch] = forward(cfg, params, tokens=toks)[0]
 
     d = inp["draws"]
     sh = shr.param_shardings(d["cfg"], m22)
@@ -501,4 +500,81 @@ def ep_rank(rank: int, inp: dict) -> dict:
         out["train"][name] = _tp_train(t["cfg"], t["opt_cfg"], t["params"], t["batch"], mesh,
                                        t["n_micro"], t.get("ckpt_dir"))
         out["train"][name]["coord"] = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    return out
+
+
+# ------------------------------------------------- the Mamba-2 mixer (model axis)
+
+def _ssm_mixer(c: dict, mesh) -> dict:
+    """One layer's mixer on the rank's heads under ``mesh``: prefill with
+    lengths (output, state, conv tails), then one decode step from the
+    rank's heads of the reference's cache; the collectives each issued."""
+    from repro_torch.models.mamba2 import decode_mamba, mamba_mixer
+    from repro_torch.models.parallel import tensor_parallel
+    from repro_torch.sharding import comm
+    from repro_torch.sharding import rules as shr
+
+    cfg = c["cfg"]
+    tp = tensor_parallel(cfg, mesh)
+    p = shr.local_tree(c["p"], tp.shardings["groups"][0]["layers"][0]["mamba"])
+    m = tp.size if tp.ssm else 1
+    i = tp.rank if tp.ssm else 0
+    h, n = cfg.ssm_heads // m, cfg.d_inner // m
+    cache = dict(c["cache"])
+    cache["state"] = cache["state"][:, i * h:(i + 1) * h]
+    cache["conv_x"] = cache["conv_x"][..., i * n:(i + 1) * n]
+    with torch.no_grad(), shr.use_mesh(mesh):
+        with comm.record() as prefill_ops:
+            y, new = mamba_mixer(p, c["x"], cfg, return_state=True, lengths=c["lengths"],
+                                 tp=tp)
+        with comm.record() as decode_ops:
+            yd, stepped = decode_mamba(p, c["x_step"], cache, cfg, tp)
+    return {"y": y, "cache": new, "y_step": yd, "stepped": stepped, "split": tp.ssm,
+            "ops": [o["op"] for o in prefill_ops], "decode_ops": [o["op"] for o in decode_ops]}
+
+
+def ssm_rank(rank: int, inp: dict) -> dict:
+    """Every multi-rank check of tests/test_torch_ssm_parallel.py, on one of
+    4 CPU ranks: each case's mixer and forward on (1, 4), (2, 2) and the two
+    (1, 2) pairs (each pair takes every other case), the collectives of a
+    decode step, greedy tokens and serve() on (1, 4), the train steps
+    (DTensor state; the (2, 2) one checkpointed), the cut draws."""
+    from repro_torch import convert, tree
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import forward, init_params, make_cache
+    from repro_torch.models.parallel import tensor_parallel
+    from repro_torch.sharding import comm
+    from repro_torch.sharding import rules as shr
+
+    meshes = {"1x4": make_mesh((1, 4), ("data", "model"), "cpu"),
+              "2x2": make_mesh((2, 2), ("data", "model"), "cpu")}
+    pair, p = _pair_meshes(rank)
+    out = {"mixer": {}, "forward": {}, "generate": {}, "ops": {}, "plan": {}}
+    for i, (name, c) in enumerate(inp["cases"].items()):
+        run_on = list(meshes.items()) + ([("1x2", pair)] if i % 2 == p else [])
+        for mesh_name, mesh in run_on:
+            out["mixer"][name, mesh_name] = _ssm_mixer(inp["mixers"][name], mesh)
+            with shr.use_mesh(mesh):
+                out["forward"][name, mesh_name] = _tp_forward(c)
+            tp = tensor_parallel(c["cfg"], mesh)
+            out["plan"][name, mesh_name] = {"ssm": tp.ssm, "placements": [
+                str(sh.spec) for sh in tree.leaves(tp.shardings["groups"][0]["layers"][0])]}
+        with shr.use_mesh(meshes["1x4"]):
+            out["generate"][name] = _tp_generate(c)
+            with torch.no_grad(), comm.record() as ops:
+                forward(c["cfg"], c["params"], tokens=c["decode"][0], mode="decode",
+                        cache=make_cache(c["cfg"], c["decode"][0].shape[0], 8), pos=0)
+            out["ops"][name] = [o["op"] for o in ops]
+
+    out["train"] = {}
+    for name, t in inp["train"].items():
+        out["train"][name] = _tp_train(t["cfg"], t["opt_cfg"], t["params"], t["batch"],
+                                       meshes[t["mesh"]], t["n_micro"], t.get("ckpt_dir"))
+
+    d = inp["draws"]
+    sh = shr.param_shardings(d["cfg"], meshes["2x2"])
+    drawn = init_params(d["cfg"], torch.Generator().manual_seed(d["seed"]), shardings=sh)
+    cut = convert.params_from_reference(d["reference"], d["cfg"], "cpu", shardings=sh)
+    out["draws"] = {"init": [v.to_local() for v in tree.leaves(drawn)],
+                    "convert": [v.to_local() for v in tree.leaves(cut)]}
     return out

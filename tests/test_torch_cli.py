@@ -99,15 +99,17 @@ def test_dryrun_and_report_clis_on_one_cell(tmp_path):
 
 
 def test_dryrun_cli_refuses_a_model_axis(tmp_path):
-    """A model axis of 16 under Mamba-2 layers: the cell fails naming the
-    ROADMAP item that would split the mixer (the attention and MoE models
-    run it: test_torch_launch.py)."""
+    """Until ROADMAP item 22 a model axis of 16 under Mamba-2 layers failed
+    the cell naming that item; now the CLI traces mamba2_780m's decode cell
+    at model 16 (48 heads, 3 a rank) and writes its record."""
     r = _run(["-m", "repro_torch.launch.dryrun", "--arch", "mamba2_780m",
               "--shape", "decode_32k", "--mesh", "single", "--device", "cpu",
               "--out", str(tmp_path)])
-    assert r.returncode != 0
-    assert "[FAIL] mamba2_780m_decode_32k_single" in r.stdout
-    assert "item 22" in r.stdout
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "[ok] mamba2_780m_decode_32k_single" in r.stdout and "[FAIL]" not in r.stdout
+    cell = json.loads(next(tmp_path.glob("*.json")).read_text())
+    assert cell["param_layout"] == "model"
+    assert cell["collectives"]["by_axis"]["model"]["all-gather"]["count"] == 48
 
 
 # ----------------------------------------------------------- examples

@@ -368,26 +368,34 @@ def test_a_model_axis_cell_raises_naming_item_18(tmp_path):
     mode, one microbatch) traces with its 64 experts on data (4 a rank)
     and expert_mlp on model, its exchange an all-to-all over data (forward,
     remat's recompute, backward) and the reduce-scatter of its all-gather's
-    backward, once per MoE layer each. A cell whose Mamba-2 layers a model
-    axis would split raises the ValueError that names item 22, before any
-    process group starts."""
+    backward, once per MoE layer each. Until item 22 a cell whose Mamba-2
+    layers a model axis would split raised the ValueError that named it;
+    now mamba2_780m's decode_32k cell traces at tp4 (in the same child),
+    its mixers split by heads: per Mamba layer one all-gather (the gated
+    norm's rows) and one all-reduce (the out-projection) over model, and
+    one all-reduce more for the vocab-split embedding."""
     out = tmp_path / "cell.json"
     code = ("import json, sys; from repro_torch.launch import dryrun; "
-            "json.dump(dryrun.run_cell('deepseek_moe_16b', 'train_4k', False, "
-            "variant='kernels', n_micro=1, device='cpu'), open(sys.argv[1], 'w'))")
+            "json.dump([dryrun.run_cell('deepseek_moe_16b', 'train_4k', False, "
+            "variant='kernels', n_micro=1, device='cpu'), dryrun.run_cell("
+            "'mamba2_780m', 'decode_32k', False, variant='tp4', device='cpu')], "
+            "open(sys.argv[1], 'w'))")
     r = subprocess.run([sys.executable, "-c", code, str(out)], capture_output=True, text=True,
                        timeout=600, cwd=ROOT,
                        env={**os.environ, "PYTHONPATH": "src", "OMP_NUM_THREADS": "1"})
     assert r.returncode == 0, r.stdout + r.stderr
-    cell = json.loads(out.read_text())
+    cell, ssm = json.loads(out.read_text())
     cfg = configs.get_config("deepseek_moe_16b")
     n_moe = sum(s.ffn == "moe" for s in cfg.layer_specs())
     assert cell["param_layout"] == "data+model" and n_moe == 27
     data = cell["collectives"]["by_axis"]["data"]
     assert data["all-to-all"]["count"] == 3 * n_moe
     assert data["reduce-scatter"]["count"] == n_moe
-    with pytest.raises(ValueError, match="item 22"):
-        dryrun.run_cell("mamba2_780m", "decode_32k", False, variant="tp4")
+    n_mamba = configs.get_config("mamba2_780m").n_layers
+    assert ssm["param_layout"] == "model" and set(ssm["collectives"]["by_axis"]) == {"model"}
+    model = ssm["collectives"]["by_axis"]["model"]
+    assert model["all-gather"]["count"] == n_mamba and model["all-reduce"]["count"] == n_mamba + 1
+    assert set(model) == {"all-gather", "all-reduce"}
     assert dryrun.apply_variant(configs.get_config("llama3_8b"), "tp1+kernels")[0] \
         .division.mode == "taylor_pallas"
 

@@ -19,12 +19,12 @@ import torch
 
 from repro.configs import get_smoke_config as ref_smoke_config
 from repro.core.division_modes import DivisionConfig as RefDivisionConfig
-from repro.models import init_params as ref_init_params
 from repro.models import mamba2 as ref_mamba
 from repro_torch import convert
 from repro_torch.configs import get_smoke_config
 from repro_torch.core.division_modes import DivisionConfig
 from repro_torch.models import mamba2
+from _ref_params import ref_init
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 RTOL = 1e-5
@@ -39,7 +39,7 @@ def _setup(mode="exact", a_log=None, **kw):
                              division=RefDivisionConfig(**div), **kw)
     pc = dataclasses.replace(get_smoke_config("mamba2_780m"), param_dtype="float32",
                              division=DivisionConfig(**div), **kw)
-    rp = ref_init_params(rc, jax.random.PRNGKey(0))["groups"][0]["layers"][0]["mamba"]
+    rp = ref_init(rc, 0)["groups"][0]["layers"][0]["mamba"]
     rp = {k: np.asarray(v)[0] for k, v in rp.items()}     # layer 0 of the stack
     if a_log is not None:
         rp["A_log"] = np.full_like(rp["A_log"], a_log)

@@ -16,8 +16,6 @@ chunked scan need. Encoder-decoder models take seeded encoder frames,
 embedding-input models seeded prompt embeddings.
 """
 import dataclasses
-import zlib
-from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -30,10 +28,8 @@ from repro.configs.base import get_config as ref_get_config
 from repro.core.division_modes import DivisionConfig as RefDivisionConfig
 from repro.models import attention as ref_attention
 from repro.models import forward as ref_forward
-from repro.models import init_params as ref_init_params
 from repro.models import layers as ref_layers
 from repro.models import param_count as ref_param_count
-from repro.models import params as ref_params_module
 from repro.models.model import encode as ref_encode
 from repro.models.params import active_param_count as ref_active_param_count
 from repro.serving import pad_cache_to as ref_pad_cache_to
@@ -45,6 +41,7 @@ from repro_torch.models import (active_param_count, forward, init_params, layers
                                 param_count)
 from repro_torch.models.model import encode
 from repro_torch.serving import ServingEngine, pad_cache_to
+from _ref_params import ref_init
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ARCHS = ["paper_fpdiv", "tinyllama_1_1b", "llama3_8b", "granite_8b", "gemma3_12b",
@@ -64,15 +61,11 @@ def _pair(arch, mode="exact", **kw):
 
 
 def _ref_init(cfg, seed):
-    """The reference's ``init_params`` with its per-leaf key made the same in
-    every process. The reference folds ``hash(path)`` into each leaf's key,
-    and Python salts ``hash`` per process, so each pytest worker drew other
-    weights, and jamba's f32 rounding spread against the reference went past
-    ``LOGIT_RTOL`` on about 2% of the draws (ROADMAP F13). Here ``hash`` is
-    the path's crc32 during the call; nothing else of the reference changes."""
-    stable = lambda s: zlib.crc32(s.encode())
-    with mock.patch.object(ref_params_module, "hash", stable, create=True):
-        return ref_init_params(cfg, jax.random.PRNGKey(seed))
+    """The reference's ``init_params`` with its per-leaf key the same in
+    every process (``_ref_params.ref_init``): with a per-process draw,
+    jamba's f32 rounding spread against the reference went past
+    ``LOGIT_RTOL`` on about 2% of the draws (ROADMAP F13)."""
+    return ref_init(cfg, seed)
 
 
 def _params(ref_cfg, port_cfg, seed=0):

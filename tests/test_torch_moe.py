@@ -18,12 +18,12 @@ import torch
 
 from repro.configs import get_smoke_config as ref_smoke_config
 from repro.core.division_modes import DivisionConfig as RefDivisionConfig
-from repro.models import init_params as ref_init_params
 from repro.models import moe as ref_moe
 from repro_torch import convert
 from repro_torch.configs import get_smoke_config
 from repro_torch.core.division_modes import DivisionConfig
 from repro_torch.models import moe
+from _ref_params import ref_init
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 DISPATCHES = ["cumsum", "sort", "local"]
@@ -38,7 +38,7 @@ def _setup(dispatch, mode, cf, seed=0):
                              division=RefDivisionConfig(mode=mode), **kw)
     pc = dataclasses.replace(get_smoke_config("deepseek_moe_16b"),
                              division=DivisionConfig(mode=mode), **kw)
-    rp = ref_init_params(rc, jax.random.PRNGKey(seed))["groups"][1]["layers"][0]["ffn"]
+    rp = ref_init(rc, seed)["groups"][1]["layers"][0]["ffn"]
     rp = jax.tree_util.tree_map(lambda a: np.asarray(a)[0], rp)       # MoE layer 1
     pp = jax.tree_util.tree_map(lambda a: torch.from_numpy(np.array(a)), rp)
     return rc, pc, rp, pp
@@ -119,7 +119,7 @@ def test_tied_router_probabilities_route_as_the_reference(dispatch):
 def test_params_from_reference_maps_the_moe_leaves():
     rc = dataclasses.replace(ref_smoke_config("deepseek_moe_16b"), param_dtype="float32")
     pc = dataclasses.replace(get_smoke_config("deepseek_moe_16b"), param_dtype="float32")
-    rp = jax.tree_util.tree_map(np.asarray, ref_init_params(rc, jax.random.PRNGKey(2)))
+    rp = jax.tree_util.tree_map(np.asarray, ref_init(rc, 2))
     pp = convert.params_from_reference(rp, pc, "cpu")
     assert [len(g["layers"]) for g in pp["groups"]] == [1, 2]
     for r in range(2):                                    # the stacked MoE group

@@ -19,7 +19,6 @@ import torch
 
 from repro.configs import get_smoke_config as ref_smoke_config
 from repro.core.division_modes import DivisionConfig as RefDivisionConfig
-from repro.models import init_params as ref_init_params
 from repro.serving import ServingEngine as RefServingEngine
 from repro_torch import convert
 from repro_torch.configs import get_smoke_config
@@ -27,6 +26,7 @@ from repro_torch.core.division_modes import DivisionConfig
 from repro_torch.launch import serve as serve_cli
 from repro_torch.models import init_params
 from repro_torch.serving import Request, ServingEngine, pad_cache_to
+from _ref_params import ref_init
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 PROMPTS = [list(range(1, 12)), list(range(3, 25)), list(range(5, 21))]
@@ -84,7 +84,7 @@ def test_serve_eos_release():
 @pytest.mark.parametrize("mode", ["exact", "taylor_pallas"])
 def test_greedy_tokens_equal_the_reference(mode):
     rcfg = dataclasses.replace(ref_smoke_config("paper_fpdiv"), param_dtype="float32")
-    rparams = ref_init_params(rcfg, jax.random.PRNGKey(0))
+    rparams = ref_init(rcfg, 0)
     cfg = dataclasses.replace(get_smoke_config("paper_fpdiv"), param_dtype="float32")
     params = convert.params_from_reference(jax.tree_util.tree_map(np.asarray, rparams),
                                            cfg, "cpu")

@@ -17,7 +17,6 @@ import pytest
 import torch
 
 from repro.configs import get_smoke_config as ref_smoke_config
-from repro.models import init_params as ref_init_params
 from repro.serving import ServingEngine as RefServingEngine
 from repro_torch import convert
 from repro_torch.configs import get_smoke_config
@@ -25,6 +24,7 @@ from repro_torch.core.division_modes import DivisionConfig
 from repro_torch.launch import serve as serve_cli
 from repro_torch.models import forward, init_params
 from repro_torch.serving import Request, ServingEngine, pad_cache_to
+from _ref_params import ref_init
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ARCHS = ["gemma3_12b", "deepseek_moe_16b"]
@@ -179,7 +179,7 @@ def test_serve_with_rings_admits_and_finishes_every_request(arch):
 def test_greedy_tokens_equal_the_reference(arch):
     rcfg = dataclasses.replace(ref_smoke_config(arch), param_dtype="float32",
                                capacity_factor=8.0)
-    rparams = ref_init_params(rcfg, jax.random.PRNGKey(0))
+    rparams = ref_init(rcfg, 0)
     cfg = dataclasses.replace(get_smoke_config(arch), param_dtype="float32",
                               capacity_factor=8.0)
     params = convert.params_from_reference(jax.tree_util.tree_map(np.asarray, rparams),

@@ -19,7 +19,6 @@ import pytest
 import torch
 
 from repro.configs import get_smoke_config as ref_smoke_config
-from repro.models import init_params as ref_init_params
 from repro.serving import ServingEngine as RefServingEngine
 from repro_torch import convert
 from repro_torch.configs import get_smoke_config
@@ -27,6 +26,7 @@ from repro_torch.core.division_modes import DivisionConfig
 from repro_torch.launch import serve as serve_cli
 from repro_torch.models import init_params
 from repro_torch.serving import Request, ServingEngine, alignment, pad_cache_to
+from _ref_params import ref_init
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SSM = ["mamba2_780m", "jamba_1_5_large"]
@@ -95,7 +95,7 @@ def test_serve_matches_generate_batch_and_generate(arch):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_greedy_tokens_equal_the_reference(arch):
     rcfg = _cfg(arch, ref_smoke_config)
-    rparams = ref_init_params(rcfg, jax.random.PRNGKey(0))
+    rparams = ref_init(rcfg, 0)
     cfg = _cfg(arch)
     params = convert.params_from_reference(jax.tree_util.tree_map(np.asarray, rparams),
                                            cfg, "cpu")

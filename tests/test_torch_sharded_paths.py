@@ -41,6 +41,7 @@ from repro_torch.optim import adamw, compress
 from repro_torch.train import step
 from repro_torch.workloads import kmeans, qr
 import _torch_mesh
+from _ref_params import ref_init
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 N_RANKS = 4
@@ -62,7 +63,7 @@ def _moe_inputs():
                              division=ref_dm.DivisionConfig(mode="taylor_pallas"), **kw)
     pc = dataclasses.replace(get_smoke_config("deepseek_moe_16b"),
                              division=DivisionConfig(mode="taylor_pallas"), **kw)
-    rp = ref_init_params(rc, jax.random.PRNGKey(0))["groups"][1]["layers"][0]["ffn"]
+    rp = ref_init(rc, 0)["groups"][1]["layers"][0]["ffn"]
     rp = jax.tree_util.tree_map(lambda a: np.asarray(a)[0], rp)       # MoE layer 1
     x = np.random.default_rng(3).normal(size=(N_RANKS, 24, pc.d_model)).astype(np.float32)
     xt = jnp.asarray(x.reshape(-1, pc.d_model))
@@ -78,7 +79,7 @@ def _train_inputs():
     rcfg = ref_smoke_config("llama3_8b")
     cfg = dataclasses.replace(get_smoke_config("llama3_8b"), param_dtype="float32")
     ref_params = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32),
-                                        ref_init_params(rcfg, jax.random.PRNGKey(0)))
+                                        ref_init(rcfg, 0))
     params = convert.params_from_reference(ref_params, cfg, "cpu")
     opt_cfg = adamw.AdamWConfig(division=cfg.division)
     rng = np.random.default_rng(5)

@@ -36,20 +36,19 @@ import torch
 from repro.configs import get_smoke_config as ref_smoke_config
 from repro.core.division_modes import DivisionConfig as RefDivisionConfig
 from repro.models import forward as ref_forward
-from repro.models import init_params as ref_init_params
-from repro.models import params as ref_params_module
 from repro.serving import pad_cache_to as ref_pad_cache_to
 from repro.train import checkpoint as ref_checkpoint
 from repro_torch import convert, tree
 from repro_torch.configs import get_smoke_config
 from repro_torch.core.division_modes import DivisionConfig
 from repro_torch.launch.mesh import run_ranks
-from repro_torch.models import init_params
+from repro_torch.models import forward, init_params
 from repro_torch.optim import adamw
 from repro_torch.serving import ServingEngine
 from repro_torch.sharding import rules as shr
 from repro_torch.train import checkpoint, step
 import _torch_mesh
+from _ref_params import ref_init
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 N_RANKS = 4
@@ -70,7 +69,7 @@ CASES = {"paper_fpdiv": ("paper_fpdiv", {}),
          "whisper_tiny": ("whisper_tiny", {}),
          "whisper_drops": ("whisper_tiny", {"n_heads": 6, "n_kv_heads": 6, "vocab": 257})}
 MESHES = {"1x4": 4, "2x2": 2, "1x2": 2}          # name: model-axis size
-REFUSED = {"mamba2_780m": "item 22", "jamba_1_5_large": "item 22"}
+SSM_ARCHS = ("mamba2_780m", "jamba_1_5_large")   # Mamba-2 layers under model 2
 TRAIN_BATCH, TRAIN_SEQ, N_MICRO = 8, 32, 2
 CLIP_SHARE = 0.5                  # grad_clip at this share of the gradients' norm
 
@@ -86,10 +85,8 @@ def _pair(arch, **kw):
 
 def _ref_init(cfg, seed=0):
     """The reference's ``init_params`` with its per-leaf key the same in
-    every process (``test_torch_models._ref_init``, ROADMAP F13)."""
-    stable = lambda s: zlib.crc32(s.encode())
-    with mock.patch.object(ref_params_module, "hash", stable, create=True):
-        return ref_init_params(cfg, jax.random.PRNGKey(seed))
+    every process (``_ref_params.ref_init``, ROADMAP F13)."""
+    return ref_init(cfg, seed)
 
 
 def _np(t):
@@ -206,17 +203,17 @@ def run(tmp_path_factory):
                             str(d / "out.npz")], stdout=subprocess.PIPE,
                            stderr=subprocess.PIPE, text=True, cwd=root,
                            env={**os.environ, "PYTHONPATH": "src"})
-    refused = {}
-    for arch in REFUSED:
+    ssm = {}
+    for arch in SSM_ARCHS:
         cfg = dataclasses.replace(get_smoke_config(arch), param_dtype="float32")
-        refused[arch] = (cfg, init_params(cfg, torch.Generator().manual_seed(0)),
-                         torch.zeros((1, 16), dtype=torch.int64))
+        ssm[arch] = (cfg, init_params(cfg, torch.Generator().manual_seed(0)),
+                     torch.arange(16, dtype=torch.int64)[None] % cfg.vocab)
     draw_cfg = _pair("llama3_8b")[1]
     ckpt = str(tmp_path_factory.mktemp("tp_ckpt"))
     inp = {"cases": {n: c["port"] for n, c in cases.items()},
            "train": {k: train[k] for k in ("cfg", "cfg14", "params", "params14", "batch",
                                            "opt_cfg", "n_micro")},
-           "refuse": refused, "ckpt_dir": ckpt,
+           "ssm": ssm, "ckpt_dir": ckpt,
            "draws": {"cfg": draw_cfg, "seed": 3, "reference": _np(train["ref"]["2x2"][1])}}
     try:
         ranks = run_ranks(_torch_mesh.tp_rank, N_RANKS, inp, device_type="cpu",
@@ -227,7 +224,7 @@ def run(tmp_path_factory):
             xla.kill()
     assert xla.returncode == 0, stderr[-3000:]
     return {"cases": cases, "train": train, "ranks": ranks, "ckpt": ckpt,
-            "xla": dict(np.load(d / "out.npz")), "draw_cfg": draw_cfg}
+            "xla": dict(np.load(d / "out.npz")), "draw_cfg": draw_cfg, "ssm": ssm}
 
 
 # ----------------------------------------------------------------- helpers
@@ -529,13 +526,18 @@ def test_a_rank_draws_and_converts_only_its_blocks(run):
     assert any("Shard" in str(p) for p in run["ranks"][0]["draws"]["placements"])
 
 
-# ------------------------------------------------------------------- refusals
+# ------------------------------------------------------------- Mamba-2 layers
 
-@pytest.mark.parametrize("arch", list(REFUSED))
+@pytest.mark.parametrize("arch", list(SSM_ARCHS))
 def test_ssm_and_moe_layers_refuse_a_model_axis(run, arch):
-    """Mamba-2 layers under model = 2 raise a ValueError naming their
-    ROADMAP item, on every rank: they never run replicated (the MoE models
-    run split: test_torch_expert_parallel.py)."""
-    for out in run["ranks"]:
-        msg = out["refusals"][arch]
-        assert REFUSED[arch] in msg and "model axis of 2" in msg
+    """Until ROADMAP Queue 1 item 22 Mamba-2 layers under a model axis
+    raised a ValueError here; now they run split by heads. Under model = 2
+    (both model groups of the (2, 2) mesh) mamba2's and jamba's logits,
+    the ranks' vocab blocks side by side, are the unsharded port's within
+    LOGIT_RTOL, with the same argmax (tests/test_torch_ssm_parallel.py holds
+    the split mixer to the reference)."""
+    cfg, params, toks = run["ssm"][arch]
+    with torch.no_grad():
+        want, _, _ = forward(cfg, params, tokens=toks)
+    for group in ((0, 1), (2, 3)):
+        _close(_gather([run["ranks"][r]["ssm"][arch] for r in group], cfg.vocab), want.numpy())

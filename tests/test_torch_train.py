@@ -24,7 +24,6 @@ import torch
 
 from repro.configs import get_smoke_config as ref_smoke_config
 from repro.core.division_modes import DivisionConfig as RefDivisionConfig
-from repro.models import init_params as ref_init_params
 from repro.optim import adamw as ref_adamw
 from repro.train import step as ref_step
 from repro_torch import convert, tree
@@ -37,6 +36,7 @@ from repro_torch.models import init_params
 from repro_torch.optim import adamw
 from repro_torch.train import fault, step
 from repro_torch.train.loop import LoopConfig, run
+from _ref_params import ref_init
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 LOGIT_RTOL, GRAD_RTOL = 1e-5, 1e-5
@@ -63,7 +63,7 @@ def _torch(batch):
 @pytest.mark.parametrize("mode,n_micro", [("exact", 1), ("taylor_pallas", 2)])
 def test_train_step_matches_the_reference(mode, n_micro):
     rc, pc = _pair(mode)
-    ref_state = ref_step.init_state(rc, ref_init_params(rc, jax.random.PRNGKey(0)),
+    ref_state = ref_step.init_state(rc, ref_init(rc, 0),
                                     ref_adamw.AdamWConfig(division=rc.division))
     state = convert.train_state_from_reference(
         jax.tree_util.tree_map(np.asarray, ref_state), pc, "cpu")
