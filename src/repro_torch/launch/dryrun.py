@@ -36,14 +36,14 @@ the quantity):
   * ``hbm_traffic_model`` (``launch/memmodel.py``) on the layout the
     traced rank holds (``param_layout``: the mesh axes that split some
     leaf, joined by '+', or ``replicated``). The config's ``model``-axis
-    rules and its ``experts`` / ``expert_mlp`` rules are the port's own:
-    those leaves are split (the model counts a leaf on ``data`` as FSDP,
-    gathered before use, where the port's experts stay put and the tokens
-    move). The reference's rules also put jamba's ``embed`` leaves on
-    ``data`` (FSDP), which the port holds whole until ROADMAP Queue 1 item
-    25, so the model is fed rules that replicate those
-    (:func:`replicated`), and their weight, gradient and optimizer bytes
-    are the whole leaves the rank reads and updates.
+    rules, its ``experts`` / ``expert_mlp`` rules and its ``embed`` rule
+    are the port's own: those leaves are split as the program holds them,
+    and the model takes the config as it is (it counts a leaf on ``data``
+    as FSDP, gathered before use: so the port runs jamba's ``embed``
+    leaves, where its experts stay put and the tokens move). Jamba's cells
+    list, on ``data``, one all-gather per FSDP leaf a forward (a block's
+    twice under remat, the recompute gathering again) and one
+    reduce-scatter per leaf and microbatch.
   * ``sharding_fallbacks`` (``rules.param_fallbacks``, the reference's
     layout) and ``roofline``.
 
@@ -90,7 +90,7 @@ from repro_torch.configs import (ARCH_IDS, LM_SHAPES, ModelConfig, ShapeConfig, 
 from repro_torch.launch import memmodel
 from repro_torch.launch import roofline as rl
 
-__all__ = ["MeshShape", "default_device", "input_specs", "replicated", "apply_variant",
+__all__ = ["MeshShape", "default_device", "input_specs", "apply_variant",
            "run_cell", "main"]
 
 
@@ -363,7 +363,7 @@ def run_cell(arch: str, shape_name: Optional[str] = None, multi_pod: bool = Fals
                      if shape.kind != "decode" else shape.global_batch)
     model_flops = rl.model_flops_per_device(active_param_count(cfg), tokens_global, n_dev,
                                             kind)
-    mm = memmodel.hbm_traffic(replicated(cfg), shape, sizes, n_micro=n_micro,
+    mm = memmodel.hbm_traffic(cfg, shape, sizes, n_micro=n_micro,
                               fused_attention=cfg.use_flash_kernel)
     colls = rl.tally_collectives(records, n_dev, pod_size)
     roof = rl.Roofline(flops=float(flops.get_total_flops()), bytes_accessed=mm["total_bytes"],
@@ -387,20 +387,6 @@ def run_cell(arch: str, shape_name: Optional[str] = None, multi_pod: bool = Fals
         "unit_calls": dict(fake.CALLS),
         "roofline": roof.to_dict(),
     }
-
-
-def replicated(cfg: ModelConfig) -> ModelConfig:
-    """``cfg`` with every rule that names ``data`` (or ``pod``) None, except
-    the ``experts`` and ``expert_mlp`` rules: the parameter layout that the
-    port's program holds on each rank, split over ``model`` and the experts
-    as its rules say and whole elsewhere over the data axes (jamba's
-    ``embed``: FSDP is ROADMAP Queue 1 item 25)."""
-    from repro_torch.models.parallel import EXPERT_AXES
-
-    rules = rules_for(cfg)
-    return dataclasses.replace(cfg, sharding_rules={
-        k: (None if v in ("data", "pod") and k not in EXPERT_AXES else v)
-        for k, v in rules.items()})
 
 
 def _layout(cfg: ModelConfig, tp) -> str:

@@ -28,11 +28,11 @@ The shardings are the config's specs (``sharding/rules.spec_for`` over
 ``rules_for(cfg)``) on ``mesh``: a ``DeviceMesh`` or any object whose
 ``.shape`` maps axis names to sizes. With the reference's rules the model
 says what the reference's layout would move: leaves on ``model`` and the
-FSDP leaves on ``data`` (jamba's, deepseek's and moonshot's ``embed`` and
-``experts``, even at ``model = 1``) count as local shards. The port's
-program keeps every parameter replicated (ROADMAP Queue 1 item 18), so
-the dry run passes a config whose rules replicate them
-(``dryrun.replicated``).
+FSDP leaves on ``data`` (jamba's ``embed``, and the ``experts`` of jamba,
+deepseek and moonshot, even at ``model = 1``) count as local shards. The
+port's program holds the same layout (jamba's ``embed`` leaves stored as
+blocks and gathered before use, the experts split), so the dry run passes
+the config as it is.
 """
 from __future__ import annotations
 

@@ -28,7 +28,10 @@ the MoE FFN's experts run split too (``models/parallel.py``,
 block, and the cache holds its KV heads and Mamba-2 heads. The tokens
 given are the whole batch on every rank, unless
 ``sharding.rules.split_tokens`` says they are the rank's block of it (the
-train step).
+train step). A leaf that its spec puts on a batch axis (FSDP) is the
+rank's block of it, put together at the top of each block (under remat,
+again in the recompute) and where the embedding, final norm and LM head
+are read; the gathered copy lives while its block runs.
 """
 from __future__ import annotations
 
@@ -96,6 +99,8 @@ def block_forward(bp: Dict, x, spec: LayerSpec, cfg: ModelConfig, positions,
     plan (``models/parallel.py``), ``bp`` its blocks; ``at``: where the MoE
     FFN routes (``moe.where``)."""
     div = cfg.division
+    if tp is not None and tp.fsdp:
+        bp = tp.gather_block(bp, spec, "cross" in bp)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache: Dict[str, Any] = {}
     h = rms_norm(x, bp["mixer_norm"], div, cfg.norm_eps)
@@ -157,6 +162,12 @@ def _remat_block(*args, **kw):
                       preserve_rng_state=False, **kw)
 
 
+def _top(params, name: str, tp):
+    """A top-level leaf as the model reads it: gathered where it is stored
+    as the rank's block over a batch axis."""
+    return params[name] if tp is None else tp.gather_top(params[name], name)
+
+
 def encode(cfg: ModelConfig, enc_params, enc_embeds, tp=None):
     """The encoder over stub frontend embeddings (b, s, d_model): attention
     and dense blocks, then the final norm. Its attention is causal: the
@@ -169,7 +180,7 @@ def encode(cfg: ModelConfig, enc_params, enc_embeds, tp=None):
     spec = LayerSpec("attn", "dense")
     for lp in enc_params["groups"][0]["layers"]:
         x, _, _ = block_forward(lp, x, spec, cfg, positions, mode="train", tp=tp)
-    return rms_norm(x, enc_params["final_norm"], cfg.division, cfg.norm_eps)
+    return rms_norm(x, _top(enc_params, "final_norm", tp), cfg.division, cfg.norm_eps)
 
 
 def forward(cfg: ModelConfig, params, *, tokens=None, embeds=None, cache=None, pos=None,
@@ -199,7 +210,7 @@ def forward(cfg: ModelConfig, params, *, tokens=None, embeds=None, cache=None, p
     if embeds is not None and cfg.embed_inputs and not cfg.is_encoder_decoder:
         x = embeds.to(torch_dtype(cfg.param_dtype))
     else:
-        x = embed_tokens(params["embed"], tokens, cfg, tp)
+        x = embed_tokens(_top(params, "embed", tp), tokens, cfg, tp)
     b, s = x.shape[0], x.shape[1]
     if mode == "decode":
         pos = decode_positions(pos, b, x.device)
@@ -226,8 +237,9 @@ def forward(cfg: ModelConfig, params, *, tokens=None, embeds=None, cache=None, p
             caches.append(nc)
             aux = aux + a
         new_groups.append({"layers": caches})
-    x = rms_norm(x, params["final_norm"], cfg.division, cfg.norm_eps)
-    logits = lm_logits(params, x, cfg, tp)
+    x = rms_norm(x, _top(params, "final_norm", tp), cfg.division, cfg.norm_eps)
+    head = "embed" if cfg.tie_embeddings else "lm_head"
+    logits = lm_logits({head: _top(params, head, tp)}, x, cfg, tp)
     new_cache = {"groups": new_groups} if mode in ("prefill", "decode") else None
     return logits, new_cache, aux
 

@@ -44,23 +44,36 @@ only where ``ssm_heads`` divides too: where ``ssm_inner`` splits and
 ``ssm_heads`` does not (48 heads at model 32), the mixer's leaves are held
 whole and the mixer runs whole on every rank, as a divisibility drop
 (``TensorParallel.ssm`` False; place such leaves by the plan's
-``shardings``). Every other leaf that a spec puts on ``data`` (jamba's
-``embed``: FSDP, ROADMAP Queue 1 item 25) is held whole.
+``shardings``).
+
+Every other dim that a leaf's spec puts on a batch axis (jamba's ``embed``
+on ``data``: FSDP) is stored as the rank's block and put together where
+it is used (``comm.gather_from_split``: an all-gather forward, the
+reduce-scatter of its gradient backward): a block's leaves at the top of
+``models.model.block_forward`` -- inside remat's checkpoint, so the
+recompute gathers again and no gathered copy is kept for the backward
+pass -- and the embedding, final norm and LM head where ``forward`` reads
+them. The plan records each such dim (``TensorParallel.fsdp``); the
+tensor-parallel and expert checks read the specs after the gather. An
+expert leaf's ``embed`` dim stays whole where its experts take ``data``
+(the duplicate drop).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Any, Optional, Tuple
+from dataclasses import dataclass, field
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch import tree
-from repro_torch.configs.base import ModelConfig, rules_for
+from repro_torch.configs.base import LayerSpec, ModelConfig, rules_for
 
 __all__ = ["AXIS", "ExpertParallel", "TensorParallel", "tensor_parallel", "local_params",
-           "wrap_like", "split_axes", "executed_spec"]
+           "wrap_like", "split_axes", "executed_spec", "gather_tree"]
 
 AXIS = "model"
+# The batch axes, over which a leaf's non-expert dims are gathered (FSDP).
+GATHER_AXES = ("pod", "data")
 EXPERT_AXES = ("experts", "expert_mlp")
 SSM_AXES = ("ssm_inner", "ssm_heads")
 # The Mamba-2 mixer's leaves by how they split over ``model``, with the dim
@@ -102,6 +115,23 @@ class TensorParallel:
     shardings: Any      # NamedSharding tree of the executed specs (executed_spec)
     moe: Optional[ExpertParallel] = None
     ssm: bool = False   # the Mamba-2 mixer by heads (ssm_inner and ssm_heads split)
+    # The gathered dims (FSDP): for each block kind (its LayerSpec and
+    # whether it has cross attention) and for the top-level leaves
+    # (``"top"``: embed, final_norm, lm_head), a tree of each leaf's
+    # ((axis, dim), ...) pairs; empty where no leaf is gathered.
+    fsdp: Dict[Any, Any] = field(default_factory=dict)
+
+    def gather_block(self, bp, spec, cross: bool = False):
+        """A block's leaves put together from the rank's blocks of them over
+        the batch axes; the leaves split over ``model`` stay its blocks."""
+        g = self.fsdp.get((spec, cross))
+        return bp if g is None else gather_tree(bp, g, self.mesh)
+
+    def gather_top(self, t, name: str):
+        """The top-level leaf ``name`` (embed, final_norm, lm_head) put
+        together, as :meth:`gather_block`."""
+        pairs = self.fsdp.get("top", {}).get(name, ())
+        return _gather(t, pairs, self.mesh)
 
     def copy(self, x: torch.Tensor) -> torch.Tensor:
         """Identity forward, gradient summed over the ranks backward."""
@@ -167,14 +197,42 @@ def _dims(spec) -> Tuple[int, ...]:
 
 def executed_spec(p, spec):
     """The part of a leaf's resolved spec that the port executes: its
-    ``model`` entries and the entries of its ``experts`` and ``expert_mlp``
-    dims; any other dim is held whole."""
-    return tuple(part if part == AXIS or ax in EXPERT_AXES else None
+    ``model`` entries, the entries of its ``experts`` and ``expert_mlp``
+    dims, and its dims on the batch axes (stored as blocks and gathered
+    before use) -- all of it."""
+    return tuple(part if part == AXIS or part in GATHER_AXES or ax in EXPERT_AXES else None
                  for part, ax in zip(spec, p.axes))
 
 
 def _live_axis(part, sizes):
     return part if part is not None and sizes[part] > 1 else None
+
+
+def _gathered(p, spec, sizes) -> Tuple[Tuple[str, int], ...]:
+    """The (axis, dim) pairs of a leaf that are gathered before use: its
+    non-expert dims on a batch axis above one rank."""
+    return tuple((part, d) for d, (part, ax) in enumerate(zip(spec, p.axes))
+                 if part in GATHER_AXES and ax not in EXPERT_AXES and sizes[part] > 1)
+
+
+def _after_gather(p, spec):
+    """The spec a leaf is computed with: the gathered dims whole."""
+    return tuple(None if part in GATHER_AXES and ax not in EXPERT_AXES else part
+                 for part, ax in zip(spec, p.axes))
+
+
+def _gather(t: torch.Tensor, pairs, mesh) -> torch.Tensor:
+    from repro_torch.sharding import comm
+
+    for axis, dim in pairs:
+        t = comm.gather_from_split(t, mesh, axis, dim)
+    return t
+
+
+def gather_tree(t, gathers, mesh):
+    """Each leaf of ``t`` (the rank's blocks) gathered over its ``gathers``
+    pairs (a tree of ((axis, dim), ...) matching ``t``)."""
+    return tree.map_tree(lambda x, pairs: _gather(x, pairs, mesh), t, gathers)
 
 
 def _expert_plan(cfg: ModelConfig, mesh, spec) -> Optional[ExpertParallel]:
@@ -240,7 +298,7 @@ def _ssm_split(cfg: ModelConfig, spec) -> bool:
 
 
 def _plan(cfg: ModelConfig, mesh) -> TensorParallel:
-    from repro_torch.models.params import _attn_specs, _mlp_specs, model_specs
+    from repro_torch.models.params import _attn_specs, _block_specs, _mlp_specs, model_specs
     from repro_torch.sharding import rules as shr
 
     sizes = shr.mesh_shape(mesh)
@@ -248,11 +306,13 @@ def _plan(cfg: ModelConfig, mesh) -> TensorParallel:
     rules = rules_for(cfg)
     resolved = lambda p: executed_spec(p, shr.spec_for(p.shape, p.axes, rules, mesh))
     ssm = _ssm_split(cfg, lambda p: shr.only_axes(resolved(p), (AXIS,)))
-    # A divisibility drop of the mixer holds its leaves whole.
-    executed = (resolved if ssm else lambda p: (tuple(None for _ in p.shape)
-                                                if set(p.axes) & set(SSM_AXES)
-                                                else resolved(p)))
+    # A divisibility drop of the mixer holds its leaves whole on ``model``
+    # (a batch-axis dim of theirs stays a gathered block).
+    executed = (resolved if ssm else lambda p: (
+        tuple(part if part in GATHER_AXES else None for part in resolved(p))
+        if set(p.axes) & set(SSM_AXES) else resolved(p)))
     spec = lambda p: shr.only_axes(executed(p), (AXIS,))
+    computed = lambda p: _after_gather(p, executed(p))
     split = {}
     expected = {"wq": (1,), "wk": (1,), "wv": (1,), "attn_wo": (0,), "wi": (1,), "wg": (1,),
                 "mlp_wo": (0,), "embed": (0,), "lm_head": (1,)}
@@ -278,12 +338,22 @@ def _plan(cfg: ModelConfig, mesh) -> TensorParallel:
     if len(set(vocab)) > 1:
         raise ValueError(f"{cfg.name}: embed and lm_head are split differently over '{AXIS}'")
     shardings = tree.map_tree(lambda p: shr.NamedSharding(mesh, executed(p)), top)
+    gathers = lambda specs: tree.map_tree(lambda p: _gathered(p, executed(p), sizes), specs)
+    kinds = {(s, cfg.is_encoder_decoder) for s in cfg.layer_specs()}
+    if cfg.is_encoder_decoder:
+        kinds.add((LayerSpec("attn", "dense"), False))
+    fsdp = {k: gathers(_block_specs(cfg, *k)) for k in kinds}
+    fsdp["top"] = gathers({k: v for k, v in top.items() if k in ("embed", "final_norm",
+                                                                  "lm_head")})
+    used = [pairs for k in kinds for pairs in tree.leaves_at(fsdp[k], _block_specs(cfg, *k))]
+    if not any(used + list(fsdp["top"].values())):
+        fsdp = {}
     return TensorParallel(mesh=mesh, size=size,
                           rank=shr.axis_index(mesh, AXIS) if AXIS in sizes else 0,
                           heads=split["wq"], kv=split["wk"], mlp=split["wi"],
                           vocab=bool(vocab and vocab[0]), n_heads=cfg.n_heads,
                           n_kv_heads=cfg.n_kv_heads, shardings=shardings,
-                          moe=_expert_plan(cfg, mesh, executed), ssm=ssm)
+                          moe=_expert_plan(cfg, mesh, computed), ssm=ssm, fsdp=fsdp)
 
 
 _PLANS: dict = {}
@@ -303,7 +373,8 @@ def tensor_parallel(cfg: ModelConfig, mesh=None) -> Optional[TensorParallel]:
     if hit is None or hit[0] is not cfg or hit[1] is not mesh:
         plan = _plan(cfg, mesh)
         moe = plan.moe
-        split = plan.size > 1 or (moe is not None and any((moe.experts, moe.mlp, moe.shared)))
+        split = (plan.size > 1 or bool(plan.fsdp)
+                 or (moe is not None and any((moe.experts, moe.mlp, moe.shared))))
         hit = _PLANS[key] = (cfg, mesh, plan if split else None)
     return hit[2]
 

@@ -8,9 +8,18 @@ dequantize ``mean = acc * s / n``; carry ``err' = g' - q * s`` into the
 next step (Karimireddy et al. 2019).
 
 "Per tensor" is per tensor of the reference's layout: it stacks a group's
-layers along a leading axis, where the port keeps a leaf per layer
-(``.../layers/<i>/...``), so the leaves of one stack share one scale, the
-max over all of them (:func:`stacks`).
+``repeat`` copies of each place in its period along a leading axis, where
+the port keeps a leaf per layer (``.../layers/<r * period + i>/...``), so
+the leaves of one stack share one scale, the max over all of them
+(:func:`stacks`; a group of period 8, as jamba's, holds 8 stacks of each
+leaf name).
+
+Where a leaf is split over other mesh axes (``model``, the experts, FSDP
+blocks on ``data``), each rank holds its block of it, and the protocol runs
+on the block: the max is the block's (over the blocks of a stack's
+layers), shared over the axis's ranks only, which hold the same block --
+one scale per block of a stacked tensor, what the reference's body
+computes on the block that its ``shard_map`` gives it.
 
 The ranks' int8 values are summed as int32 (gloo has no int16 all-reduce,
 ROADMAP F11): sums of up to 256 pods of +-127 are exact in either, so the
@@ -21,6 +30,7 @@ from __future__ import annotations
 
 import re
 
+import numpy as np
 import torch
 
 from repro_torch import tree
@@ -32,7 +42,18 @@ F32 = torch.float32
 
 
 def init_error_tree(params):
-    return tree.map_tree(lambda p: torch.zeros(p.shape, dtype=F32, device=p.device), params)
+    """f32 zeros shaped as ``params``: for a DTensor leaf, a DTensor of
+    zero blocks placed alike (the error tree is stored as blocks)."""
+    from torch.distributed.tensor import DTensor
+
+    def zeros(p):
+        if isinstance(p, DTensor):
+            return DTensor.from_local(torch.zeros(p.to_local().shape, dtype=F32,
+                                                  device=p.device),
+                                      p.device_mesh, p.placements, run_check=False)
+        return torch.zeros(p.shape, dtype=F32, device=p.device)
+
+    return tree.map_tree(zeros, params)
 
 
 def _scalar(v: float, like: torch.Tensor) -> torch.Tensor:
@@ -41,24 +62,38 @@ def _scalar(v: float, like: torch.Tensor) -> torch.Tensor:
     return torch.tensor(v, dtype=F32, device=like.device)
 
 
-_LAYER = re.compile(r"(^|/)layers/\d+(?=/|$)")
+_RECIP_127 = float(np.float32(1.0) / np.float32(127.0))
+_LAYER = re.compile(r"(^|/)groups/(\d+)/layers/(\d+)(?=/|$)")
 
 
-def stacks(grads) -> list:
+def stacks(grads, periods) -> list:
     """The leaf indices of ``grads`` grouped by the reference's tensors: the
-    leaves whose paths differ only in the layer index after ``layers/``
-    form one stacked tensor there; every other leaf is a group of its own."""
+    leaves whose paths differ only in the layer index after ``layers/``,
+    at the same place in their group's period, form one stacked tensor
+    there; every other leaf is a group of its own. ``periods``: the
+    length of each decoder group's period (``[len(g.period) for g in
+    cfg.groups()]``; the encoder's is 1; empty for a tree with no
+    ``groups/``). It has no default: period 1 would share one scale across
+    a period's different tensors."""
+    def key(path: str) -> str:
+        def place(m):
+            encoder = path.startswith("encoder/")
+            p = 1 if encoder else periods[int(m.group(2))]
+            return f"{m.group(1)}groups/{m.group(2)}/layers/*{int(m.group(3)) % p}"
+        return _LAYER.sub(place, path)
+
     groups: dict = {}
     for i, path in enumerate(tree.paths(grads)):
-        groups.setdefault(_LAYER.sub(r"\1layers/*", path), []).append(i)
+        groups.setdefault(key(path), []).append(i)
     return list(groups.values())
 
 
-def psum_compressed(grads, err_tree, axis_name: str):
+def psum_compressed(grads, err_tree, axis_name: str, periods):
     """Mean of ``grads`` over the active mesh's ``axis_name`` ranks with int8
     error feedback, one scale per tensor of the reference's layout
-    (:func:`stacks`). Returns (mean tree f32, new error tree); every rank
-    of the axis gets the same mean."""
+    (:func:`stacks`), or per block of it where ``grads`` are the rank's
+    blocks; ``periods`` as :func:`stacks` takes them. Returns (mean tree
+    f32, new error tree); every rank of the axis gets the same mean."""
     from repro_torch.sharding import comm
     from repro_torch.sharding import rules as shr
 
@@ -77,10 +112,12 @@ def psum_compressed(grads, err_tree, axis_name: str):
 
     gfs = [g.to(F32) + e for g, e in zip(tree.leaves(grads), tree.leaves(err_tree))]
     pairs = [None] * len(gfs)
-    for group in stacks(grads):
+    for group in stacks(grads, periods):
         local = torch.stack([torch.max(torch.abs(gfs[i])) for i in group]).max()
         top = comm.all_reduce(local, mesh, [axis_name], op="max")
-        scale = torch.div(torch.clamp(top, min=1e-30), _scalar(127.0, top))
+        # XLA compiles the reference's division by the constant 127 into a
+        # product with its f32 reciprocal; the body only runs compiled.
+        scale = torch.clamp(top, min=1e-30) * _scalar(_RECIP_127, top)
         for i in group:
             pairs[i] = leaf(gfs[i], scale)
     return (tree.unflatten(grads, [m for m, _ in pairs]),

@@ -5,7 +5,12 @@ each mesh axis in turn, and returns the result on the operand's device:
 the same code runs on the CPU tests' gloo ranks and on ranks that share one
 card (gloo carries CUDA tensors only through host copies of its own, and
 NCCL takes one GPU per rank). The operands are small (counts, block
-partials, scalars) except the train step's gradients.
+partials, scalars) except the train step's gradients and the FSDP leaves.
+A split dim is moved first on the operand's device, before the host copy,
+so the host only copies contiguous blocks. :func:`all_gather` is gloo's
+all-to-all of the rank's block repeated once for each rank: gloo's own
+all-gather moves a large block several times slower
+(``tools/gloo_rates.py``).
 
 Reductions over several axes run one axis after another, in the order
 given; every rank ends with the same bits. :func:`all_gather` concatenates
@@ -22,6 +27,13 @@ partial sum. :func:`all_reduce_sum_grad` sums both ways: right for a value
 that every rank's loss reads in full (MoE's aux), wrong for these two, where
 it would scale the gradients by the number of ranks.
 
+A leaf stored as the rank's block over a batch axis (FSDP: jamba's
+``embed`` on ``data``) is put together before use by
+:func:`gather_from_split`: an all-gather of the blocks, whose backward is
+the reduce-scatter of the whole leaf's gradient in its dtype (as GSPMD
+reduce-scatters it), so every rank's block of the gradient holds every
+rank's tokens.
+
 The expert exchange of the MoE FFN (``models/moe.py``) uses two more, each
 differentiated: :func:`exchange` (an all-to-all over one axis: block j of
 a dim goes to rank j; its backward is the same all-to-all of the
@@ -30,9 +42,10 @@ reduce-scatter of the gradients: summed over the ranks, sliced to the
 rank's block).
 
 :func:`record` lists the collectives issued inside a block, one entry per
-process-group call: the op, the bytes of its result and the ranks of its
-group. ``launch/roofline.py`` ``tally_collectives`` turns the list into
-wire bytes, as the reference's roofline parses its HLO's collectives.
+collective over one axis: the op, the bytes of its result and the ranks
+of its group.
+``launch/roofline.py`` ``tally_collectives`` turns the list into wire
+bytes, as the reference's roofline parses its HLO's collectives.
 """
 from __future__ import annotations
 
@@ -44,7 +57,8 @@ import torch
 from .rules import mesh_shape
 
 __all__ = ["all_reduce", "all_gather", "all_to_all", "reduce_scatter", "all_reduce_sum_grad",
-           "copy_to_split", "reduce_from_split", "exchange", "gather_blocks", "record"]
+           "copy_to_split", "reduce_from_split", "exchange", "gather_blocks",
+           "gather_from_split", "record"]
 
 _RECORD: Optional[List[dict]] = None
 
@@ -73,6 +87,12 @@ def _note(op: str, whole: torch.Tensor, group) -> None:
                         "ranks": list(dist.get_process_group_ranks(group))})
 
 
+def _host(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """A CPU copy of ``t`` with ``dim`` moved first, contiguous: the
+    transpose is made on ``t``'s device, the host copies the result."""
+    return t.detach().movedim(dim, 0).contiguous().to("cpu", copy=True)
+
+
 def _live(mesh, axes: Sequence[str]):
     sizes = mesh_shape(mesh)
     return [ax for ax in axes if sizes[ax] > 1]
@@ -99,12 +119,13 @@ def all_gather(t: torch.Tensor, mesh, axes: Sequence[str], dim: int = 0) -> torc
     order (the first axis major)."""
     import torch.distributed as dist
 
-    buf = t.detach().to("cpu", copy=True).movedim(dim, 0).contiguous()
+    buf = _host(t, dim)
     for ax in reversed(_live(mesh, axes)):
         group = mesh.get_group(ax)
-        parts = [torch.empty_like(buf) for _ in range(dist.get_world_size(group))]
-        dist.all_gather(parts, buf, group=group)
-        buf = torch.cat(parts, 0)
+        n = dist.get_world_size(group)
+        out = torch.empty((n * buf.shape[0], *buf.shape[1:]), dtype=buf.dtype)
+        dist.all_to_all_single(out, buf.repeat((n,) + (1,) * (buf.dim() - 1)), group=group)
+        buf = out
         _note("all-gather", buf, group)
     return buf.movedim(0, dim).to(t.device)
 
@@ -118,7 +139,7 @@ def all_to_all(t: torch.Tensor, mesh, axis: str, dim: int = 0) -> torch.Tensor:
     if not _live(mesh, (axis,)):
         return t
     group = mesh.get_group(axis)
-    buf = t.detach().to("cpu", copy=True).movedim(dim, 0).contiguous()
+    buf = _host(t, dim)
     out = torch.empty_like(buf)
     dist.all_to_all_single(out, buf, group=group)
     _note("all-to-all", out, group)
@@ -134,7 +155,7 @@ def reduce_scatter(t: torch.Tensor, mesh, axis: str, dim: int = 0) -> torch.Tens
     if not _live(mesh, (axis,)):
         return t
     group = mesh.get_group(axis)
-    buf = t.detach().to("cpu", copy=True).movedim(dim, 0).contiguous()
+    buf = _host(t, dim)
     out = torch.empty((buf.shape[0] // dist.get_world_size(group), *buf.shape[1:]),
                       dtype=buf.dtype)
     # reduce_scatter_single is the newer name of reduce_scatter_tensor.
@@ -231,6 +252,19 @@ class _GatherBlocks(torch.autograd.Function):
         return reduce_scatter(g, ctx.mesh, ctx.axis, ctx.dim), None, None, None
 
 
+class _GatherFromSplit(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return all_gather(t, mesh, (axis,), dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        # Every rank's loss read the whole leaf: its block's gradient is the
+        # sum of the ranks' gradients of that block.
+        return reduce_scatter(g.contiguous(), ctx.mesh, ctx.axis, ctx.dim), None, None, None
+
+
 def exchange(t: torch.Tensor, mesh, axis: str, dim: int = 0) -> torch.Tensor:
     """:func:`all_to_all` that autograd differentiates: the backward pass is
     the all-to-all of the output's gradient."""
@@ -245,3 +279,12 @@ def gather_blocks(t: torch.Tensor, mesh, axis: str, dim: int = 0) -> torch.Tenso
     if not _live(mesh, (axis,)):
         return t
     return _GatherBlocks.apply(t, mesh, axis, dim)
+
+
+def gather_from_split(t: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """The whole leaf from this rank's block ``t`` of its ``dim`` over
+    ``axis`` (an all-gather, contiguous); the backward pass reduce-scatters
+    the whole leaf's gradient back to the block (FSDP)."""
+    if not _live(mesh, (axis,)):
+        return t
+    return _GatherFromSplit.apply(t, mesh, axis, dim)

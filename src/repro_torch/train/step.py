@@ -21,7 +21,9 @@ capacity and positions are the global microbatch's). The gradients are
 then meaned over the batch axes other than ``compress_axis`` (an f32
 all-reduce of the sum, times 1/n, as the reference's ``inv``) and over
 ``compress_axis`` through ``optim.compress.psum_compressed`` (int8 with
-error feedback). Every rank then holds the same gradients, runs the same
+error feedback, on the rank's blocks: one scale a block of a stacked
+tensor, the error tree stored as blocks). Every rank then holds the same
+gradients, runs the same
 AdamW (its ``tsdiv_recip`` per leaf) and keeps the same replicated
 parameters. The reported loss and metrics are meaned over the batch axes:
 the global batch's, as the reference's.
@@ -35,7 +37,11 @@ the loss's mean go over the data axes only. An expert leaf split over
 ``data`` holds other experts on each data rank: its gradient is not summed
 over that axis -- the owner's gradient already holds every rank's tokens,
 through the expert exchange's backward pass -- and takes the factor 1/n
-all the same. AdamW runs on the rank's blocks, with the gradients' global
+all the same. So does a leaf stored as the rank's block over a batch axis
+(FSDP): it is gathered inside the forward pass, and its gradient comes out
+of the backward pass summed over that axis by the gather's
+reduce-scatter, on the block, where microbatches accumulate. AdamW runs
+on the rank's blocks, with the gradients' global
 norm summed over the ranks of each split axis of a leaf and counted once
 for a replicated one, so every rank gets the same clip factor. The new
 state is DTensors where the parameters came as DTensors, the rank's blocks
@@ -208,12 +214,15 @@ def train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, state: TrainState,
         raise ValueError(f"train_step(compress_axis={compress_axis!r}) needs an active mesh "
                          "with that axis (sharding.rules.use_mesh); there is none")
     tp = tensor_parallel(cfg)
-    if tp is not None and compress_axis is not None:
-        raise ValueError(f"train_step(compress_axis={compress_axis!r}) with leaves split "
-                         f"over the mesh (model axis {tp.size}, experts "
-                         f"{tp.moe.experts if tp.moe else None}): the int8 mean takes one "
-                         "scale per tensor of the reference's layout, which a split leaf "
-                         "does not hold (ROADMAP Queue 1 item 18)")
+    split = None if tp is None else split_axes(cfg, tp)
+    if split is not None and compress_axis is not None:
+        over = [p for p, a in zip(tree.paths(state.params), tree.leaves_at(split, state.params))
+                if a and compress_axis in a]
+        if over:
+            raise ValueError(f"train_step(compress_axis={compress_axis!r}): {len(over)} "
+                             f"leaves ({over[0]}, ...) are split over {compress_axis!r} "
+                             "(experts or FSDP blocks), so its ranks hold different blocks "
+                             "of them, with no common mean to compress")
     like = state.params
     if tp is not None:
         state = TrainState(params=local_params(cfg, state.params, tp),
@@ -221,22 +230,27 @@ def train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, state: TrainState,
                                                 m=local_params(cfg, state.opt.m, tp),
                                                 v=local_params(cfg, state.opt.v, tp)),
                            step=state.step)
+        if err_tree is not None:
+            err_tree = local_params(cfg, err_tree, tp)
     axes: tuple = ()
     if mesh is not None:
         size = next(iter(batch.values())).shape[0]
         axes = shr.batch_partition(mesh, size)
         if axes:
             batch = {k: _rank_rows(v, mesh, axes, n_micro) for k, v in batch.items()}
-    with shr.split_tokens(axes):
+    # Under compress_axis each pod steps on its own rows, as the reference's
+    # step runs per pod in its shard_map: the MoE FFN's capacity, positions
+    # and aux loss are reckoned over the pod's rows.
+    with shr.split_tokens(tuple(ax for ax in axes if ax != compress_axis)):
         loss, metrics, grads = grads_fn(cfg, state.params, batch, n_micro)
     new_err = None
-    split = None if tp is None else split_axes(cfg, tp)
     if mesh is not None:
         plain = tuple(ax for ax in axes if ax != compress_axis)
         grads = (tree.map_tree(lambda g: _mean_over(g, mesh, plain), grads) if split is None
                  else tree.map_tree(lambda g, a: _mean_over(g, mesh, plain, a), grads, split))
         if compress_axis is not None:
-            grads, new_err = compress.psum_compressed(grads, err_tree, compress_axis)
+            grads, new_err = compress.psum_compressed(
+                grads, err_tree, compress_axis, [len(g.period) for g in cfg.groups()])
         loss = _mean_over(loss, mesh, axes)
         metrics = {k: _mean_over(v, mesh, axes) for k, v in metrics.items()}
     new_params, new_opt = adamw.update(grads, state.opt, state.params, opt_cfg, lr_scale,
@@ -245,6 +259,8 @@ def train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, state: TrainState,
         new_params = wrap_like(like, new_params, tp)
         new_opt = adamw.AdamWState(step=new_opt.step, m=wrap_like(like, new_opt.m, tp),
                                    v=wrap_like(like, new_opt.v, tp))
+        if new_err is not None:
+            new_err = wrap_like(like, new_err, tp)
     new_state = TrainState(params=new_params, opt=new_opt, step=state.step + 1)
     metrics = dict(metrics, loss=loss, step=state.step)
     if compress_axis is not None:

@@ -160,7 +160,7 @@ def paths_rank(rank: int, inp: dict) -> dict:
     p_, d_ = pd.get_coordinate()
     pick = lambda t: {k: v[p_, d_] for k, v in t.items()}
     with shr.use_mesh(pd):
-        mean, err = compress.psum_compressed(pick(c["g"]), pick(c["err"]), "pod")
+        mean, err = compress.psum_compressed(pick(c["g"]), pick(c["err"]), "pod", [])
     out["compress"] = {"mean": mean, "err": err}
 
     t = inp["train"]
@@ -510,13 +510,16 @@ def _ssm_mixer(c: dict, mesh) -> dict:
     lengths (output, state, conv tails), then one decode step from the
     rank's heads of the reference's cache; the collectives each issued."""
     from repro_torch.models.mamba2 import decode_mamba, mamba_mixer
-    from repro_torch.models.parallel import tensor_parallel
+    from repro_torch.models.parallel import gather_tree, tensor_parallel
     from repro_torch.sharding import comm
     from repro_torch.sharding import rules as shr
 
     cfg = c["cfg"]
     tp = tensor_parallel(cfg, mesh)
     p = shr.local_tree(c["p"], tp.shardings["groups"][0]["layers"][0]["mamba"])
+    if tp.fsdp:             # jamba's embed on data: the mixer reads the gathered leaves
+        spec = cfg.layer_specs()[0]
+        p = gather_tree(p, tp.fsdp[spec, cfg.is_encoder_decoder]["mamba"], mesh)
     m = tp.size if tp.ssm else 1
     i = tp.rank if tp.ssm else 0
     h, n = cfg.ssm_heads // m, cfg.d_inner // m
@@ -577,4 +580,130 @@ def ssm_rank(rank: int, inp: dict) -> dict:
     cut = convert.params_from_reference(d["reference"], d["cfg"], "cpu", shardings=sh)
     out["draws"] = {"init": [v.to_local() for v in tree.leaves(drawn)],
                     "convert": [v.to_local() for v in tree.leaves(cut)]}
+    return out
+
+
+# ------------------------------------------- FSDP over data, the int8 mean on blocks
+
+def _fsdp_grads(cfg, params, batch, mesh) -> list:
+    """The ops of one train forward and backward of the rank's rows:
+    ``(op, ranks)`` of each collective, in order."""
+    from repro_torch import tree
+    from repro_torch.models.parallel import local_params, tensor_parallel
+    from repro_torch.sharding import comm
+    from repro_torch.sharding import rules as shr
+    from repro_torch.train import step
+
+    with shr.use_mesh(mesh):
+        local = local_params(cfg, params, tensor_parallel(cfg))
+        rows = {k: v[_row_block(mesh, v.shape[0])] for k, v in batch.items()}
+        with shr.split_tokens(("data",)), comm.record() as ops:
+            step.grads_fn(cfg, local, rows, 1)
+    return [(o["op"], tuple(o["ranks"])) for o in ops]
+
+
+def _steps(cfg, opt_cfg, params, batch, mesh, n_micro: int, n_steps: int,
+           ckpt_dir=None, compress_axis=None) -> dict:
+    """``n_steps`` train steps on ``mesh`` from DTensor parameters cut from
+    the global tree (with ``compress_axis``, the int8 mean from a zero error
+    tree): the rank's new blocks, the losses, the mesh coordinates; with
+    ``ckpt_dir`` the last state saved there."""
+    from repro_torch import tree
+    from repro_torch.optim import compress
+    from repro_torch.sharding import rules as shr
+    from repro_torch.train import checkpoint, step
+
+    sh = shr.param_shardings(cfg, mesh)
+    state = step.init_state(cfg, tree.map_tree(shr.distribute, params, sh), opt_cfg)
+    err = None if compress_axis is None else compress.init_error_tree(state.params)
+    losses = []
+    with shr.use_mesh(mesh):
+        for _ in range(n_steps):
+            if compress_axis is None:
+                state, metrics = step.train_step(cfg, opt_cfg, state, batch, n_micro=n_micro)
+            else:
+                state, metrics, err = step.train_step(cfg, opt_cfg, state, batch,
+                                                      n_micro=n_micro,
+                                                      compress_axis=compress_axis,
+                                                      err_tree=err)
+            losses.append(float(metrics["loss"]))
+    local = lambda t: [v.to_local().detach().clone() for v in tree.leaves(t)]
+    out = {"losses": losses, "params": local(state.params), "m": local(state.opt.m),
+           "v": local(state.opt.v),
+           "dtensors": all(hasattr(v, "placements") for v in tree.leaves(state.params)),
+           "coord": dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))}
+    if err is not None:
+        out["err"] = local(err)
+    if ckpt_dir is not None:
+        checkpoint.save(ckpt_dir, n_steps, state)
+    return out
+
+
+def fsdp_rank(rank: int, inp: dict) -> dict:
+    """Every multi-rank check of tests/test_torch_fsdp.py, on one of 4 CPU
+    ranks: jamba's smoke model under its own rules (embed on data) and with
+    embed whole, on (data 2, model 2): the stored blocks, forward, greedy
+    tokens and serve(), the cut draws, one step at one microbatch, the collectives of a
+    train forward and backward with and without remat, two steps (the
+    state checkpointed); then the int8 mean on (pod 2, model 2) blocks and
+    the compressed steps on (pod 2, model 2) and (pod 2, data 2)."""
+    import torch.distributed as dist
+
+    from repro_torch import convert, tree
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import init_params
+    from repro_torch.models.parallel import tensor_parallel
+    from repro_torch.optim import compress
+    from repro_torch.sharding import rules as shr
+
+    meshes = {"data_model": make_mesh((2, 2), ("data", "model"), "cpu"),
+              "pod_model": make_mesh((2, 2), ("pod", "model"), "cpu"),
+              "pod_data": make_mesh((2, 2), ("pod", "data"), "cpu")}
+    m22 = meshes["data_model"]
+    out = {"coord": dict(zip(m22.mesh_dim_names, m22.get_coordinate())), "forward": {}}
+    f = inp["forward"]
+    for name, c in f.items():
+        with shr.use_mesh(m22):
+            out["forward"][name] = _tp_forward(c)
+    cfg = f["fsdp"]["cfg"]
+    placed = tree.map_tree(shr.distribute, f["fsdp"]["params"],
+                           shr.param_shardings(cfg, m22))
+    tp = tensor_parallel(cfg, m22)
+    out["stored"] = {"shapes": [tuple(v.to_local().shape) for v in tree.leaves(placed)],
+                     "specs": [sh.spec for sh in tree.leaves(tp.shardings)],
+                     "fsdp": tp.fsdp["top"]}
+    with shr.use_mesh(m22):
+        out["generate"] = _tp_generate(inp["generate"])
+    d = inp["draws"]
+    sh = shr.param_shardings(cfg, m22)
+    drawn = init_params(cfg, torch.Generator().manual_seed(d["seed"]), shardings=sh)
+    cut = convert.params_from_reference(d["reference"], cfg, "cpu", shardings=sh)
+    out["draws"] = {"init": [v.to_local() for v in tree.leaves(drawn)],
+                    "convert": [v.to_local() for v in tree.leaves(cut)]}
+
+    g = inp["grads"]
+    out["one_micro"] = {name: _steps(c, g["opt_cfg"], g["params"], g["batch"], m22, 1, 1)
+                        for name, c in (("fsdp", g["cfg"]), ("whole", g["cfg0"]))}
+    r = inp["remat"]
+    out["ops"] = {name: _fsdp_grads(c, r["params"], r["batch"], m22)
+                  for name, c in (("remat", r["cfg"]), ("plain", r["cfg_plain"]))}
+    out["data_group"] = tuple(dist.get_process_group_ranks(m22.get_group("data")))
+
+    t = inp["train"]
+    out["train"] = _steps(t["cfg"], t["opt_cfg"], t["params"], t["batch"], m22, t["n_micro"],
+                          t["n_steps"], t["ckpt_dir"])
+
+    c = inp["compress"]
+    pm = meshes["pod_model"]
+    coord = dict(zip(pm.mesh_dim_names, pm.get_coordinate()))
+    pick = lambda tr: {n: shr.local_block(v[coord["pod"]], shr.NamedSharding(pm, c["specs"][n]))
+                       for n, v in tr.items()}
+    with shr.use_mesh(pm):
+        mean, err = compress.psum_compressed(pick(c["g"]), pick(c["err"]), "pod", [])
+    out["compress"] = {"mean": mean, "err": err, "coord": coord}
+
+    out["compressed"] = {}
+    for name, t in inp["compressed"].items():
+        out["compressed"][name] = _steps(t["cfg"], t["opt_cfg"], t["params"], t["batch"],
+                                         meshes[t["mesh"]], 1, 1, compress_axis="pod")
     return out

@@ -555,12 +555,15 @@ def test_replicated_leaves_and_blocks_are_bit_equal_on_their_ranks(run, name):
 
 
 def test_compressed_mean_refuses_experts_split_over_data(run):
-    """train_step(compress_axis=) with the experts on data (model = 1)
-    raises the ValueError of a split leaf on every rank: the int8 mean's
-    scale is per tensor of the reference's layout (F12)."""
+    """train_step(compress_axis="data") with the experts on data (model =
+    1) raises the ValueError of a leaf split over the compressed axis on
+    every rank: its ranks there hold other experts, so there is no common
+    mean to take. Split leaves as such run under the int8 mean since the
+    mean is taken on the blocks (over 'pod', with the experts on data:
+    tests/test_torch_fsdp.py, against the reference's step)."""
     for r in run["ranks"]:
         msg = r["compress_refusal"]
-        assert "experts data" in msg and "item 18" in msg, msg
+        assert "split over 'data'" in msg and "experts" in msg and "common mean" in msg, msg
 
 
 def test_an_expert_parallel_checkpoint_holds_the_global_values(run):
@@ -621,8 +624,9 @@ def test_a_rank_draws_and_converts_only_its_expert_blocks(run):
 def test_the_experts_lie_where_their_specs_put_them(arch, shape, per_rank):
     """64 experts over data 16 are 4 a rank, jamba's 16 over 16 one, and an
     expert axis that does not divide (16 over 256) runs whole; expert_mlp
-    lies on model where the axis holds more than one rank; jamba's embed
-    leaves stay whole (FSDP is not executed)."""
+    lies on model where the axis holds more than one rank; any other leaf
+    on data is one of jamba's embed leaves (FSDP: stored as its block of
+    the embed dim)."""
     cfg = get_config(arch)
     mesh = _Sizes(**shape)
     for p in tree.leaves(model_specs(cfg)):
@@ -631,4 +635,6 @@ def test_the_experts_lie_where_their_specs_put_them(arch, shape, per_rank):
         if p.expert:
             assert local[0] == per_rank
             assert spec[p.axes.index("expert_mlp")] == "model"
-        assert "data" not in spec or p.expert
+        if "data" in spec and not p.expert:
+            assert rules_for(cfg)["embed"] == "data" and spec[p.axes.index("embed")] == "data"
+            assert local[p.axes.index("embed")] == p.shape[p.axes.index("embed")] // shape["data"]

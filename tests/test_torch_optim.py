@@ -256,7 +256,7 @@ def test_error_tree_and_cross_pod_mean(tmp_path):
     for e, p in zip(jax.tree_util.tree_leaves(errs), jax.tree_util.tree_leaves(params)):
         assert e.dtype == torch.float32 and e.shape == p.shape and not e.any()
     with pytest.raises(ValueError, match="needs an active mesh"):
-        compress.psum_compressed(params, errs, "pod")
+        compress.psum_compressed(params, errs, "pod", [])
     # The working mean over a one-rank 'pod' axis is the round trip: the
     # int8 values summed over one rank, times the scale, over 1 (the
     # 4-rank mean is in test_torch_sharded_paths.py).
@@ -269,7 +269,7 @@ def test_error_tree_and_cross_pod_mean(tmp_path):
     dist.init_process_group("gloo", init_method=f"file://{store}", rank=0, world_size=1)
     try:
         with shr.use_mesh(make_mesh((1,), ("pod",), "cpu")):
-            mean, new_err = compress.psum_compressed(grads, errs, "pod")
+            mean, new_err = compress.psum_compressed(grads, errs, "pod", [])
     finally:
         dist.destroy_process_group()
     for m, e, g in zip(tree.leaves(mean), tree.leaves(new_err), tree.leaves(grads)):

@@ -431,7 +431,7 @@ def int8_steps(run):
     tops = [max(float(a.abs().max()), float(b.abs().max()))
             for a, b in zip(tree.leaves(gs[0]), tree.leaves(gs[1]))]
     steps = [0.0] * len(tops)
-    for group in compress.stacks(gs[0]):
+    for group in compress.stacks(gs[0], [len(g.period) for g in t["cfg"].groups()]):
         for i in group:
             steps[i] = max(tops[j] for j in group) / 127.0
     return steps

@@ -1,5 +1,6 @@
 """chip_smoke.py's mesh phase alone: the kernels' build, then 2 ranks on the
-one card (phase_mesh) and the tiled kernels' times at the shard shape.
+one card and 4 more for the cross-pod trainer on (pod 2, model 2)
+(phase_mesh), and the tiled kernels' times at the shard shape.
 
     python3 tools/mesh_phase.py [--seed N]
 

@@ -1,7 +1,8 @@
 """chip_smoke.py's tp_ssm phase alone: the kernels' build, then the Mamba-2
 mixer split by heads over the model axis on the one card (phase_tp_ssm):
-mamba2_780m and jamba_1_5_large served on (data 1, model 2), mamba2_780m
-trained on (data 2, model 2).
+mamba2_780m served on (data 1, model 2) and trained on (data 2, model 2),
+jamba_1_5_large under its own rules (FSDP over data) served and trained on
+(data 2, model 2).
 
     python3 tools/tp_ssm_phase.py [--seed N] [--golden]
 
