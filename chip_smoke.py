@@ -163,11 +163,11 @@ source, in parallel), then runs, each phase printing one line:
  13d. tp       — tensor parallelism over the model axis (models/parallel.py),
                  its ranks sharing the card over gloo (every all-reduce
                  through host copies: not a speed figure): llama3_8b at
-                 full width, cut to TP_SERVE_DEPTH (8) layers, on (data 1,
+                 full width, cut to TP_SERVE_DEPTH (4) layers, on (data 1,
                  model 2) in bf16 (the ranks' blocks drawn from --seed):
-                 generate_batch over MODEL_LENS prompts, 32 new tokens
-                 each, 8 softmax and 17 RMSNorm launches a forward and
-                 rank, every call of one
+                 generate_batch over MODEL_LENS prompts, TP_NEW (16) new
+                 tokens each, 4 softmax and 9 RMSNorm launches a forward
+                 and rank, every call of one
                  prefill and one decode step held bit for bit to its plain
                  version, tokens against this process's unsharded run
                  (reported); in f32 at TP_F32_DEPTH layers the gate of
@@ -181,16 +181,37 @@ source, in parallel), then runs, each phase printing one line:
                  all 4 ranks and split blocks on the data peers after
                  every step, and one f32 step against the single-process
                  step (loss within 1e-5 relative, the state within
-                 tests/test_torch_tensor_parallel.py's bounds);
+                 tests/test_torch_tensor_parallel.py's bounds). The
+                 sequence layouts: on the f32 serving ranks llama3_8b's
+                 seq_shard prefill (logits against the unsharded run,
+                 drift < 5e-3; its time beside the base layout's) and the
+                 kvseq teacher-forced decode (the f32 gate; 12 split
+                 softmax launches a step, 3 passes a layer), every kernel
+                 call of one
+                 prefill and one decode step of each held to plain; the
+                 same f32 step under seq_shard against the single process;
+                 then the seq part on the training ranks: gemma3_12b at
+                 full width cut to 6 layers, f32, batch 1, a cache of
+                 524288 slots split by sequence over data (long_500k's
+                 layout) on (2, 2), 4 teacher-forced decode steps at the
+                 cache's last positions over seeded K/V against this
+                 process's unsharded run (every token, drift < 5e-3), a
+                 512-token generate equal to the unsharded run's (rank
+                 data 1's slots all masked), 13 RMSNorm and 18 split
+                 softmax launches a step and rank, every call held to
+                 plain; the same steps under each planted fault of the
+                 combine (a rank's probs @ V partial dropped; each rank's
+                 own sum) must fail that gate;
  13e. ep       — (run third, after golden: its 4 ranks need most of the
                  card) expert parallelism (models/moe.py over
                  models/parallel.py's plan), 4 ranks sharing the card over
                  gloo: deepseek_moe_16b
-                 at full width and depth on (data 2, model 2) in bf16, its
-                 64 experts on data (32 a rank) and expert_mlp on model
-                 (the ranks' blocks drawn from --seed): generate_batch over
-                 4 prompts of 1024 .. 256 tokens, 8 new each, 55 softmax /
-                 57 RMSNorm / 27 reciprocal launches a forward and rank,
+                 at full width, cut to 14 layers, on (data 2, model 2) in
+                 bf16, its 64 experts on data (32 a rank) and expert_mlp
+                 on model (the ranks' blocks drawn from --seed):
+                 generate_batch over 4 prompts of 512 .. 128 tokens, 4 new
+                 each, 27 softmax / 29 RMSNorm / 13 reciprocal launches a
+                 forward and rank,
                  every call of one prefill and one decode step held bit for
                  bit to its plain version on each rank; in f32 at 4 layers
                  (capacity factor 8) the gate of test_decode_equiv against
@@ -210,12 +231,12 @@ source, in parallel), then runs, each phase printing one line:
  13f. tp_ssm   — (run fourth, after ep) the Mamba-2 mixer split by heads
                  over the model axis (models/mamba2.py over
                  models/parallel.py's plan), its ranks sharing the card
-                 over gloo: mamba2_780m at full width and depth on (data
-                 1, model 2) in bf16: generate_batch over 4 prompts of 512
-                 .. 128 tokens, 4 new each, the unsharded serving phase's
-                 97 RMSNorm launches a forward and rank, every call of one
-                 prefill and one decode step held to plain on each rank;
-                 in f32 at full depth the gate of test_decode_equiv
+                 over gloo: mamba2_780m at full width cut to 24 layers on
+                 (data 1, model 2) in bf16: generate_batch over 4 prompts
+                 of 512 .. 128 tokens, 4 new each, 49 RMSNorm launches a
+                 forward and rank, every call of one prefill and one
+                 decode step held to plain on each rank; in f32 at 24
+                 layers the gate of test_decode_equiv
                  against this process's unsharded run and serve() against
                  generate_batch; jamba_1_5_large under its own rules on
                  (data 2, model 2), its embed leaves stored as blocks over
@@ -257,7 +278,9 @@ source, in parallel), then runs, each phase printing one line:
                  cross rows; and tsdiv_recip on one train step's 111
                  AdamW denominators (134.1 M lanes) beside torch.reciprocal;
                  and the tiled kernels at the mesh phase's shard shape
-                 (rank 0, the other rank idle).
+                 (rank 0, the other rank idle); the split softmax kernel's
+                 three passes on the seq part's global-layer rows of rank
+                 0, (8, 262144), beside torch.softmax of the same rows.
                  Times are CUDA events over back-to-back wrapper calls
                  (``ms``, which holds the wrapper's host time where a kernel
                  is shorter); softmax, RMSNorm, flash attention and the ILM
@@ -314,13 +337,14 @@ BF16_TC_OPS_PER_S = 989e12    # H100 SXM dense bf16 on the tensor cores
 # counts, the leading ones and residues, the guarded shifts and the
 # accumulate); the times rows give that bound too.
 OPS_PER_ELEMENT = {"tsdiv_divide": 52, "tsdiv_recip": 29, "tsdiv_rsqrt": 50,
-                   "softmax_f32": 14, "rmsnorm_f32": 4, "flash_attention_f32": 4,
+                   "softmax_f32": 14, "softmax_split_f32": 14, "rmsnorm_f32": 4, "flash_attention_f32": 4,
                    "flash_attention_bf16": 4, "ilm_mul_u32": 7, "ilm_square_u32": 3}
 ILM_SQUARE_RESIDUE_OPS, ILM_STEP_OPS = 2, 3
 ILM_SQUARE_STAGE_OPS, ILM_MUL_STAGE_OPS = 13, 22
 CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {"tsdiv_divide": CSRC + "tsdiv.cu", "tsdiv_recip": CSRC + "tsdiv.cu",
            "tsdiv_rsqrt": CSRC + "tsdiv.cu", "softmax_f32": CSRC + "softmax.cu",
+           "softmax_split_f32": CSRC + "softmax.cu",
            "rmsnorm_f32": CSRC + "rmsnorm.cu",
            "flash_attention_f32": CSRC + "flash_attention.cu",
            "flash_attention_bf16": CSRC + "flash_attention_tc.cu",
@@ -329,6 +353,7 @@ REPLACES = {"tsdiv_divide": "src/repro/kernels/tsdiv.py:199",
             "tsdiv_recip": "src/repro/kernels/tsdiv.py:122",
             "tsdiv_rsqrt": "src/repro/kernels/tsdiv.py:147",
             "softmax_f32": "src/repro/kernels/softmax.py:46",
+            "softmax_split_f32": "src/repro/kernels/softmax.py:46",
             "rmsnorm_f32": "src/repro/kernels/rmsnorm.py:47",
             "flash_attention_f32": "src/repro/kernels/flash_attention.py:133",
             "flash_attention_bf16": "src/repro/kernels/flash_attention.py:133",
@@ -993,10 +1018,8 @@ def replay(engine, prompts, steps: int, teacher=None, hand=None):
     tokens, (steps, B)) that stream is fed back instead of the engine's own
     argmax, so both runs see the same context at every step. Returns the
     argmax of every step (steps, B) and the logits (steps, B, V)."""
-    from repro_torch.serving import pad_cache_to
-
     logits, cache, lengths, n = prefill_batch(engine, prompts, hand)
-    cache = pad_cache_to(cache, n, engine.max_len, engine.cfg)
+    cache = engine._fit(cache, n, len(lengths))
     pos, picks, seen = lengths, [], []
     for t in range(steps):
         seen.append(logits)
@@ -1232,15 +1255,16 @@ def held_calls(eng, prompts, err: dict, recip: bool = False, hand=None, keep=Non
     """One prefill of ``prompts`` (padded; ``hand``: prefill_batch's) and one
     decode step through ``eng`` with every softmax, RMSNorm (and, with
     ``recip``, reciprocal) kernel call held bit for bit against its plain
-    version on its own inputs. Returns the rows (kernel, step, shape, lanes
-    differing) and the first input of each (kind, step, shape), of the
-    (kind, step, row length) in ``keep`` where given."""
+    version on its own inputs (and each pass of the split softmax kernel,
+    where a decode step runs it). Returns the rows (kernel, step, shape,
+    lanes differing) and the first input of each (kind, step, shape), of
+    the (kind, step, row length) in ``keep`` where given."""
     from repro_torch.core.seeds import compute_segments, rsqrt_seed_table
-    from repro_torch.kernels import common, rmsnorm, softmax, tsdiv
-    from repro_torch.serving import pad_cache_to
+    from repro_torch.kernels import common, rmsnorm, softmax, softmax_split, tsdiv
 
     rows, first, step = [], {}, ["prefill"]
     real = (softmax.softmax, rmsnorm.rmsnorm, tsdiv.recip)
+    real_split = {n: getattr(softmax_split, n) for n in SPLIT_PASSES}
 
     def kept(kind, x, make):
         key = (kind, step[0], tuple(x.shape))
@@ -1275,17 +1299,30 @@ def held_calls(eng, prompts, err: dict, recip: bool = False, hand=None, keep=Non
         kept("recip", x, x.clone)
         return got
 
+    def split_spy(name):
+        def spy(*a, **k):
+            got = real_split[name](*a, **k)
+            n_bad, e = split_held(name, real_split[name], got, a, k)
+            rows.append(("softmax_split_f32", step[0], list(a[0].shape), n_bad))
+            err["softmax_split_f32"] = max(err.get("softmax_split_f32", 0.0), e)
+            return got
+        return spy
+
     softmax.softmax, rmsnorm.rmsnorm = sm_spy, rms_spy
+    for n in SPLIT_PASSES:
+        setattr(softmax_split, n, split_spy(n))
     if recip:
         tsdiv.recip = recip_spy
     try:
         logits, cache, lengths, n = prefill_batch(eng, prompts, hand)
-        cache = pad_cache_to(cache, n, eng.max_len, eng.cfg)
+        cache = eng._fit(cache, n, len(lengths))
         step[0] = "decode"
         eng._decode(cache, eng._argmax(logits), lengths)
         sync()
     finally:
         softmax.softmax, rmsnorm.rmsnorm, tsdiv.recip = real
+        for n, fn in real_split.items():
+            setattr(softmax_split, n, fn)
     return rows, first
 
 
@@ -1951,15 +1988,42 @@ def fingerprint(t: torch.Tensor) -> tuple:
     return bits_sum(t) + (int((ints.long() * w).sum()),)
 
 
+SPLIT_PASSES = ("split_max", "split_exp", "split_scale")
+
+
+def split_held(name: str, fn, got, args, kwargs):
+    """(lanes differing, max abs error) of one pass of the split softmax
+    kernel (``name``, its wrapper ``fn``, output ``got``) against its
+    plain version on the same inputs."""
+    import inspect
+
+    from repro_torch.core.seeds import compute_segments
+    from repro_torch.kernels import softmax_split as ks
+
+    a = inspect.signature(fn).bind(*args, **kwargs)
+    a.apply_defaults()
+    a = a.arguments
+    if name == "split_max":
+        return mismatch(got, ks.split_max_plain(a["x"]))
+    if name == "split_exp":
+        we, ws = ks.split_exp_plain(a["x"], a["top"].reshape(-1, 1))
+        (b1, e1), (b2, e2) = mismatch(got[0], we), mismatch(got[1], ws)
+        return b1 + b2, max(e1, e2)
+    return mismatch(got, ks.split_scale_plain(
+        a["ex"], a["total"].reshape(-1, 1), compute_segments(a["n_iters"], a["precision_bits"]),
+        a["n_iters"], a["schedule"]))
+
+
 @contextlib.contextmanager
 def held_kernels(held: list, kinds, on: bool = True, hold_s=None):
     """While open (and ``on``), every call of the kernels in ``kinds``
-    (softmax_f32, rmsnorm_f32, tsdiv_recip) through the kernel modules is
-    held to its plain version on its own inputs: (kind, lanes differing,
-    max abs error) appended to ``held``. ``hold_s``, a one-item list, adds
-    up the seconds the holding took."""
+    (softmax_f32, rmsnorm_f32, tsdiv_recip, softmax_split_f32: each of its
+    passes) through the kernel modules is held to its plain version on its
+    own inputs: (kind, lanes differing, max abs error) appended to
+    ``held``. ``hold_s``, a one-item list, adds up the seconds the holding
+    took."""
     from repro_torch.core.seeds import compute_segments, rsqrt_seed_table
-    from repro_torch.kernels import common, rmsnorm, softmax, tsdiv
+    from repro_torch.kernels import common, rmsnorm, softmax, softmax_split, tsdiv
 
     def hold(kind, fn):
         if hold_s is not None:
@@ -1971,38 +2035,46 @@ def held_kernels(held: list, kinds, on: bool = True, hold_s=None):
             hold_s[0] += time.perf_counter() - t0
 
     def sm_spy(x, n_iters=2, precision_bits=24, schedule="factored"):
-        got = real["softmax_f32"](x, n_iters, precision_bits, schedule)
+        got = real["softmax"](x, n_iters, precision_bits, schedule)
         hold("softmax_f32", lambda: rows_held(got, softmax.softmax_plain, x, compute_segments(
             n_iters, precision_bits), n_iters, schedule))
         return got
 
     def rms_spy(x, w, eps=1e-6, newton_iters=2, n_segments=16):
-        got = real["rmsnorm_f32"](x, w, eps, newton_iters, n_segments)
+        got = real["rmsnorm"](x, w, eps, newton_iters, n_segments)
         hold("rmsnorm_f32", lambda: rows_held(got, lambda xs: rmsnorm.rmsnorm_plain(
             xs, w, eps, rsqrt_seed_table(n_segments), newton_iters), x))
         return got
 
     def recip_spy(x, n_iters=2, precision_bits=24, schedule="factored"):
-        got = real["tsdiv_recip"](x, n_iters, precision_bits, schedule)
+        got = real["recip"](x, n_iters, precision_bits, schedule)
         table = compute_segments(n_iters, precision_bits)
         hold("tsdiv_recip", lambda: held_to_plain(got, lambda v: common.recip_f32_bits(
             v, table, n_iters, schedule), x))
         return got
 
-    sites = {"softmax_f32": (softmax, "softmax", sm_spy),
-             "rmsnorm_f32": (rmsnorm, "rmsnorm", rms_spy),
-             "tsdiv_recip": (tsdiv, "recip", recip_spy)}
-    real = {k: getattr(mod, name) for k, (mod, name, _) in sites.items()}
+    def split_spy(name):
+        def spy(*a, **k):
+            got = real[name](*a, **k)
+            hold("softmax_split_f32", lambda: split_held(name, real[name], got, a, k))
+            return got
+        return spy
+
+    sites = {"softmax_f32": [(softmax, "softmax", sm_spy)],
+             "rmsnorm_f32": [(rmsnorm, "rmsnorm", rms_spy)],
+             "tsdiv_recip": [(tsdiv, "recip", recip_spy)],
+             "softmax_split_f32": [(softmax_split, n, split_spy(n)) for n in SPLIT_PASSES]}
+    real = {name: getattr(mod, name) for k in sites for mod, name, _ in sites[k]}
     try:
         if on:
             for k in kinds:
-                mod, name, spy = sites[k]
-                setattr(mod, name, spy)
+                for mod, name, spy in sites[k]:
+                    setattr(mod, name, spy)
         yield held
     finally:
         for k in kinds:
-            mod, name, _ = sites[k]
-            setattr(mod, name, real[k])
+            for mod, name, _ in sites[k]:
+                setattr(mod, name, real[name])
 
 
 def blocks_bit_equal(block: list, state) -> bool:
@@ -2472,10 +2544,13 @@ def phase_times_mesh(err: dict, launches: dict, mesh: dict) -> list:
 TP_ARCH = "llama3_8b"
 TP_SERVE_MESH = (1, 2)            # (data, model): llama3_8b served on 2 ranks
 # The command must stay well inside its time limit beside the ep and tp_ssm
-# phases: the timed bf16 run is cut to 8 of llama3_8b's 32 layers, the f32
-# gate to 4 (16 and 8 until the tp_ssm phase took jamba's FSDP run).
-TP_SERVE_DEPTH = 8
+# phases: the timed bf16 run is cut to 4 of llama3_8b's 32 layers (16 and 8
+# until the tp_ssm phase took jamba's FSDP run, 8 until the sequence
+# layouts joined this phase), the f32 gate to 4, and every run to 16 new
+# tokens a prompt (MODEL_NEW, 32, until then).
+TP_SERVE_DEPTH = 4
 TP_F32_DEPTH = 4
+TP_NEW = 16
 TP_SERVE_LENS = (512, 384, 256, 128)   # f32 serve() against generate_batch
 TP_TRAIN_MESH = (2, 2)            # paper_fpdiv trained on 4 ranks
 TP_TRAIN_BATCH = 8                # x TRAIN_SEQ tokens a step: 4 a data rank, 2 microbatches
@@ -2669,14 +2744,14 @@ def tp_want(seed: int) -> dict:
     from repro_torch.serving import ServingEngine
 
     cfg, params, prompts = tp_model(seed, None, "bfloat16", n_layers=TP_SERVE_DEPTH)
-    eng = ServingEngine(cfg, params, max_len=cache_len(cfg, prompts, MODEL_NEW))
-    bf16 = tp_timed(eng, prompts)
+    eng = ServingEngine(cfg, params, max_len=cache_len(cfg, prompts, TP_NEW))
+    bf16 = tp_timed(eng, prompts, TP_NEW)
     del eng, params
     torch.cuda.empty_cache()
     cfg, params, prompts = tp_model(seed, None, "float32", n_layers=TP_F32_DEPTH)
     torch.cuda.reset_peak_memory_stats()
-    eng = ServingEngine(cfg, params, max_len=cache_len(cfg, prompts, MODEL_NEW))
-    teacher, logits = replay(eng, prompts, MODEL_NEW)
+    eng = ServingEngine(cfg, params, max_len=cache_len(cfg, prompts, TP_NEW))
+    teacher, logits = replay(eng, prompts, TP_NEW)
     peak = torch.cuda.max_memory_allocated() / 2**30
     del eng, params
     logits = logits.cpu()
@@ -2700,8 +2775,8 @@ def tp_serve_rank(rank: int, seed: int, teacher) -> dict:
     out["allreduce_ms"] = allreduce_times(mesh, len(MODEL_LENS) * max(MODEL_LENS), cfg.d_model)
     err = {"softmax_f32": 0.0, "rmsnorm_f32": 0.0, "tsdiv_recip": 0.0}
     with shr.use_mesh(mesh):
-        eng = ServingEngine(cfg, params, max_len=cache_len(cfg, prompts, MODEL_NEW))
-        out["bf16"] = tp_timed(eng, prompts)
+        eng = ServingEngine(cfg, params, max_len=cache_len(cfg, prompts, TP_NEW))
+        out["bf16"] = tp_timed(eng, prompts, TP_NEW)
         t0 = time.perf_counter()
         rows, _ = held_calls(eng, prompts, err, keep=set())
         out["held"] = {"rows": rows, "err": err, "seconds": time.perf_counter() - t0}
@@ -2712,30 +2787,89 @@ def tp_serve_rank(rank: int, seed: int, teacher) -> dict:
     cfg, params, prompts = tp_model(seed, mesh, "float32", n_layers=TP_F32_DEPTH)
     torch.cuda.reset_peak_memory_stats()
     with shr.use_mesh(mesh):
-        eng = ServingEngine(cfg, params, max_len=cache_len(cfg, prompts, MODEL_NEW))
+        eng = ServingEngine(cfg, params, max_len=cache_len(cfg, prompts, TP_NEW))
         t0 = time.perf_counter()
-        picks, logits = replay(eng, prompts, MODEL_NEW, teacher)
+        picks, logits = replay(eng, prompts, TP_NEW, teacher)
         out["f32_replay_s"] = time.perf_counter() - t0
         out["f32_picks"], out["f32_logits"] = picks, logits.cpu()
         del logits
         short = [p[:n] for p, n in zip(prompts, TP_SERVE_LENS)]
-        gb = eng.generate_batch(short, MODEL_NEW)
-        reqs = [Request(list(p), max_new=MODEL_NEW) for p in short]
+        gb = eng.generate_batch(short, TP_NEW)
+        reqs = [Request(list(p), max_new=TP_NEW) for p in short]
         t0 = time.perf_counter()
         eng.serve(reqs, slots=MODEL_SLOTS)
         out["f32_serve_s"] = time.perf_counter() - t0
     out["f32_generate_batch"], out["f32_serve"] = gb, [r.out for r in reqs]
     out["f32_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del eng
+    out["seq"] = tp_seq_layouts(cfg, params, prompts, mesh, teacher)
     return out
 
 
-def tp_train_rank(rank: int, seed: int) -> dict:
+def tp_seq_layouts(cfg, params, prompts, mesh, teacher) -> dict:
+    """The sequence layouts on the tp phase's f32 blocks (TP_F32_DEPTH):
+    the prompts' prefill under ``seq_shard`` (the last real position's
+    logits; its time and the base layout's, in turns), the teacher-forced
+    replay under ``kvseq`` (its launches), and every kernel call of one
+    prefill and one decode step of each held to its plain version."""
+    from repro_torch.kernels import rmsnorm, softmax, softmax_split, tsdiv
+    from repro_torch.serving import ServingEngine
+    from repro_torch.sharding import rules as shr
+
+    rules = cfg.sharding_rules
+    layouts = {"base": cfg,
+               "seq_shard": dataclasses.replace(cfg, sharding_rules={
+                   **rules, "__seq_shard__": "model"}),
+               "kvseq": dataclasses.replace(cfg, sharding_rules={
+                   **rules, "__kv_seq_shard__": "model"})}
+    n = cache_len(cfg, prompts, TP_NEW)
+    max_len = -(-n // TP_SERVE_MESH[1]) * TP_SERVE_MESH[1]    # the slots split over model
+    err = {"softmax_f32": 0.0, "rmsnorm_f32": 0.0, "tsdiv_recip": 0.0, "softmax_split_f32": 0.0}
+    out = {"prefill_ms": {}, "prefill_collectives": {}}
+    with shr.use_mesh(mesh):
+        engs = {k: ServingEngine(c, params, max_len=max_len) for k, c in layouts.items()}
+        for k in ("base", "seq_shard"):
+            sync()
+            t0 = time.perf_counter()
+            with CollectiveClock() as clock:
+                logits = prefill_batch(engs[k], prompts)[0]
+                sync()
+            ms = (time.perf_counter() - t0) * 1e3
+            out["prefill_ms"][k] = ms
+            out["prefill_collectives"][k] = {
+                n_: {"count": v["count"], "bytes": v["bytes"], "share": v["seconds"] * 1e3 / ms}
+                for n_, v in clock.by_op.items() if v["count"]}
+            if k == "seq_shard":
+                out["seq_prefill_logits"] = logits.cpu()
+            del logits
+        mods = (softmax, rmsnorm, tsdiv, softmax_split)
+        for m in mods:
+            m.reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        picks, logits = replay(engs["kvseq"], prompts, TP_NEW, teacher)
+        out["kv_replay_s"] = time.perf_counter() - t0
+        out["kv_launches"] = {k: v for m in mods for k, v in m.LAUNCHES.items() if v}
+        out["kv_picks"], out["kv_logits"] = picks, logits.cpu()
+        del logits
+        short = [p[:n] for p, n in zip(prompts, TP_SERVE_LENS)]
+        out["held"] = {k: held_calls(engs[k], short, err, recip=True, keep=set())[0]
+                       for k in ("seq_shard", "kvseq")}
+    out["held_err"] = err
+    out["kv_cache_slots"] = max_len // TP_SERVE_MESH[1]
+    return out
+
+
+def tp_train_rank(rank: int, seed: int, seq_teacher) -> dict:
     """One rank of the tp phase's training part on TP_TRAIN_MESH:
     paper_fpdiv at full width, TP_TRAIN_STEPS steps in bf16 (launches,
     every kernel call of the first step held to its plain version on rank
     0, the ranks' leaves compared after every step), then one f32 step
-    from the same seed, its state gathered, and on rank 0 the
-    single-process step on the same global batch."""
+    from the same seed and the same step under ``seq_shard``, their
+    states gathered, and on rank 0 the single-process step on the same
+    global batch; then, on the same mesh, the seq phase's decode
+    (``seq_on_mesh``, under the unsharded run's ``seq_teacher``): one spawn
+    of 4 ranks fewer."""
     import torch.distributed as dist
 
     from repro_torch import tree
@@ -2809,8 +2943,41 @@ def tp_train_rank(rank: int, seed: int) -> dict:
            for k, v in (("params", new.params), ("m", new.opt.m), ("v", new.opt.v))}
     tp_loss = float(metrics["loss"])
     del new, state
-    if rank != 0:
-        return out
+    # The same step with the residual stream split by sequence over model.
+    cfg_seq = dataclasses.replace(cfg32, sharding_rules={**cfg32.sharding_rules,
+                                                         "__seq_shard__": "model"})
+    opt_seq, state = placed(cfg_seq)
+    sync()
+    t0 = time.perf_counter()
+    with shr.use_mesh(mesh), CollectiveClock() as clock:
+        new, metrics = ts.train_step(cfg_seq, opt_seq, state, batch, n_micro=TP_TRAIN_MICRO)
+        sync()
+    seq_ms = (time.perf_counter() - t0) * 1e3
+    got_seq = {k: [shr.global_tensor(t) for t in tree.leaves(v)]
+               for k, v in (("params", new.params), ("m", new.opt.m), ("v", new.opt.v))}
+    seq_loss = float(metrics["loss"])
+    out["seq_step"] = {"ms": seq_ms, "collectives": {
+        n: {"count": v["count"], "bytes": v["bytes"], "share": v["seconds"] * 1e3 / seq_ms}
+        for n, v in clock.by_op.items() if v["count"]}}
+    del new, state
+    if rank == 0:
+        out.update(tp_single_step(cfg32, opt32, seed, batch, got, tp_loss, got_seq, seq_loss,
+                                  out["seq_step"]))
+    del got, got_seq
+    torch.cuda.empty_cache()
+    out["seq"] = seq_on_mesh(mesh, seed, seq_teacher)
+    return out
+
+
+def tp_single_step(cfg32, opt32, seed: int, batch, got, tp_loss, got_seq, seq_loss,
+                   seq_step) -> dict:
+    """Rank 0's single-process f32 step on the tp phase's global batch, and
+    the split steps' readings against it."""
+    from repro_torch import tree
+    from repro_torch.models import init_params
+    from repro_torch.train import step as ts
+
+    out = {}
     params = init_params(cfg32, torch.Generator(device=DEVICE).manual_seed(seed))
     single, m1 = ts.train_step(cfg32, opt32, ts.init_state(cfg32, params, opt32), batch,
                                n_micro=TP_TRAIN_MICRO * TP_TRAIN_MESH[0])
@@ -2820,6 +2987,13 @@ def tp_train_rank(rank: int, seed: int) -> dict:
     out["f32_step"] = {"loss": tp_loss, "single_loss": float(m1["loss"]),
                        "loss_rel": abs(tp_loss - float(m1["loss"])) / abs(float(m1["loss"])),
                        "worst_over_leaf_max": worst}
+    out["seq_step"] = dict(seq_step, **{
+        "loss": seq_loss,
+        "loss_rel": abs(seq_loss - float(m1["loss"])) / abs(float(m1["loss"])),
+        "worst_over_leaf_max": {k: max(float((g - w).abs().max()) / float(w.abs().max())
+                                       for g, w in zip(got_seq[k], tree.leaves(want[k])))
+                                for k in got_seq}})
+    del params, single, want
     return out
 
 
@@ -2840,7 +3014,10 @@ def phase_tp(seed: int, launches: dict, err: dict) -> dict:
     to plain on rank 0, replicated leaves bit-equal on all ranks and split
     blocks on the data peers after every step), and one f32 step against
     the single-process step (loss within 1e-5 relative, the state within
-    TP_STEP_RTOL of each leaf's largest value)."""
+    TP_STEP_RTOL of each leaf's largest value). The sequence layouts:
+    ``tp_seq_layouts`` on the f32 serving ranks (``check_tp_seq``), the
+    f32 step under ``seq_shard``, and the seq part (``seq_want`` here,
+    ``seq_on_mesh`` on the training ranks, ``check_seq``)."""
     import gc
 
     from repro_torch.launch.mesh import run_ranks
@@ -2867,8 +3044,8 @@ def phase_tp(seed: int, launches: dict, err: dict) -> dict:
     # one: 16 and 33 at TP_SERVE_DEPTH.
     depth = TP_SERVE_DEPTH
     per_forward = {"softmax_f32": depth, "rmsnorm_f32": 2 * depth + 1}
-    forwards = 1 + MODEL_NEW
-    n_tok = len(MODEL_LENS) * MODEL_NEW
+    forwards = 1 + TP_NEW
+    n_tok = len(MODEL_LENS) * TP_NEW
     for o in ranks:
         add(o["bf16"]["launches"])
         check(o["bf16"]["launches"] == {k: v * forwards for k, v in per_forward.items()},
@@ -2892,7 +3069,7 @@ def phase_tp(seed: int, launches: dict, err: dict) -> dict:
     bf16_same = sum(a == b for r, g in zip(ranks[0]["bf16"]["tokens"], want["bf16"]["tokens"])
                     for a, b in zip(r, g))
     say("tp", part="serve", arch=TP_ARCH, mesh=dict(zip(("data", "model"), TP_SERVE_MESH)),
-        prompt_lens=list(MODEL_LENS), max_new=MODEL_NEW, launches_per_forward=per_forward,
+        prompt_lens=list(MODEL_LENS), max_new=TP_NEW, launches_per_forward=per_forward,
         allreduce_ms_at_prefill_size=[o["allreduce_ms"] for o in ranks],
         bf16={"prefill_ms": [o["bf16"]["prefill_ms"] for o in ranks],
               "decode_ms_per_step": [o["bf16"]["decode_ms_per_step"] for o in ranks],
@@ -2920,15 +3097,24 @@ def phase_tp(seed: int, launches: dict, err: dict) -> dict:
     check(agree >= 0.99, f"tp serve: teacher-forced agreement {agree} < 0.99")
     check(drift < 5e-3, f"tp serve: logit drift {drift} >= 5e-3")
     check(1 - serve_diff / n_tok >= 0.99, f"tp serve: serve() differs on {serve_diff} tokens")
-    check(all(len(o) == MODEL_NEW for o in ranks[0]["bf16"]["tokens"]), "tp serve: short output")
+    check(all(len(o) == TP_NEW for o in ranks[0]["bf16"]["tokens"]), "tp serve: short output")
+    check_tp_seq(ranks, want, launches, err)
     del ranks, want, logits
     gc.collect()
     torch.cuda.empty_cache()
 
+    t0 = time.perf_counter()
+    seq = seq_want(seed)
+    seq["seconds"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
     n_train = TP_TRAIN_MESH[0] * TP_TRAIN_MESH[1]
     t0 = time.perf_counter()
-    ranks = run_ranks(tp_train_rank, n_train, seed, device_type="cuda", timeout_s=TP_TIMEOUT_S)
+    ranks = run_ranks(tp_train_rank, n_train, seed, seq["teacher"], device_type="cuda",
+                      timeout_s=TP_TIMEOUT_S)
     train_s = time.perf_counter() - t0
+    split_input = ranks[0]["seq"].pop("split_input")
+    check_seq([o["seq"] for o in ranks], seq, launches, err, train_s)
     per_step = train_launches(train_config(), TP_TRAIN_MICRO, ranks[0]["n_leaves"])
     for o in ranks:
         for st in o["steps"]:
@@ -2954,20 +3140,131 @@ def phase_tp(seed: int, launches: dict, err: dict) -> dict:
         losses=[st["loss"] for st in ranks[0]["steps"]],
         peak_gib=[o["peak_gib"] for o in ranks], f32_step=f32, ranks_s=train_s,
         note="4 ranks share one card over gloo; rank 0's step 1 includes its held calls")
-    check(f32["loss_rel"] <= 1e-5, f"tp train f32: loss {f32['loss_rel']} relative")
-    for k, tol in TP_STEP_RTOL.items():
-        check(f32["worst_over_leaf_max"][k] <= tol,
-              f"tp train f32: {k} off by {f32['worst_over_leaf_max'][k]} of the leaf's max")
-    return {"serve_s": serve_s, "train_s": train_s}
+    seq = ranks[0]["seq_step"]
+    say("tp", part="train_seq_shard", arch="paper_fpdiv",
+        mesh=dict(zip(("data", "model"), TP_TRAIN_MESH)), f32_step=seq,
+        step_ms=[o["seq_step"]["ms"] for o in ranks],
+        collectives=[o["seq_step"]["collectives"] for o in ranks],
+        note="the f32 step with __seq_shard__ = model against the single-process step")
+    for name, f in (("f32", f32), ("f32 seq_shard", seq)):
+        check(f["loss_rel"] <= 1e-5, f"tp train {name}: loss {f['loss_rel']} relative")
+        for k, tol in TP_STEP_RTOL.items():
+            check(f["worst_over_leaf_max"][k] <= tol,
+                  f"tp train {name}: {k} off by {f['worst_over_leaf_max'][k]} of the leaf's max")
+    return {"serve_s": serve_s, "train_s": train_s, "split_input": split_input}
+
+
+def phase_times_split(err: dict, launches: dict, x: torch.Tensor) -> list:
+    """The split softmax kernel's three passes on the seq part's input
+    (rank 0's scores of the global layer's first decode step: its query
+    heads' rows over its SEQ_SLOTS / 2 slots), one rank's work without the
+    all-reduces between the passes (on one rank they compute the row
+    softmax), beside their plain versions and ``torch.softmax`` of the
+    same rows; the bound: the rows read once and the output written
+    once."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import division_modes as dm
+    from repro_torch.core.seeds import compute_segments
+    from repro_torch.kernels import softmax_split as ks
+
+    div = dataclasses.replace(get_config(SEQ_ARCH).division, mode="taylor_pallas")
+    n, bits, sched = div.n_iters, div.precision_bits, dm._kernel_schedule(div)
+    table = compute_segments(n, bits)
+    x = x.to(DEVICE)
+
+    def kernel():
+        e, s = ks.split_exp(x, ks.split_max(x))
+        return ks.split_scale(e, s, n, bits, sched)
+
+    def plain():
+        e, s = ks.split_exp_plain(x, ks.split_max_plain(x))
+        return ks.split_scale_plain(e, s, table, n, sched)
+
+    n_bad, e = mismatch(kernel(), plain())
+    check(n_bad == 0, f"softmax_split_f32: {n_bad} lanes differ from the plain version")
+    err["softmax_split_f32"] = max(err["softmax_split_f32"], e)
+    library = lambda: torch.softmax(x, -1)
+    row = kernel_row("softmax_split_f32", event_ms(kernel), event_ms(plain, 3), event_ms(library),
+                     2 * x.numel() * x.element_size(), x.numel(), launches, err,
+                     shape=list(x.shape), dtype="float32", step="decode", passes=3,
+                     device_ms=device_ms(kernel, "split_"), library_device_ms=device_ms(library),
+                     site="seq: gemma3_12b's global layer, 524288 slots over data 2")
+    say("times", **row)
+    del x
+    torch.cuda.empty_cache()
+    return [row]
+
+
+def check_tp_seq(ranks: list, want: dict, launches: dict, err: dict) -> None:
+    """The tp phase's sequence layouts (``tp_seq_layouts``) against the
+    unsharded f32 run: the seq_shard prefill's last logits (drift < 5e-3
+    over the largest), the kvseq teacher-forced stream (>= 99% of tokens,
+    drift < 5e-3) and its launches (3 TP_F32_DEPTH split softmax passes a
+    decode step, in the softmax kernel's place), every held call at 0
+    lanes."""
+    d = TP_F32_DEPTH
+    parts = [o["seq"] for o in ranks]
+    ref = want["logits"]
+    drift = lambda got, w: float((got - w).abs().max() / w.abs().max())
+    seq_drift = drift(torch.cat([p["seq_prefill_logits"] for p in parts], -1), ref[0])
+    kv_drift = drift(torch.cat([p["kv_logits"] for p in parts], -1), ref)
+    kv_agree = float((parts[0]["kv_picks"] == want["teacher"]).mean())
+    kv_want = {"softmax_f32": d, "rmsnorm_f32": (2 * d + 1) * (1 + TP_NEW),
+               "softmax_split_f32": 3 * d * TP_NEW}
+
+    def calls(rows):
+        return {f"{kind}/{st}": sum(1 for r in rows if r[:2] == (kind, st))
+                for kind in ("softmax_f32", "rmsnorm_f32", "tsdiv_recip", "softmax_split_f32")
+                for st in ("prefill", "decode")}
+
+    held_want = {k: {"softmax_f32/prefill": d, "softmax_f32/decode": 0 if k == "kvseq" else d,
+                     "rmsnorm_f32/prefill": 2 * d + 1, "rmsnorm_f32/decode": 2 * d + 1,
+                     "tsdiv_recip/prefill": 0, "tsdiv_recip/decode": 0,
+                     "softmax_split_f32/prefill": 0,
+                     "softmax_split_f32/decode": 3 * d if k == "kvseq" else 0}
+                 for k in ("seq_shard", "kvseq")}
+    say("tp", part="seq_layouts", arch=TP_ARCH, depth=d,
+        mesh=dict(zip(("data", "model"), TP_SERVE_MESH)), prompt_lens=list(MODEL_LENS),
+        seq_shard={"prefill_logit_drift": seq_drift,
+                   "prefill_ms": [p["prefill_ms"]["seq_shard"] for p in parts],
+                   "base_prefill_ms": [p["prefill_ms"]["base"] for p in parts],
+                   "prefill_collectives": [p["prefill_collectives"]["seq_shard"]
+                                           for p in parts],
+                   "base_prefill_collectives": [p["prefill_collectives"]["base"]
+                                                for p in parts]},
+        kvseq={"teacher_forced_agreement": kv_agree, "logit_drift": kv_drift,
+               "cache_slots_a_rank": parts[0]["kv_cache_slots"],
+               "launches": [p["kv_launches"] for p in parts],
+               "replay_s": [p["kv_replay_s"] for p in parts]},
+        held={"calls_a_rank": {k: calls(rows) for k, rows in parts[0]["held"].items()},
+              "mismatched_lanes": sum(r[3] for p in parts for rows in p["held"].values()
+                                      for r in rows)},
+        note="ranks share one card over gloo: the times are not a speed figure")
+    for p in parts:
+        for k, v in p["kv_launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        check(p["kv_launches"] == kv_want, f"tp kvseq launches {p['kv_launches']}, "
+              f"want {kv_want}")
+        for k, e in p["held_err"].items():
+            err[k] = max(err[k], e)
+        for k, rows in p["held"].items():
+            check(calls(rows) == held_want[k], f"tp {k} held calls {calls(rows)}")
+            check(all(r[3] == 0 for r in rows),
+                  f"tp {k}: a call differs from its plain version")
+    check(seq_drift < 5e-3, f"tp seq_shard prefill: logit drift {seq_drift} >= 5e-3")
+    check(kv_agree >= 0.99, f"tp kvseq: teacher-forced agreement {kv_agree} < 0.99")
+    check(kv_drift < 5e-3, f"tp kvseq: logit drift {kv_drift} >= 5e-3")
 
 
 # ---------------------------------------------------------------- the ep phase
 
 EP_ARCH = "deepseek_moe_16b"
 EP_MESH = (2, 2)                  # (data, model): experts on data, expert_mlp on model
-EP_LENS = (1024, 768, 512, 256)
-EP_NEW = 8                        # 16 until the command outgrew its time limit
+EP_LENS = (512, 384, 256, 128)    # (1024, 768, 512, 256) and 8 new tokens until the
+EP_NEW = 4                        # sequence layouts joined the command (16 new before)
 EP_F32_DEPTH = 4                  # the f32 gate's depth: one dense, three MoE layers
+EP_SERVE_DEPTH = 14               # the timed bf16 run: one dense, 13 MoE layers (28 until the
+                                  # sequence layouts joined the command)
 EP_TRAIN_DEPTH = 2                # one dense, one MoE layer (4 until the command outgrew its
                                   # time limit); AdamW's f32 moments of all 16.4 B: 131 GB
 # The 4 ranks' train states share the one card: with f32 moments a rank of
@@ -3030,7 +3327,7 @@ def ep_serve_rank(rank: int, seed: int, teacher) -> dict:
     mesh = tp_mesh(EP_MESH)
     out = {}
     t0 = time.perf_counter()
-    cfg, params, prompts = ep_model(seed, mesh, "bfloat16")
+    cfg, params, prompts = ep_model(seed, mesh, "bfloat16", n_layers=EP_SERVE_DEPTH)
     out["init_s"] = time.perf_counter() - t0
     err = {"softmax_f32": 0.0, "rmsnorm_f32": 0.0, "tsdiv_recip": 0.0}
     with shr.use_mesh(mesh):
@@ -3249,7 +3546,9 @@ def phase_ep(seed: int, launches: dict, err: dict) -> dict:
             launches[k] = launches.get(k, 0) + v
 
     cfg = get_config(EP_ARCH)
-    per_forward = MOE.per_forward
+    # MOE.per_forward at EP_SERVE_DEPTH: one dense layer, the rest MoE.
+    d = EP_SERVE_DEPTH
+    per_forward = {"softmax_f32": d + d - 1, "rmsnorm_f32": 2 * d + 1, "tsdiv_recip": d - 1}
     forwards = 1 + EP_NEW
     n_tok = len(EP_LENS) * EP_NEW
     for o in ranks:
@@ -3342,7 +3641,10 @@ def phase_ep(seed: int, launches: dict, err: dict) -> dict:
 # -------------------------------------------------------------- the tp_ssm phase
 
 SSM_TP_MESH = (1, 2)              # (data, model): the Mamba-2 mixers by heads on 2 ranks
-SSM_TP_SERVED = (SSM,)            # mamba2_780m at full depth
+# mamba2_780m cut to 24 of its 48 layers, the timed run and the f32 gate
+# (full depth until the sequence layouts joined the command).
+SSM_TP_SERVED = (dataclasses.replace(SSM, per_forward={"rmsnorm_f32": 2 * 24 + 1},
+                                     gate_depth={"n_layers": 24}, depth={"n_layers": 24}),)
 SSM_TP_LENS = TP_SERVE_LENS       # (512, 384, 256, 128): the tp phase's f32 serve() prompts
 SSM_TP_NEW = 4                    # 8 until jamba's FSDP gates joined the phase
 SSM_TP_TRAIN_MESH = (2, 2)        # mamba2_780m trained on 4 ranks at full width
@@ -4035,11 +4337,12 @@ def phase_tp_ssm(seed: int, launches: dict, err: dict) -> dict:
     axis (models/mamba2.py over models/parallel.py's plan), the ranks
     sharing the one card over gloo (every collective through host copies:
     the times are not a speed figure). Serving on SSM_TP_MESH: mamba2_780m
-    at full width and depth in bf16, generate_batch over SSM_TP_LENS
-    prompts, SSM_TP_NEW new tokens each, the unsharded serving phase's
-    launches a forward and rank (the gated norm runs on the gathered rows),
+    at full width and SSM_TP_SERVED's depth in bf16, generate_batch over
+    SSM_TP_LENS prompts, SSM_TP_NEW new tokens each, the unsharded
+    serving phase's launches a layer and rank (the gated norm runs on the
+    gathered rows),
     every call of one prefill and one decode step held to plain on each
-    rank; in f32 at full depth the gate of test_decode_equiv against this
+    rank; in f32 at its gate depth the gate of test_decode_equiv against this
     process's unsharded run (>= 99% of teacher-forced tokens, logit drift
     < 5e-3) and serve() against generate_batch (>= 99%). Then jamba under
     its own rules on FSDP_MESH (fsdp_rank, check_fsdp): its embed leaves
@@ -4176,6 +4479,285 @@ def phase_tp_ssm(seed: int, launches: dict, err: dict) -> dict:
         check(not f32[k]["leaves_over_bound"], f"tp_ssm train f32: {k} of "
               f"{f32[k]['leaves_over_bound'][:5]} past its bound (l2 {f32[k]['l2']})")
     return {"serve_s": serve_s, "fsdp_s": fsdp_s, "train_s": train_s}
+
+
+# --------------------------------------------------------------- the seq phase
+
+SEQ_ARCH = "gemma3_12b"
+SEQ_MESH = (2, 2)                 # (data, model): the cache's slots on data, heads on model
+SEQ_DEPTH = 6                     # one period: 5 sliding-window layers and 1 global
+SEQ_SLOTS = 524288                # long_500k's cache, batch 1
+SEQ_NEW = 4                       # teacher-forced steps at SEQ_SLOTS - 4 .. SEQ_SLOTS - 1
+SEQ_PROMPT = 512                  # the batch-1 generate's prompt: rank data 1's slots all masked
+SEQ_CHUNK = 8192                  # the cache's seeded draws, SEQ_CHUNK slots each
+# Faults planted in the split decode's combine over data, each of which the
+# seq gate must catch: data rank 1 adds zeros in place of its probs @ V
+# partial; every rank divides by its own exponentials' sum, not the sum
+# over the ranks.
+SEQ_FAULTS = ("dropped_partial", "local_sum")
+
+
+@contextlib.contextmanager
+def planted(fault: str):
+    """``fault`` (one of SEQ_FAULTS) planted in ``comm.all_reduce`` for a
+    scope: the combine's sums over data are told apart by their shape (the
+    row sums (rows, 1), the ``probs @ V`` partials (b, q, h, hd)). Every
+    rank still takes part in every collective it issues."""
+    from repro_torch.sharding import comm
+    from repro_torch.sharding import rules as shr
+
+    real = comm.all_reduce
+
+    def faulty(t, mesh, axes, op="sum"):
+        if tuple(axes) == ("data",) and op == "sum":
+            if fault == "local_sum" and t.dim() == 2:
+                return t
+            if (fault == "dropped_partial" and t.dim() == 4
+                    and shr.axis_index(mesh, "data") == 1):
+                t = torch.zeros_like(t)
+        return real(t, mesh, axes, op=op)
+
+    comm.all_reduce = faulty
+    try:
+        yield
+    finally:
+        comm.all_reduce = real
+
+
+def seq_model(seed: int, mesh):
+    """SEQ_ARCH at full width and SEQ_DEPTH layers in f32 and taylor_pallas,
+    drawn from ``seed`` (the rank's blocks on ``mesh``, the whole model with
+    None), and the generate prompt."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.sharding import rules as shr
+
+    cfg = dataclasses.replace(get_config(SEQ_ARCH), param_dtype="float32", n_layers=SEQ_DEPTH)
+    cfg = dataclasses.replace(cfg, division=dataclasses.replace(cfg.division,
+                                                                mode="taylor_pallas"))
+    sh = None if mesh is None else shr.param_shardings(cfg, mesh)
+    params = init_params(cfg, torch.Generator(device=DEVICE).manual_seed(seed), shardings=sh)
+    rng = np.random.default_rng(seed + 17)
+    return cfg, params, rng.integers(1, cfg.vocab, SEQ_PROMPT).tolist(), int(
+        rng.integers(1, cfg.vocab))
+
+
+def seq_fill(cache, cfg, seed: int) -> None:
+    """Fill the cache's K/V (the rank's blocks under the active mesh) below
+    position SEQ_SLOTS - SEQ_NEW -- every slot of a ring -- from seeded
+    draws: SEQ_CHUNK slots of every KV head at a time, each chunk from a
+    generator seeded by (seed, layer, leaf, chunk), so a rank draws only the
+    chunks of its own slots and the unsharded run draws the same values."""
+    from repro_torch.models.model import cache_layout, group_layers
+    from repro_torch.models.parallel import tensor_parallel
+
+    lay = cache_layout(cfg, 1, SEQ_SLOTS)
+    tp = tensor_parallel(cfg)
+    li = 0
+    for g, gc in zip(cfg.groups(), cache["groups"]):
+        for spec, lc in zip(group_layers(g), gc["layers"]):
+            window = cfg.sliding_window if spec.mixer == "swa" else 0
+            seq = lay["ring" if window else "full"]
+            total = window or SEQ_SLOTS
+            filled = window or SEQ_SLOTS - SEQ_NEW
+            for j, name in enumerate(("k", "v")):
+                a = lc["attn"][name]
+                L, H = a.shape[1], a.shape[2]
+                lo = 0 if seq is None else seq.index * L
+                h0 = tp.kv_range()[0] if H < cfg.n_kv_heads else 0
+                for c0 in range(lo - lo % SEQ_CHUNK, min(lo + L, filled), SEQ_CHUNK):
+                    gen = torch.Generator(device=DEVICE).manual_seed(
+                        ((seed * 1009 + li) * 2 + j) * 4099 + c0 // SEQ_CHUNK)
+                    chunk = torch.randn((min(SEQ_CHUNK, total - c0), cfg.n_kv_heads,
+                                         cfg.head_dim), generator=gen, device=DEVICE)
+                    s0, s1 = max(c0, lo), min(c0 + SEQ_CHUNK, lo + L, filled)
+                    a[0, s0 - lo:s1 - lo] = chunk[s0 - c0:s1 - c0, h0:h0 + H].to(a.dtype)
+                    del chunk
+            li += 1
+
+
+def seq_decode(cfg, params, cache, first: int, teacher=None, timed: bool = False):
+    """SEQ_NEW decode steps at SEQ_SLOTS - SEQ_NEW ..: the first fed
+    ``first``, then ``teacher``'s tokens (the unsharded run's picks) or the
+    run's own greedy picks. Returns (picks, logits on the host, each step's
+    ms and collectives when ``timed``)."""
+    from repro_torch.models import forward
+    from repro_torch.models.parallel import tensor_parallel
+    from repro_torch.serving.engine import greedy
+
+    tok = torch.tensor([[first]], dtype=torch.int32, device=DEVICE)
+    picks, logits, steps = [], [], []
+    for t in range(SEQ_NEW):
+        sync()
+        t0 = time.perf_counter()
+        with CollectiveClock() as clock, torch.no_grad():
+            out, cache, _ = forward(cfg, params, tokens=tok, cache=cache,
+                                    pos=SEQ_SLOTS - SEQ_NEW + t, mode="decode")
+            pick = greedy(out[:, 0], tensor_parallel(cfg))
+            sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        if timed:
+            steps.append({"ms": ms, "collectives": {
+                n: {"count": v["count"], "bytes": v["bytes"], "share": v["seconds"] * 1e3 / ms}
+                for n, v in clock.by_op.items() if v["count"]}})
+        picks.append(int(pick[0, 0]))
+        logits.append(out[:, 0].cpu())
+        tok = pick if teacher is None else torch.tensor([[teacher[t]]], dtype=torch.int32,
+                                                        device=DEVICE)
+    return picks, torch.stack(logits), steps
+
+
+def seq_want(seed: int) -> dict:
+    """This process's unsharded run of the seq phase: the whole cache of
+    SEQ_SLOTS slots filled by seq_fill, SEQ_NEW greedy steps (the teacher
+    stream and its logits), then a batch-1 generate of the SEQ_PROMPT
+    prompt into a fresh cache of SEQ_SLOTS slots."""
+    from repro_torch.models import make_cache
+    from repro_torch.serving import ServingEngine
+
+    cfg, params, prompt, first = seq_model(seed, None)
+    torch.cuda.reset_peak_memory_stats()
+    cache = make_cache(cfg, 1, SEQ_SLOTS, DEVICE)
+    seq_fill(cache, cfg, seed)
+    picks, logits, _ = seq_decode(cfg, params, cache, first)
+    seq_fill(cache, cfg, seed)        # the rings' slots were overwritten: refill
+    _, _, steps = seq_decode(cfg, params, cache, first, picks, timed=True)
+    del cache
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    eng = ServingEngine(cfg, params, max_len=SEQ_SLOTS)
+    gen = eng.generate(prompt, SEQ_NEW)
+    del eng, params
+    torch.cuda.empty_cache()
+    return {"teacher": picks, "logits": logits, "steps": steps, "generate": gen,
+            "peak_gib": peak}
+
+
+def seq_on_mesh(mesh, seed: int, teacher: list) -> dict:
+    """One rank's part of the seq phase on ``mesh`` (SEQ_MESH, the tp phase's
+    training ranks): its blocks of the model, its block of the filled cache
+    (SEQ_SLOTS / 2 slots a data rank, 4 of 8 KV heads), SEQ_NEW decode steps
+    under the unsharded run's ``teacher`` stream (every kernel call held to
+    its plain version; rank 0 keeps the global layer's first split softmax
+    input for the times phase), the same steps again timed over a refilled
+    cache, the steps under each planted fault of the combine
+    (``SEQ_FAULTS``) over a refilled cache, then the batch-1 generate."""
+    from repro_torch import tree
+    from repro_torch.kernels import rmsnorm, softmax, softmax_split, tsdiv
+    from repro_torch.models import make_cache
+    from repro_torch.serving import ServingEngine
+    from repro_torch.sharding import rules as shr
+
+    t0 = time.perf_counter()
+    cfg, params, prompt, first = seq_model(seed, mesh)
+    mods = (softmax, rmsnorm, tsdiv, softmax_split)
+    out = {"init_s": time.perf_counter() - t0}
+    torch.cuda.reset_peak_memory_stats()
+    with shr.use_mesh(mesh):
+        cache = make_cache(cfg, 1, SEQ_SLOTS, DEVICE)
+        seq_fill(cache, cfg, seed)
+        out["cache_gib"] = sum(t.numel() * t.element_size() for t in tree.leaves(cache)) / 2**30
+        held = []
+        for m in mods:
+            m.reset_launches()
+        kept = {}
+        real_max = softmax_split.split_max
+
+        def keep(x):
+            if x.shape[-1] == SEQ_SLOTS // SEQ_MESH[0] and not kept:
+                kept["x"] = x.cpu()
+            return real_max(x)
+
+        softmax_split.split_max = keep
+        try:
+            with held_kernels(held, ("softmax_f32", "rmsnorm_f32", "tsdiv_recip",
+                                     "softmax_split_f32")):
+                picks, logits, _ = seq_decode(cfg, params, cache, first, teacher)
+        finally:
+            softmax_split.split_max = real_max
+        out["launches"] = {k: v for m in mods for k, v in m.LAUNCHES.items() if v}
+        if torch.distributed.get_rank() == 0:
+            out["split_input"] = kept["x"]
+        seq_fill(cache, cfg, seed)    # the rings' slots were overwritten: refill
+        _, again, steps = seq_decode(cfg, params, cache, first, teacher, timed=True)
+        out.update(picks=picks, logits=logits, steps=steps, held=held,
+                   again_equal=bool(torch.equal(again, logits)), faults={})
+        for fault in SEQ_FAULTS:
+            seq_fill(cache, cfg, seed)
+            with planted(fault):
+                out["faults"][fault] = seq_decode(cfg, params, cache, first, teacher)[:2]
+        del cache
+        out["decode_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        eng = ServingEngine(cfg, params, max_len=SEQ_SLOTS)
+        sync()
+        t0 = time.perf_counter()
+        out["generate"] = eng.generate(prompt, SEQ_NEW)
+        sync()
+        out["generate_s"] = time.perf_counter() - t0
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del eng, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_seq(ranks: list, want: dict, launches: dict, err: dict, ranks_s: float) -> None:
+    """The seq phase: SEQ_ARCH at full width, SEQ_DEPTH layers, f32, batch 1,
+    its cache of SEQ_SLOTS slots split by sequence over data (the
+    long_500k layout; heads and vocab over model) on SEQ_MESH, run by the
+    tp phase's 4 training ranks sharing the card over gloo, against this
+    process's unsharded run (``want``), which ran first and was freed
+    before the ranks started: SEQ_NEW teacher-forced steps (every token the
+    unsharded run's, logit drift < 5e-3 over the largest), a batch-1
+    generate of a SEQ_PROMPT prompt (rank data 1's slots all masked) equal
+    to the unsharded run's, every kernel call of the steps held bit for
+    bit to its plain version; per rank the decode step's ms, the
+    collectives' share of it by op and peak GiB. Each planted fault of
+    the combine (SEQ_FAULTS) must fail the gate. ``ranks`` holds each
+    rank's ``seq_on_mesh`` readings."""
+    ref = want["logits"]
+
+    def gate(picks, logits):
+        return (sum(a == b for a, b in zip(picks, want["teacher"])),
+                float((logits - ref).abs().max() / ref.abs().max()))
+
+    agree, drift = gate(ranks[0]["picks"], torch.cat([ranks[r]["logits"] for r in (0, 1)], -1))
+    faults = {f: dict(zip(("agree", "drift"), gate(ranks[0]["faults"][f][0], torch.cat(
+        [ranks[r]["faults"][f][1] for r in (0, 1)], -1)))) for f in SEQ_FAULTS}
+    # A decode step on a rank: two RMSNorms a layer and the final one, and
+    # the split softmax's three passes a layer; no softmax kernel.
+    per_step = {"rmsnorm_f32": (2 * SEQ_DEPTH + 1) * SEQ_NEW,
+                "softmax_split_f32": 3 * SEQ_DEPTH * SEQ_NEW}
+    for o in ranks:
+        for k, v in o["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        check(o["launches"] == per_step, f"seq launches {o['launches']}, want {per_step}")
+        n_held = {k: sum(1 for h in o["held"] if h[0] == k) for k in per_step}
+        check(n_held == per_step, f"seq held calls {n_held}, want {per_step}")
+        check(all(h[1] == 0 for h in o["held"]), "seq: a call differs from its plain version")
+        for k, _, e in o["held"]:
+            err[k] = max(err[k], e)
+        check(o["again_equal"], "seq: a second run of the steps gave other logits")
+    say("seq", arch=SEQ_ARCH, depth=SEQ_DEPTH, mesh=dict(zip(("data", "model"), SEQ_MESH)),
+        cache_slots=SEQ_SLOTS, batch=1, dtype="float32", new=SEQ_NEW,
+        teacher_forced_agreement=agree / SEQ_NEW, logit_drift=drift, planted_faults=faults,
+        generate_equal=[o["generate"] == want["generate"] for o in ranks],
+        generate_prompt=SEQ_PROMPT, generate_s=[o["generate_s"] for o in ranks],
+        decode_ms=[[st["ms"] for st in o["steps"]] for o in ranks],
+        decode_collectives=[o["steps"][-1]["collectives"] for o in ranks],
+        init_s=[o["init_s"] for o in ranks], cache_gib=[o["cache_gib"] for o in ranks],
+        decode_peak_gib=[o["decode_peak_gib"] for o in ranks],
+        peak_gib=[o["peak_gib"] for o in ranks], launches_per_rank=per_step,
+        unsharded={"decode_ms": [st["ms"] for st in want["steps"]],
+                   "peak_gib": want["peak_gib"], "seconds": want["seconds"]},
+        ranks_s_with_tp_train=ranks_s, note="the tp phase's 4 training ranks, sharing one "
+        "card over gloo: the collectives go through host copies, the times are not a speed "
+        "figure")
+    check(agree == SEQ_NEW, f"seq: {agree} of {SEQ_NEW} teacher-forced tokens agree")
+    check(drift < 5e-3, f"seq: logit drift {drift} >= 5e-3")
+    for f, g in faults.items():
+        check(g["agree"] < SEQ_NEW or g["drift"] >= 5e-3,
+              f"seq: the gate misses the planted fault {f} ({g})")
+    check(all(o["generate"] == want["generate"] for o in ranks),
+          f"seq: generate {[o['generate'] for o in ranks]} != {want['generate']}")
 
 
 def u32_mismatch(got: torch.Tensor, want: torch.Tensor):
@@ -4602,7 +5184,7 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     smi = phase_device()
     err = phase_kernels(args.seed)
-    err.update(softmax_f32=0.0, rmsnorm_f32=0.0, flash_attention_f32=0.0,
+    err.update(softmax_f32=0.0, softmax_split_f32=0.0, rmsnorm_f32=0.0, flash_attention_f32=0.0,
                flash_attention_bf16=0.0, ilm_mul_u32=0.0, ilm_square_u32=0.0)
     phase_golden()
     launches = {k: 0 for k in err}
@@ -4631,7 +5213,7 @@ def main(argv=None) -> int:
     # (4 GB, for the times phase) waits on the host meanwhile.
     plane = plane.cpu()
     mesh = phase_mesh(args.seed, launches, err)
-    phase_tp(args.seed, launches, err)
+    tp = phase_tp(args.seed, launches, err)
     plane = plane.cuda()
     check(all(launches.values()), f"a kernel was not launched on the main path: {launches}")
     consumer_inputs = phase_serve_calls(args.seed, err)
@@ -4642,6 +5224,7 @@ def main(argv=None) -> int:
     rows += phase_times_models(err, launches, firsts)
     rows += phase_times_train(err, launches, recips)
     rows += phase_times_mesh(err, launches, mesh)
+    rows += phase_times_split(err, launches, tp["split_input"])
     result = {"kernels": rows}
     say("wall", seconds=time.perf_counter() - t_start)
     if args.json:

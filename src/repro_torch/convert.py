@@ -18,6 +18,9 @@ leaves; m and v mirror the parameters) become the port's, so a state the
 reference made can be stepped by the port. With ``shardings``
 (``sharding.rules.param_shardings``) each leaf becomes the DTensor of the
 rank's block, cut from the numpy array before it is copied.
+:func:`cache_block` cuts a whole decode cache (the reference's, carried
+across, or a prefill's) into a rank's blocks of it, as
+``models.make_cache`` lays them out on the mesh.
 """
 from __future__ import annotations
 
@@ -29,11 +32,11 @@ import torch
 from repro_torch.core.division_modes import DivisionConfig
 from repro_torch.optim.adamw import AdamWState
 from repro_torch.train.step import TrainState
-from repro_torch.tree import map_tree
+from repro_torch.tree import leaves, map_tree
 
 __all__ = ["config_from_reference", "tensor_from_numpy", "tensors_from_numpy",
            "params_from_reference", "cache_from_reference", "opt_state_from_reference",
-           "train_state_from_reference"]
+           "train_state_from_reference", "cache_block"]
 
 
 def config_from_reference(fields: Dict) -> DivisionConfig:
@@ -134,3 +137,87 @@ def train_state_from_reference(state, cfg, device):
     return TrainState(params=params_from_reference(state.params, cfg, device),
                       opt=opt_state_from_reference(state.opt, cfg, device),
                       step=tensor_from_numpy(state.step, device))
+
+
+def _coordinate(mesh, rank=None) -> Dict[str, int]:
+    """The mesh coordinates of global ``rank`` (this process's by default)."""
+    names = mesh.mesh_dim_names
+    if rank is None:
+        return dict(zip(names, mesh.get_coordinate()))
+    at = (mesh.mesh == rank).nonzero()
+    if at.shape[0] != 1:
+        raise ValueError(f"rank {rank} is not on the mesh {mesh}")
+    return dict(zip(names, at[0].tolist()))
+
+
+def cache_block(cache, cfg, mesh, rank=None, *, max_len=None, batch=None):
+    """The rank's blocks (``rank``: a global rank, this process's by
+    default) of a whole decode cache in the port's layout
+    (:func:`cache_from_reference`'s, or a prefill's): each K/V leaf's block
+    of its global slots -- ``max_len`` for the full-attention layers
+    (their length in ``cache`` by default; a shorter leaf is a prefill's,
+    zero past its end), the window for rings, ``encoder_seq`` for cross
+    K/V -- where ``models.make_cache``'s layout splits its sequence for a
+    decode batch of ``batch`` global rows (the leaves' by default), and
+    the KV heads and Mamba-2 heads the rank holds where a leaf has all of
+    them. The batch stays whole: every rank is given the whole batch."""
+    from dataclasses import replace
+
+    from repro_torch.models.attention import cache_heads
+    from repro_torch.models.model import cache_layout, group_layers
+    from repro_torch.models.parallel import tensor_parallel
+
+    coord = _coordinate(mesh, rank)
+    tp = tensor_parallel(cfg, mesh)
+    if tp is not None:
+        tp = replace(tp, rank=coord.get("model", 0))
+    B = leaves(cache)[0].shape[0] if batch is None else batch
+    full = None
+    for g, gc in zip(cfg.groups(), cache["groups"]):
+        for spec, lc in zip(group_layers(g), gc["layers"]):
+            if spec.mixer == "attn" and full is None:
+                full = max_len or lc["attn"]["k"].shape[1]
+    lay = cache_layout(cfg, B, full or 1, mesh)
+    full = lay.pop("slots")
+    lay = {k: None if v is None else replace(v, index=coord[v.axis]) for k, v in lay.items()}
+
+    def kv(a, length, seq):
+        n = 1 if seq is None else seq.n
+        L = length // n
+        lo = 0 if seq is None else seq.index * L
+        heads = cache_heads(cfg, tp, seq)
+        if a.shape[2] == cfg.n_kv_heads and heads < cfg.n_kv_heads:
+            h0, h1 = tp.kv_range()
+            a = a[:, :, h0:h1]
+        out = torch.zeros((a.shape[0], L, *a.shape[2:]), dtype=a.dtype, device=a.device)
+        have = max(0, min(lo + L, a.shape[1]) - lo)
+        out[:, :have] = a[:, lo:lo + have]
+        return out
+
+    def heads(a, dim, whole):
+        if tp is None or not tp.ssm or a.shape[dim] != whole:
+            return a
+        n = whole // tp.size
+        return a.narrow(dim, tp.rank * n, n).contiguous()
+
+    groups = []
+    for g, gc in zip(cfg.groups(), cache["groups"]):
+        layers = []
+        for spec, lc in zip(group_layers(g), gc["layers"]):
+            out = {}
+            if "attn" in lc:
+                window = cfg.sliding_window if spec.mixer == "swa" else 0
+                seq = lay["ring" if window else "full"]
+                out["attn"] = {k: kv(a, window or full, seq) for k, a in lc["attn"].items()}
+            if "mamba" in lc:
+                m = lc["mamba"]
+                out["mamba"] = {"state": heads(m["state"], 1, cfg.ssm_heads),
+                                "conv_x": heads(m["conv_x"], 2, cfg.d_inner),
+                                "conv_B": m["conv_B"], "conv_C": m["conv_C"]}
+            if "cross" in lc:
+                out["cross"] = {k: kv(a, cfg.encoder_seq, lay["cross"])
+                                for k, a in lc["cross"].items()}
+            layers.append(out)
+        groups.append({"layers": layers})
+    return {"groups": groups}
+

@@ -35,7 +35,7 @@ from .fpparts import UNDERFLOW_POLICIES
 from .seeds import compute_segments, rsqrt_seed_table
 
 __all__ = ["MODES", "DivisionConfig", "EXACT", "TAYLOR", "effective_underflow",
-           "recip", "div", "rsqrt", "softmax", "rmsnorm", "attention"]
+           "recip", "div", "rsqrt", "softmax", "split_softmax", "rmsnorm", "attention"]
 
 MODES = ("exact", "taylor", "taylor_pallas", "goldschmidt",
          "goldschmidt_pallas", "ilm")
@@ -240,6 +240,31 @@ def softmax(x: torch.Tensor, axis: int = -1, cfg: DivisionConfig = TAYLOR,
     safe = torch.where(s == 0, torch.ones_like(s), s)
     out = ex / safe if cfg.mode == "exact" else ex * recip(safe, cfg)
     return out.movedim(-1, axis).to(x.dtype)
+
+
+def split_softmax(x: torch.Tensor, cfg: DivisionConfig, max_over, sum_over) -> torch.Tensor:
+    """:func:`softmax` over the last axis of f32 rows split over ranks:
+    ``x`` (..., D) is this rank's block of each row, masked lanes -inf.
+    ``max_over`` / ``sum_over`` combine a (rows, 1) partial over the ranks
+    (the all-reduces): the rows' maxima (exact), then the sums of
+    ``exp(x - max)`` in the kernels' order, so only the sums' order
+    differs from the whole row's. The kernel modes run the split softmax
+    kernel's three passes (``kernels.softmax_split``), the other modes
+    their plain versions with the 1/sum through :func:`recip`. Rows masked
+    on every rank come out as zeros. No autograd."""
+    from repro_torch.kernels import softmax_split as ks
+
+    rows = x.reshape(-1, x.shape[-1]).contiguous()
+    kernel = cfg.mode in _KERNEL_MODES and _takes_kernel(rows)
+    top = max_over(ks.split_max(rows) if kernel else ks.split_max_plain(rows))
+    ex, s = ks.split_exp(rows, top) if kernel else ks.split_exp_plain(rows, top)
+    total = sum_over(s)
+    if kernel:
+        out = ks.split_scale(ex, total, cfg.n_iters, cfg.precision_bits, _kernel_schedule(cfg))
+    else:
+        safe = torch.where(total == 0, torch.ones_like(total), total)
+        out = ex / safe if cfg.mode == "exact" else ex * recip(safe, cfg)
+    return out.reshape(x.shape)
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, cfg: DivisionConfig = TAYLOR, *,

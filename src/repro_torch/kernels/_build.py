@@ -49,6 +49,9 @@ _SIGNATURES = {
     },
     "softmax": {
         "softmax_rows": [_vp, _vp, _i64, _i32, _i32, SeedTableC, _i32, _i32, _vp],
+        "softmax_split_max": [_vp, _vp, _i64, _i32, _vp],
+        "softmax_split_exp": [_vp, _vp, _vp, _vp, _i64, _i32, _vp],
+        "softmax_split_scale": [_vp, _vp, _vp, _i64, _i32, SeedTableC, _i32, _i32, _vp],
     },
     "rmsnorm": {
         "rmsnorm_rows": [_vp, _vp, _vp, _i64, _i32, _i32, _i32, _f32, _f32, SeedTableC,

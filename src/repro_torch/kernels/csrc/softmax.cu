@@ -29,6 +29,17 @@
 // read three times (max, exp and sum, scale) in the same layout; rows whose
 // length is not a multiple of 8 elements, or whose x or out base is not
 // 16-byte aligned, take that loop with scalar accesses.
+//
+// The split softmax (softmax_split_*): a row whose elements lie on several
+// ranks (a decode cache split by sequence), in three launches with the
+// ranks' all-reduces between them: the row's max; exp(x - M) with M the
+// max over the ranks, written out, and its row sum in the fused kernel's
+// order; ex * (1/S) with S the sum over the ranks, the reciprocal through
+// recip_f32_bits. On one rank the three give the fused kernel's bits. f32
+// rows of any length, one row a block of 256 threads for the max and the
+// sum: thread t adds the row's elements t, t + 256, ... in sequence (the
+// order's thread t) and the block's warp 0 finishes with
+// rows::warp_tree_sum; the scale takes a block per 2048 elements of a row.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -240,6 +251,70 @@ int launch(const void* x, void* out, long long m, int d, const TsdivSeedTable& t
   return launch_shaped<T, true, 0, 1>(x, out, m, d, table, n_iters, schedule, stream);
 }
 
+constexpr int kRowThreads = rows::kThreads;    // the split passes' block: thread t = order's t
+constexpr int kScaleSpan = kRowThreads * 8;     // elements of a row one scale block covers
+
+__global__ void __launch_bounds__(kRowThreads)
+    split_max_kernel(const float* __restrict__ x, float* __restrict__ mx, int d) {
+  __shared__ float red_sh[kRowThreads / 32];
+  const float* xr = x + (long long)blockIdx.x * d;
+  float m = -INFINITY;
+#pragma unroll 8
+  for (int i = threadIdx.x; i < d; i += kRowThreads) m = rows::nan_max(m, xr[i]);
+  m = rows::warp_max(m);
+  if ((threadIdx.x & 31) == 0) red_sh[threadIdx.x >> 5] = m;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int q = 0; q < kRowThreads / 32; ++q) m = rows::nan_max(m, red_sh[q]);
+    mx[blockIdx.x] = m;
+  }
+}
+
+__global__ void __launch_bounds__(kRowThreads)
+    split_exp_kernel(const float* __restrict__ x, const float* __restrict__ top,
+                     float* __restrict__ ex, float* __restrict__ sum, int d) {
+  __shared__ float part_sh[kRowThreads];
+  const long long off = (long long)blockIdx.x * d;
+  const float t = top[blockIdx.x];
+  const float mfin = isfinite(t) ? t : 0.0f;
+  float acc = 0.0f;
+#pragma unroll 8
+  for (int i = threadIdx.x; i < d; i += kRowThreads) {
+    const float v = expf(__fsub_rn(x[off + i], mfin));
+    ex[off + i] = v;
+    acc = __fadd_rn(acc, v);
+  }
+  part_sh[threadIdx.x] = acc;
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    float p[kPer];
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) p[j] = part_sh[kPer * threadIdx.x + j];
+    const float s = rows::warp_tree_sum(p);
+    if (threadIdx.x == 0) sum[blockIdx.x] = s;
+  }
+}
+
+__global__ void __launch_bounds__(kRowThreads)
+    split_scale_kernel(const float* __restrict__ ex, const float* __restrict__ total,
+                       float* __restrict__ out, long long m, int d,
+                       const __grid_constant__ TsdivSeedTable table, int n_iters, int schedule) {
+  __shared__ float rs_sh;
+  const int lo = blockIdx.x * kScaleSpan;
+  const int hi = min(d, lo + kScaleSpan);
+  for (long long row = blockIdx.y; row < m; row += gridDim.y) {
+    const float s = total[row];
+    if (threadIdx.x == 0) rs_sh = tsdiv::recip_f32_bits(s, table, n_iters, schedule);
+    __syncthreads();
+    const float rs = rs_sh;
+    const long long off = row * d;
+    for (int i = lo + threadIdx.x; i < hi; i += kRowThreads)
+      out[off + i] = s == 0.0f ? 0.0f : __fmul_rn(ex[off + i], rs);
+    __syncthreads();   // rs_sh is rewritten for the next row
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -250,6 +325,35 @@ int softmax_rows(const void* x, void* out, long long m, int d, int dtype, TsdivS
                  int n_iters, int schedule, cudaStream_t stream) {
   return dtype == 0 ? launch<float>(x, out, m, d, table, n_iters, schedule, stream)
                     : launch<__nv_bfloat16>(x, out, m, d, table, n_iters, schedule, stream);
+}
+
+// The split softmax's passes over contiguous (m, d) f32 rows (m < 2^31):
+// mx (m) the rows' maxima; ex (m, d) = exp(x - top) and sum (m) its row
+// sums, top (m) the maxima over the ranks; out (m, d) = ex * (1/total)
+// (0 where total is 0), total (m) the sums over the ranks.
+int softmax_split_max(const void* x, void* mx, long long m, int d, cudaStream_t stream) {
+  if (m > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+  split_max_kernel<<<(unsigned int)m, kRowThreads, 0, stream>>>(
+      static_cast<const float*>(x), static_cast<float*>(mx), d);
+  return (int)cudaGetLastError();
+}
+
+int softmax_split_exp(const void* x, const void* top, void* ex, void* sum, long long m, int d,
+                      cudaStream_t stream) {
+  if (m > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+  split_exp_kernel<<<(unsigned int)m, kRowThreads, 0, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(top), static_cast<float*>(ex),
+      static_cast<float*>(sum), d);
+  return (int)cudaGetLastError();
+}
+
+int softmax_split_scale(const void* ex, const void* total, void* out, long long m, int d,
+                        TsdivSeedTable table, int n_iters, int schedule, cudaStream_t stream) {
+  const dim3 grid((d + kScaleSpan - 1) / kScaleSpan, (unsigned int)(m < 65535 ? m : 65535));
+  split_scale_kernel<<<grid, kRowThreads, 0, stream>>>(
+      static_cast<const float*>(ex), static_cast<const float*>(total), static_cast<float*>(out),
+      m, d, table, n_iters, schedule);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -31,8 +31,13 @@ the quantity):
     axes, on a ``model`` axis above 1 the tensor-parallel all-reduces
     (``models/parallel.py``), and the MoE FFN's expert exchange
     (all-to-all, all-gather and, in the backward pass, reduce-scatter over
-    the axis that holds the experts, ``models/moe.py``); ``by_axis`` splits
-    them by the mesh axis they ran over.
+    the axis that holds the experts, ``models/moe.py``); under
+    ``seq_shard`` an all-gather of the sequence before each split sub-layer
+    and a reduce-scatter after it, in place of its all-reduce, on
+    ``model``; where the cache's sequence lies on an axis (``kvseq`` on
+    ``model``, a batch-1 long context on ``data``), the decode softmax's
+    three all-reduces (maximum, sum, ``probs @ V``) an attention layer
+    over it; ``by_axis`` splits them by the mesh axis they ran over.
   * ``hbm_traffic_model`` (``launch/memmodel.py``) on the layout the
     traced rank holds (``param_layout``: the mesh axes that split some
     leaf, joined by '+', or ``replicated``). The config's ``model``-axis
@@ -253,8 +258,11 @@ def _program(cfg: ModelConfig, shape: ShapeConfig, mesh, *, n_micro: int, device
         return (params, batch), fn
 
     b_local = local["tokens"].shape[0]
-    cache = make_cache(cfg, b_local, shape.seq_len, device=device, abstract=True,
-                       fake_mode=fake_mode)
+    # The rank's blocks of the cache (``models.make_cache``): its
+    # rows of the batch, its KV heads, its slots where the layout splits them.
+    with rows():
+        cache = make_cache(cfg, b_local, shape.seq_len, device=device, abstract=True,
+                           fake_mode=fake_mode)
 
     def fn():
         with torch.no_grad(), rows():
@@ -380,6 +388,8 @@ def run_cell(arch: str, shape_name: Optional[str] = None, multi_pod: bool = Fals
             "temp_bytes": temp_bytes, "alias_bytes": alias_bytes,
             "total_hbm_bytes": arg_bytes + out_bytes + temp_bytes - alias_bytes,
         },
+        # The port's: the decode cache's blocks that the traced rank holds.
+        "cache_bytes": _bytes(tree.leaves(args[1])) if shape.kind == "decode" else 0,
         "hbm_traffic_model": mm,
         "collectives": {"ici_bytes": colls["ici_bytes"], "dcn_bytes": colls["dcn_bytes"],
                         "n_ops": len(colls["ops"]), "by_op": _summarize_ops(colls["ops"]),
@@ -408,10 +418,9 @@ def apply_variant(cfg: ModelConfig, variant: str):
     ``kernels`` (the config's Taylor or Goldschmidt division through the
     fused kernels, as the port runs it on the card); compound ones combine
     with '+' (e.g. ``tp1+kernels``). Returns (cfg, model_axis_size).
-
-    Left out: ``seq_shard`` and ``kvseq``, which place activations and
-    the KV cache's sequence on the ``model`` axis (ROADMAP Queue 1 item
-    24)."""
+    ``seq_shard`` keeps the residual stream split by sequence over
+    ``model`` between blocks (``models/model.py``); ``kvseq`` puts the
+    decode cache's sequence on ``model`` (``models/attention.py``)."""
     from repro_torch.core.division_modes import DivisionConfig
 
     rep = dataclasses.replace
@@ -430,6 +439,10 @@ def apply_variant(cfg: ModelConfig, variant: str):
             cfg = rep(cfg, train_microbatch_size=max(1, cfg.train_microbatch_size * 2))
         elif v == "micro_half":
             cfg = rep(cfg, train_microbatch_size=max(1, cfg.train_microbatch_size // 2))
+        elif v == "seq_shard":      # Megatron-style sequence parallelism
+            cfg = rep(cfg, sharding_rules={**cfg.sharding_rules, "__seq_shard__": "model"})
+        elif v == "kvseq":          # flash-decoding: the KV cache's sequence over model
+            cfg = rep(cfg, sharding_rules={**cfg.sharding_rules, "__kv_seq_shard__": "model"})
         elif v == "flash":          # fused flash-attention kernel (memmodel)
             cfg = rep(cfg, use_flash_kernel=True)
         elif v == "ep_tp":          # MoE: experts local, expert-FF over model

@@ -9,7 +9,9 @@ contractions keep the operands' dtype, as ``torch.einsum`` does.
 
 With ``tp`` (a ``models.parallel.TensorParallel``) the MLP runs on the
 rank's ``mlp`` columns and the embedding and LM head on its ``vocab``
-block, where their specs split them (``models/parallel.py``).
+block, where their specs split them (``models/parallel.py``); under a
+sequence split (``tp.seq``) the caller gathers their input and scatters
+their output.
 """
 from __future__ import annotations
 
@@ -48,11 +50,11 @@ def gated_mlp(p, x, tp=None):
     ranks in the product's dtype."""
     split = tp is not None and tp.mlp
     if split:
-        x = tp.copy(x)
+        x = tp.into(x)
     h = x @ p["wi"]
     g = F.silu((x @ p["wg"]).to(torch.float32))
     out = (g.to(h.dtype) * h) @ p["wo"]
-    return tp.reduce(out) if split else out
+    return tp.out(out) if split else out
 
 
 def embed_tokens(embed, tokens, cfg: ModelConfig, tp=None):
@@ -65,13 +67,13 @@ def embed_tokens(embed, tokens, cfg: ModelConfig, tp=None):
     local = tokens - tp.vocab_offset(n)
     mine = (local >= 0) & (local < n)
     rows = embed[torch.where(mine, local, 0)]
-    return tp.reduce(torch.where(mine[..., None], rows, torch.zeros((), dtype=rows.dtype,
-                                                                     device=rows.device)))
+    return tp.out(torch.where(mine[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                                                  device=rows.device)))
 
 
 def lm_logits(params, x, cfg: ModelConfig, tp=None):
     """f32 logits; split over ``vocab``, the rank's block of them."""
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     if tp is not None and tp.vocab:
-        x = tp.copy(x)
+        x = tp.into(x)
     return x.to(torch.float32) @ head.to(torch.float32)

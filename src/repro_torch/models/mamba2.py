@@ -88,7 +88,7 @@ def _enter(p: Dict, x, tp):
     p = dict(p)
     for k, piece in zip(whole, flat.split([p[k].numel() for k in whole])):
         p[k] = piece.view(p[k].shape)
-    return p, tp.copy(x)
+    return p, tp.into(x)
 
 
 def _gated_out(p: Dict, y, z, x, cfg: ModelConfig, tp=None):
@@ -102,7 +102,7 @@ def _gated_out(p: Dict, y, z, x, cfg: ModelConfig, tp=None):
     lo = tp.rank * n
     w = F.pad(p["norm"], (lo, (tp.size - 1) * n - lo))
     y = rms_norm(tp.gather(y), w, cfg.division, cfg.norm_eps)[..., lo:lo + n]
-    return tp.reduce(y @ p["wout"])
+    return tp.out(y @ p["wout"])
 
 
 def _tail(u, wm1: int, lengths):

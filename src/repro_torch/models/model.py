@@ -32,6 +32,24 @@ train step). A leaf that its spec puts on a batch axis (FSDP) is the
 rank's block of it, put together at the top of each block (under remat,
 again in the recompute) and where the embedding, final norm and LM head
 are read; the gathered copy lives while its block runs.
+
+Where ``sharding_rules["__seq_shard__"]`` names ``model`` and the
+sequence divides by its size (train and prefill), the residual stream
+between blocks is the rank's block of the sequence (Megatron-LM's
+sequence parallelism, ``models.parallel.seq_parallel``): the embedding's
+output is reduce-scattered over it (or cut, where the vocab is whole),
+each RMSNorm runs on the rank's rows (its weight's gradient summed over
+the ranks), each sub-layer reads the all-gathered sequence and its output
+is reduce-scattered back to the rank's rows where its product is split
+over ``model`` (attention and cross attention over heads, the MLP over
+``mlp``, the Mamba-2 mixer by heads), or cut to them where every rank
+computes it whole (a replicated sub-layer, the MoE FFN, which sums its own
+partials); the final norm's rows are gathered before the LM head. Rings,
+SSM pad masks and prefill K/V are made from the gathered sequence. A
+decode cache whose sequence lies on an axis (``kvseq``, or ``data`` for a
+batch-1 long context: ``sharding.rules.cache_seq_axis``) holds the rank's
+block of the slots, and decode combines the softmax over that axis
+(``models/attention.py``).
 """
 from __future__ import annotations
 
@@ -42,15 +60,17 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree
 from repro_torch.configs.base import LayerSpec, ModelConfig
-from .attention import (abstract_cache_attn, decode_attention, decode_positions, enter,
-                        full_attention, init_cache_attn, project_kv, sliding_attention)
+from .attention import (abstract_cache_attn, cache_heads, decode_attention, decode_positions,
+                        enter_whole, full_attention, init_cache_attn, kv_whole, project_kv,
+                        sliding_attention)
 from .layers import embed_tokens, gated_mlp, lm_logits, rms_norm
 from .mamba2 import abstract_cache_mamba, decode_mamba, init_cache_mamba, mamba_mixer
 from .moe import moe_ffn, where
-from .parallel import local_params, tensor_parallel
+from .parallel import (AXIS, kv_full_split, kv_heads_whole, kv_split, local_params,
+                       seq_parallel, tensor_parallel)
 from .params import torch_dtype
 
-__all__ = ["block_forward", "encode", "forward", "make_cache", "group_layers"]
+__all__ = ["block_forward", "encode", "forward", "make_cache", "cache_layout", "group_layers"]
 
 
 def group_layers(group) -> List[LayerSpec]:
@@ -90,37 +110,66 @@ def _ring_from_prefill(k, window: int, lengths=None):
 
 def block_forward(bp: Dict, x, spec: LayerSpec, cfg: ModelConfig, positions,
                   *, mode: str, cache=None, pos=None, enc_out=None, lengths=None, tp=None,
-                  at=None):
+                  at=None, seqs=None):
     """One block; returns (x, new_cache, aux). ``enc_out`` (train and
     prefill of an encoder-decoder): the encoder's output, which the cross
     attention projects to K/V. ``lengths`` (prefill only): the real prompt
     lengths of a right-padded batch, which make pad tokens SSM no-ops and
     keep them out of sliding-window rings. ``tp``: the rank's tensor-parallel
-    plan (``models/parallel.py``), ``bp`` its blocks; ``at``: where the MoE
-    FFN routes (``moe.where``)."""
+    plan (``models/parallel.py``), ``bp`` its blocks; with ``tp.seq`` ``x``
+    is the rank's block of the sequence. ``at``: where the MoE FFN routes
+    (``moe.where``). ``seqs`` (decode): the ``SeqSplit`` of the layer's
+    self-attention cache (``"attn"``) and cross K/V (``"cross"``), None
+    where whole."""
     div = cfg.division
     if tp is not None and tp.fsdp:
         bp = tp.gather_block(bp, spec, "cross" in bp)
+    split_seq = tp is not None and tp.seq
+    seqs = seqs or {}
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache: Dict[str, Any] = {}
-    h = rms_norm(x, bp["mixer_norm"], div, cfg.norm_eps)
+
+    def norm(w):
+        # Under a sequence split the weight sees the rank's rows only.
+        return rms_norm(x, tp.copy(w) if split_seq else w, div, cfg.norm_eps)
+
+    def sub(split: bool, fn, h):
+        """(y, extra) = fn(h), y back on the rank's rows of the sequence."""
+        if not split_seq:
+            return fn(h)
+        from repro_torch.sharding import comm
+
+        y, extra = fn(comm.gather_seq(h, tp.mesh, AXIS, 1, split))
+        return comm.scatter_seq(y, tp.mesh, AXIS, 1, split), extra
+
+    whole_kv = mode == "prefill" and kv_heads_whole(cfg, tp)
+    h = norm(bp["mixer_norm"])
     if spec.mixer == "mamba":
+        ssm = tp is not None and tp.ssm
         if mode == "decode":
             mh, new_cache["mamba"] = decode_mamba(bp["mamba"], h, cache["mamba"], cfg, tp)
         elif mode == "prefill":
-            mh, new_cache["mamba"] = mamba_mixer(bp["mamba"], h, cfg, return_state=True,
-                                                 lengths=lengths, tp=tp)
+            mh, new_cache["mamba"] = sub(ssm, lambda hg: mamba_mixer(
+                bp["mamba"], hg, cfg, return_state=True, lengths=lengths, tp=tp), h)
         else:
-            mh = mamba_mixer(bp["mamba"], h, cfg, tp=tp)
+            mh, _ = sub(ssm, lambda hg: (mamba_mixer(bp["mamba"], hg, cfg, tp=tp), None), h)
         x = x + mh
     else:
         window = cfg.sliding_window if spec.mixer == "swa" else 0
         if mode == "decode":
-            ah, new_cache["attn"] = decode_attention(bp["attn"], h, cache["attn"],
-                                                     pos, cfg, window=window, tp=tp)
+            ah, new_cache["attn"] = decode_attention(bp["attn"], h, cache["attn"], pos, cfg,
+                                                     window=window, tp=tp,
+                                                     seq=seqs.get("attn"))
         else:
             fn = sliding_attention if window else full_attention
-            ah, (k, v) = fn(bp["attn"], h, positions, cfg, return_kv=True, tp=tp)
+
+            def attend(hg):
+                ah, (k, v) = fn(bp["attn"], hg, positions, cfg, return_kv=True, tp=tp)
+                if whole_kv:
+                    k, v = kv_whole(bp["attn"], hg, k, v, tp, positions, cfg)
+                return ah, (k, v)
+
+            ah, (k, v) = sub(tp is not None and tp.heads, attend, h)
             if mode == "prefill":
                 if window:
                     k = _ring_from_prefill(k, window, lengths)
@@ -130,27 +179,32 @@ def block_forward(bp: Dict, x, spec: LayerSpec, cfg: ModelConfig, positions,
         x = x + ah
 
     if "cross" in bp:  # encoder-decoder cross attention (no rope on its K/V)
-        hc = rms_norm(x, bp["cross_norm"], div, cfg.norm_eps)
+        hc = norm(bp["cross_norm"])
         if mode == "decode":
             kv = (cache["cross"]["ck"], cache["cross"]["cv"])
             ch, _ = decode_attention(bp["cross"], hc, None, pos, cfg, kv_override=kv,
-                                     tp=tp)
+                                     tp=tp, seq=seqs.get("cross"))
             new_cache["cross"] = cache["cross"]
         else:
-            ck, cv = project_kv(bp["cross"], enter(enc_out, tp), tp)
-            ch = full_attention(bp["cross"], hc, positions, cfg, causal=False,
-                                kv_override=(ck, cv), tp=tp)
+            ck, cv = project_kv(bp["cross"], enter_whole(enc_out, tp), tp)
+            ch, _ = sub(tp is not None and tp.heads, lambda hg: (full_attention(
+                bp["cross"], hg, positions, cfg, causal=False, kv_override=(ck, cv), tp=tp),
+                None), hc)
             if mode == "prefill":
+                if whole_kv:
+                    ck, cv = kv_whole(bp["cross"], enc_out, ck, cv, tp)
                 new_cache["cross"] = {"ck": ck, "cv": cv}
         x = x + ch
 
     if spec.ffn != "none":
-        h2 = rms_norm(x, bp["ffn_norm"], div, cfg.norm_eps)
+        h2 = norm(bp["ffn_norm"])
         if spec.ffn == "moe":
-            ff, a = moe_ffn(bp["ffn"], h2, cfg, at)
+            # The MoE FFN sums its own partials: every rank's output is whole.
+            ff, a = sub(False, lambda hg: moe_ffn(bp["ffn"], hg, cfg, at), h2)
             aux = aux + a
         else:
-            ff = gated_mlp(bp["ffn"], h2, tp)
+            ff, _ = sub(tp is not None and tp.mlp,
+                        lambda hg: (gated_mlp(bp["ffn"], hg, tp), None), h2)
         x = x + ff
     return x, new_cache, aux
 
@@ -207,15 +261,24 @@ def forward(cfg: ModelConfig, params, *, tokens=None, embeds=None, cache=None, p
     enc_out = None
     if cfg.is_encoder_decoder and mode != "decode":
         enc_out = encode(cfg, params["encoder"], enc_embeds, tp)
-    if embeds is not None and cfg.embed_inputs and not cfg.is_encoder_decoder:
+    from_embeds = embeds is not None and cfg.embed_inputs and not cfg.is_encoder_decoder
+    tps = seq_parallel(cfg, tp, (embeds if from_embeds else tokens).shape[1], mode)
+    split_seq = tps is not None and tps.seq
+    if from_embeds:
         x = embeds.to(torch_dtype(cfg.param_dtype))
     else:
-        x = embed_tokens(_top(params, "embed", tp), tokens, cfg, tp)
+        x = embed_tokens(_top(params, "embed", tp), tokens, cfg, tps)
     b, s = x.shape[0], x.shape[1]
+    if split_seq:
+        from repro_torch.sharding import comm
+
+        x = comm.scatter_seq(x, tps.mesh, AXIS, 1, tps.vocab and not from_embeds)
+    seqs = None
     if mode == "decode":
         pos = decode_positions(pos, b, x.device)
         positions = pos[:, None]
         lengths = None
+        seqs = cache_layout(cfg, b, 1)
     else:
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device).expand(b, s)
@@ -231,17 +294,59 @@ def forward(cfg: ModelConfig, params, *, tokens=None, embeds=None, cache=None, p
         caches = []
         for li, spec in enumerate(group_layers(group)):
             lc = cache["groups"][gi]["layers"][li] if mode == "decode" else None
+            ls = None if seqs is None else {
+                "attn": seqs["ring" if spec.mixer == "swa" else "full"],
+                "cross": seqs["cross"]}
             x, nc, a = block(layers[li], x, spec, cfg, positions,
                              mode=mode, cache=lc, pos=pos,
-                             enc_out=enc_out, lengths=lengths, tp=tp, at=at)
+                             enc_out=enc_out, lengths=lengths, tp=tps, at=at, seqs=ls)
             caches.append(nc)
             aux = aux + a
         new_groups.append({"layers": caches})
-    x = rms_norm(x, _top(params, "final_norm", tp), cfg.division, cfg.norm_eps)
+    final = _top(params, "final_norm", tp)
+    x = rms_norm(x, tps.copy(final) if split_seq else final, cfg.division, cfg.norm_eps)
+    if split_seq:
+        x = comm.gather_seq(x, tps.mesh, AXIS, 1, tps.vocab)
     head = "embed" if cfg.tie_embeddings else "lm_head"
-    logits = lm_logits({head: _top(params, head, tp)}, x, cfg, tp)
+    logits = lm_logits({head: _top(params, head, tp)}, x, cfg, tps)
     new_cache = {"groups": new_groups} if mode in ("prefill", "decode") else None
     return logits, new_cache, aux
+
+
+def _rows(batch: int, mesh) -> int:
+    """The global batch of ``batch`` rows given to this rank: its block of
+    the batch under ``rules.split_tokens``, the whole otherwise."""
+    from repro_torch.sharding import rules as shr
+
+    return batch * shr.axes_size(mesh, shr.token_axes())
+
+
+def cache_layout(cfg: ModelConfig, batch: int, max_len: int, mesh=None):
+    """The ``SeqSplit`` (or None) of a decode cache's full-attention K/V
+    (``"full"``), rings (``"ring"``) and cross K/V (``"cross"``) on ``mesh``
+    for a decode batch of ``batch`` global rows; without ``mesh``, on the
+    active mesh for ``batch`` rows given to this rank (its block of the
+    batch under ``rules.split_tokens``) (``sharding.rules.cache_seq_axis``);
+    and the full-attention K/V's global slots (``"slots"``). Where the axis
+    does not divide ``max_len`` the slots are rounded up to a multiple of
+    it (the reference holds them whole; the slots past ``max_len`` are
+    never valid), so a decode step reads the layout from the mesh and the
+    batch alone (``parallel.kv_full_split``)."""
+    from repro_torch.sharding import rules as shr
+
+    if mesh is None:
+        mesh = shr.active_mesh()
+        if mesh is not None:
+            batch = _rows(batch, mesh)
+    if mesh is None:
+        return {"full": None, "ring": None, "cross": None, "slots": max_len}
+    full = kv_full_split(cfg, mesh, batch)
+    return {"full": full,
+            "ring": kv_split(cfg, mesh, batch, cfg.sliding_window) if cfg.sliding_window
+            else None,
+            "cross": kv_split(cfg, mesh, batch, cfg.encoder_seq) if cfg.is_encoder_decoder
+            else None,
+            "slots": max_len if full is None else -(-max_len // full.n) * full.n}
 
 
 def make_cache(cfg: ModelConfig, batch: int, max_len: int, device=None,
@@ -252,17 +357,33 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int, device=None,
     ``encoder_seq``-long cross K/V. ``abstract``: the same tree as stand-ins
     that allocate nothing (``repro_torch.tree.abstract``; ``fake_mode``'s
     fake tensors on ``device``, or ``meta`` tensors). Under an active mesh
-    with a ``model`` axis above 1, the rank's KV heads and Mamba-2 heads."""
+    with a ``model`` axis above 1, the rank's KV heads and Mamba-2 heads;
+    where the cache's layout puts a K/V leaf's sequence on an axis
+    (:func:`cache_layout`), the rank's block of its slots (and, on
+    ``model``, every KV head). ``batch``: the rows given to this rank.
+
+    This is the one source of the cache's layout. It is the reference's
+    (``cache_specs`` of ``src/repro/launch/dryrun.py``) but for three
+    deliberate differences: where the KV heads do not divide over a split
+    ``model`` axis, a rank holds the KV heads its query heads read (the
+    reference keeps them whole); the Mamba-2 ``conv_B`` / ``conv_C``
+    windows are whole on every rank (each rank computes the one group's B
+    and C); a full-attention ``max_len`` that the sequence's axis does not
+    divide is rounded up to a multiple of it (the reference holds it
+    whole)."""
     dt = torch_dtype(cfg.param_dtype)
     tp = tensor_parallel(cfg)
+    lay = cache_layout(cfg, batch, max_len)
     if abstract:
-        attn = lambda *a: abstract_cache_attn(*a, device=device, fake_mode=fake_mode, tp=tp)
+        attn = lambda *a, seq: abstract_cache_attn(*a, device=device, fake_mode=fake_mode,
+                                                   tp=tp, seq=seq)
         mamba = lambda *a: abstract_cache_mamba(*a, device=device, fake_mode=fake_mode, tp=tp)
         zeros = lambda shape: tree.abstract(shape, dt, device, fake_mode)
     else:
-        attn = lambda *a: init_cache_attn(*a, device=device, tp=tp)
+        attn = lambda *a, seq: init_cache_attn(*a, device=device, tp=tp, seq=seq)
         mamba = lambda *a: init_cache_mamba(*a, device=device, tp=tp)
         zeros = lambda shape: torch.zeros(shape, dtype=dt, device=device)
+    cross = lay["cross"]
     groups = []
     for g in cfg.groups():
         layers = []
@@ -271,10 +392,11 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int, device=None,
                 lc = {"mamba": mamba(cfg, batch, dt)}
             else:
                 window = cfg.sliding_window if spec.mixer == "swa" else 0
-                lc = {"attn": attn(cfg, batch, max_len, window, dt)}
+                lc = {"attn": attn(cfg, batch, lay["slots"], window, dt,
+                                   seq=lay["ring" if window else "full"])}
             if cfg.is_encoder_decoder:
-                kv = cfg.n_kv_heads if tp is None else tp.kv_local
-                shape = (batch, cfg.encoder_seq, kv, cfg.head_dim)
+                shape = (batch, cfg.encoder_seq // (cross.n if cross else 1),
+                         cache_heads(cfg, tp, cross), cfg.head_dim)
                 lc["cross"] = {"ck": zeros(shape), "cv": zeros(shape)}
             layers.append(lc)
         groups.append({"layers": layers})

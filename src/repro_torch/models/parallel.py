@@ -68,7 +68,8 @@ import torch
 from repro_torch import tree
 from repro_torch.configs.base import LayerSpec, ModelConfig, rules_for
 
-__all__ = ["AXIS", "ExpertParallel", "TensorParallel", "tensor_parallel", "local_params",
+__all__ = ["AXIS", "ExpertParallel", "TensorParallel", "SeqSplit", "tensor_parallel",
+           "seq_parallel", "kv_split", "kv_full_split", "kv_heads_whole", "local_params",
            "wrap_like", "split_axes", "executed_spec", "gather_tree"]
 
 AXIS = "model"
@@ -120,6 +121,9 @@ class TensorParallel:
     # (``"top"``: embed, final_norm, lm_head), a tree of each leaf's
     # ((axis, dim), ...) pairs; empty where no leaf is gathered.
     fsdp: Dict[Any, Any] = field(default_factory=dict)
+    # The residual stream is the rank's block of the sequence (seq_shard):
+    # the sub-layers' gathers and scatters take the place of into / out.
+    seq: bool = False
 
     def gather_block(self, bp, spec, cross: bool = False):
         """A block's leaves put together from the rank's blocks of them over
@@ -144,6 +148,22 @@ class TensorParallel:
         from repro_torch.sharding import comm
 
         return comm.reduce_from_split(x, self.mesh, (AXIS,))
+
+    def into(self, x: torch.Tensor) -> torch.Tensor:
+        """An activation entering a column-split product: :meth:`copy`, or
+        itself where the sequence is split (the all-gather that made it
+        reduce-scatters its gradient)."""
+        return x if self.seq else self.copy(x)
+
+    def out(self, y: torch.Tensor) -> torch.Tensor:
+        """A row-split product's partial sums: :meth:`reduce`, or themselves
+        where the sequence is split (the reduce-scatter that follows sums
+        them)."""
+        return y if self.seq else self.reduce(y)
+
+    def own_heads(self, x: torch.Tensor, dim: int = 2) -> torch.Tensor:
+        """This rank's block of a tensor of every query head."""
+        return x.narrow(dim, self.rank * self.heads_local, self.heads_local)
 
     @property
     def heads_local(self) -> int:
@@ -182,13 +202,89 @@ class TensorParallel:
     def vocab_offset(self, local_vocab: int) -> int:
         return self.rank * local_vocab if self.vocab else 0
 
-    def gather(self, x: torch.Tensor) -> torch.Tensor:
-        """The ranks' blocks of ``x``'s last dim side by side (all-gather);
-        the gradient's sum over the ranks, sliced to this rank's block,
-        backward (reduce-scatter)."""
+    def gather(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """The ranks' blocks of ``x``'s ``dim`` (the last by default) side by
+        side (all-gather); the gradient's sum over the ranks, sliced to this
+        rank's block, backward (reduce-scatter)."""
         from repro_torch.sharding import comm
 
-        return comm.gather_blocks(x, self.mesh, AXIS, x.dim() - 1)
+        return comm.gather_blocks(x, self.mesh, AXIS, dim % x.dim())
+
+
+@dataclass(frozen=True)
+class SeqSplit:
+    """A decode-cache leaf whose sequence lies on ``axis`` of ``mesh``: ``n``
+    ranks, this one holding block ``index`` of the slots."""
+
+    mesh: Any
+    axis: str
+    n: int
+    index: int
+
+
+def _seq_split(mesh, axis: Optional[str]) -> Optional[SeqSplit]:
+    from repro_torch.sharding import rules as shr
+
+    sizes = shr.mesh_shape(mesh)
+    if axis is None or sizes[axis] == 1:
+        return None
+    return SeqSplit(mesh, axis, sizes[axis], shr.axis_index(mesh, axis))
+
+
+def kv_split(cfg: ModelConfig, mesh, batch: int, length: int) -> Optional[SeqSplit]:
+    """How a K/V cache leaf of ``length`` global slots lies for a decode
+    batch of ``batch`` global rows (``rules.cache_seq_axis``); None where it
+    is whole on every rank (no mesh, or an axis of one rank)."""
+    from repro_torch.sharding import rules as shr
+
+    if mesh is None:
+        return None
+    return _seq_split(mesh, shr.cache_seq_axis(cfg, mesh, batch, length))
+
+
+def kv_full_split(cfg: ModelConfig, mesh, batch: int) -> Optional[SeqSplit]:
+    """How a full-attention cache leaf lies for a decode batch of ``batch``
+    global rows: split over the first live axis that
+    ``rules.cache_seq_axis`` would put a length divisible by it on (the
+    ``__kv_seq_shard__`` axis, else ``data`` where the batch does not take
+    it), whatever the cache's length (``models.cache_layout`` rounds the
+    slots up to a multiple of it), so a decode step reads the layout from
+    the mesh and the batch alone; None where it is whole."""
+    from repro_torch.sharding import rules as shr
+
+    if mesh is None:
+        return None
+    sizes = shr.mesh_shape(mesh)
+    for axis in (cfg.sharding_rules.get("__kv_seq_shard__"), "data"):
+        if axis in sizes and sizes[axis] > 1 and shr.cache_seq_axis(
+                cfg, mesh, batch, sizes[axis]) == axis:
+            return _seq_split(mesh, axis)
+    return None
+
+
+def kv_heads_whole(cfg: ModelConfig, tp: Optional["TensorParallel"]) -> bool:
+    """Whether a prefill hands its K/V on with every KV head: under
+    ``kvseq`` on a live model axis, whose cache holds them all."""
+    return (tp is not None and tp.size > 1
+            and cfg.sharding_rules.get("__kv_seq_shard__") == AXIS)
+
+
+def seq_parallel(cfg: ModelConfig, tp: Optional["TensorParallel"], s: int, mode: str):
+    """The plan of a forward over ``s`` positions: ``tp`` with ``seq`` set
+    where ``__seq_shard__`` names ``model``, the model axis holds more than
+    one rank and divides ``s`` (train and prefill), else ``tp``. Another
+    axis is refused."""
+    axis = cfg.sharding_rules.get("__seq_shard__")
+    if axis is None or tp is None:
+        return tp
+    if axis != AXIS:
+        raise ValueError(f"{cfg.name}: __seq_shard__ names {axis!r}; the sequence splits "
+                         f"only over '{AXIS}'")
+    if mode == "decode" or tp.size == 1 or s % tp.size:
+        return tp
+    from dataclasses import replace
+
+    return replace(tp, seq=True)
 
 
 def _dims(spec) -> Tuple[int, ...]:

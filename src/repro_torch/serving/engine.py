@@ -35,7 +35,11 @@ and its KV heads of the cache, and the greedy choice is a split argmax
 MoE models' ``experts -> data`` each rank routes every token, runs its own
 experts' rows and the partial outputs are summed over ``data``
 (``models/moe.py``), so the batch is the reference's global one and the
-greedy argmax is unchanged.
+greedy argmax is unchanged. Where the cache's layout puts a K/V leaf's
+sequence on an axis (``kvseq``, or ``data`` for a batch-1 long context:
+``models.make_cache``), a prefill's cache is cut to the rank's block of
+the slots (``convert.cache_block``) in place of :func:`pad_cache_to`, and
+decode combines the softmax over that axis.
 
 ``ServingEngine.serve`` is the continuous-batching loop: admit a request
 into a free slot (single-row prefill + cache row insert), decode all active
@@ -209,6 +213,19 @@ class ServingEngine:
         return prefill(self.cfg, self._params(), tokens, enc_embeds=enc_embeds,
                        lengths=lengths)
 
+    def _fit(self, cache, from_len: int, batch: int):
+        """A prefill's cache grown to ``max_len`` slots; under an active
+        mesh, the rank's blocks of it (``convert.cache_block``) for a decode
+        batch of ``batch`` rows."""
+        from repro_torch.sharding import rules as shr
+
+        mesh = shr.active_mesh()
+        if mesh is None:
+            return pad_cache_to(cache, from_len, self.max_len, self.cfg)
+        from repro_torch.convert import cache_block
+
+        return cache_block(cache, self.cfg, mesh, max_len=self.max_len, batch=batch)
+
     def _decode(self, cache, tokens, pos):
         return decode_step(self.cfg, self._params(), cache, tokens, pos)
 
@@ -280,7 +297,7 @@ class ServingEngine:
                     toks, torch.as_tensor(enc_embeds, device=self.device), lengths)
             else:
                 last_logits, cache = self._prefill_tok(toks, lengths)
-        cache = pad_cache_to(cache, pad_to, self.max_len, cfg)
+        cache = self._fit(cache, pad_to, B)
         pos_v = lengths                   # request i's first new token: len_i
         tok = self._argmax(last_logits)
         outs: List[List[int]] = [[] for _ in range(B)]
@@ -343,7 +360,7 @@ class ServingEngine:
             toks = torch.zeros((1, pad_to), dtype=torch.int64)
             toks[0, :s] = torch.tensor(req.tokens)
             last, row = self._prefill_tok(toks.to(self.device), [s])
-            row = pad_cache_to(row, pad_to, self.max_len, cfg)
+            row = self._fit(row, pad_to, B)
             _insert_cache_row(cache, row, slot, cfg)
             cur[slot, 0] = int(self._argmax(last[:1])[0, 0])
             pos_v[slot] = s

@@ -34,6 +34,17 @@ the reduce-scatter of the whole leaf's gradient in its dtype (as GSPMD
 reduce-scatters it), so every rank's block of the gradient holds every
 rank's tokens.
 
+Megatron-LM's sequence parallelism (the ``seq_shard`` layout: the residual
+stream between blocks is the rank's block of the sequence) uses one more
+conjugate pair: :func:`gather_seq` (the ranks' blocks of a dim side by
+side forward; backward, the reduce-scatter of the gradient where the
+ranks' uses of the whole are partial -- a column-split product's input --
+else the rank's block of it) and :func:`scatter_seq` (the reduce-scatter
+of the ranks' partial sums, or the rank's block of a whole value,
+forward; the all-gather of the gradients backward). Around a sub-layer
+that is split over the axis they take the place of
+:func:`copy_to_split` and :func:`reduce_from_split`.
+
 The expert exchange of the MoE FFN (``models/moe.py``) uses two more, each
 differentiated: :func:`exchange` (an all-to-all over one axis: block j of
 a dim goes to rank j; its backward is the same all-to-all of the
@@ -58,7 +69,7 @@ from .rules import mesh_shape
 
 __all__ = ["all_reduce", "all_gather", "all_to_all", "reduce_scatter", "all_reduce_sum_grad",
            "copy_to_split", "reduce_from_split", "exchange", "gather_blocks",
-           "gather_from_split", "record"]
+           "gather_from_split", "gather_seq", "scatter_seq", "record"]
 
 _RECORD: Optional[List[dict]] = None
 
@@ -263,6 +274,68 @@ class _GatherFromSplit(torch.autograd.Function):
         # Every rank's loss read the whole leaf: its block's gradient is the
         # sum of the ranks' gradients of that block.
         return reduce_scatter(g.contiguous(), ctx.mesh, ctx.axis, ctx.dim), None, None, None
+
+
+def _block_of(t: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """This rank's block of ``t``'s ``dim``, cut into as many equal blocks as
+    ``axis`` has ranks."""
+    from .rules import axis_index
+
+    n = mesh_shape(mesh)[axis]
+    step = t.shape[dim] // n
+    return t.narrow(dim, axis_index(mesh, axis) * step, step)
+
+
+class _SeqGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis, dim, partial):
+        ctx.mesh, ctx.axis, ctx.dim, ctx.partial = mesh, axis, dim, partial
+        return all_gather(t, mesh, (axis,), dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        # Each rank read the whole: where its use was partial (its heads or
+        # columns), a block's gradient is the sum of the ranks'; where every
+        # rank computed the whole use, its own gradient is the whole one.
+        if ctx.partial:
+            g = reduce_scatter(g.contiguous(), ctx.mesh, ctx.axis, ctx.dim)
+        else:
+            g = _block_of(g, ctx.mesh, ctx.axis, ctx.dim)
+        return g, None, None, None, None
+
+
+class _SeqScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis, dim, partial):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        if partial:
+            return reduce_scatter(t.contiguous(), mesh, axis, dim)
+        return _block_of(t, mesh, axis, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        # Every rank's block enters the loss through its own rows only: the
+        # whole's gradient is the ranks' blocks side by side.
+        return all_gather(g.contiguous(), ctx.mesh, (ctx.axis,), ctx.dim), None, None, None, None
+
+
+def gather_seq(t: torch.Tensor, mesh, axis: str, dim: int, partial: bool) -> torch.Tensor:
+    """The ranks' blocks of ``t``'s ``dim`` along ``axis``, side by side (an
+    all-gather). Backward: the reduce-scatter of the gradient where
+    ``partial`` (each rank's use of the whole gives part of its gradient),
+    else the rank's block of it."""
+    if not _live(mesh, (axis,)):
+        return t
+    return _SeqGather.apply(t, mesh, axis, dim, partial)
+
+
+def scatter_seq(t: torch.Tensor, mesh, axis: str, dim: int, partial: bool) -> torch.Tensor:
+    """This rank's block of ``t``'s ``dim`` along ``axis``: of the sum of the
+    ranks' ``t`` where ``partial`` (a reduce-scatter), else of ``t`` itself.
+    Backward: the all-gather of the gradients."""
+    if not _live(mesh, (axis,)):
+        return t
+    return _SeqScatter.apply(t, mesh, axis, dim, partial)
 
 
 def exchange(t: torch.Tensor, mesh, axis: str, dim: int = 0) -> torch.Tensor:

@@ -27,6 +27,17 @@ place on an axis) and :func:`local_tree` (this rank's blocks of a tree of
 DTensors, or of a global tree that is the same on every rank);
 :func:`global_tensor` gathers a DTensor's global value (checkpoints).
 
+The decode cache's layout has one rule, :func:`cache_seq_axis` (the
+reference's ``cache_specs`` of ``src/repro/launch/dryrun.py`` for the K/V
+leaves' sequence): the ``__kv_seq_shard__`` axis (the ``kvseq`` layout),
+else ``data`` where the batch does not take ``data`` (a batch-1 long
+context), each only where the length divides. ``models.cache_layout``
+reads it, and ``models.make_cache``, the decode step and
+``convert.cache_block`` read that, so a rank holds its block of the
+slots; the batch and the heads follow the rank's rows and its
+tensor-parallel plan (``models.make_cache`` says where they differ from
+the reference's specs).
+
 The active mesh (:func:`use_mesh`, :func:`suspend_mesh`,
 :func:`active_mesh`) is what the launcher registers; the kernels' mesh
 dispatch (``kernels/ops.py``), the sharded workloads, the MoE FFN and the
@@ -53,7 +64,7 @@ __all__ = ["mesh_shape", "spec_for", "placements", "NamedSharding",
            "axes_size", "local_offset", "local_block", "batch_sharding", "batch_local",
            "same_placements",
            "distribute", "axis_index", "only_axes", "local_shape", "model_dims", "local_tree",
-           "global_tensor"]
+           "global_tensor", "cache_seq_axis"]
 
 Spec = Tuple[Optional[object], ...]
 
@@ -367,6 +378,24 @@ def distribute(t: torch.Tensor, sharding: NamedSharding):
 
     return DTensor.from_local(local_block(t, sharding).contiguous(), sharding.mesh,
                               sharding.placements, run_check=False)
+
+
+# ------------------------------------------------------- the cache's layout
+
+def cache_seq_axis(cfg, mesh, batch: int, length: int) -> Optional[str]:
+    """The mesh axis that the sequence of a K/V cache leaf of ``length``
+    slots lies on, for a decode batch of ``batch`` rows (the global batch):
+    the ``__kv_seq_shard__`` axis where the length divides by it, else
+    ``data`` where the batch does not split over ``data`` and the length
+    divides; None where it is whole. The axis may hold one rank."""
+    sizes = mesh_shape(mesh)
+    kv_seq = cfg.sharding_rules.get("__kv_seq_shard__")
+    if kv_seq and length % sizes.get(kv_seq, 1) == 0:
+        return kv_seq
+    if ("data" not in batch_partition(mesh, batch) and "data" in sizes
+            and length % sizes["data"] == 0):
+        return "data"
+    return None
 
 
 # ----------------------------------------------------------- the active mesh

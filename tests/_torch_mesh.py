@@ -707,3 +707,164 @@ def fsdp_rank(rank: int, inp: dict) -> dict:
         out["compressed"][name] = _steps(t["cfg"], t["opt_cfg"], t["params"], t["batch"],
                                          meshes[t["mesh"]], 1, 1, compress_axis="pod")
     return out
+
+
+# ------------------------------------------- the sequence on model and data
+
+def _seq_layouts(c: dict, mesh) -> dict:
+    """A ``seq_shard`` case under the active mesh: train and prefill logits
+    (the rank's vocab blocks), and the residual stream's rows a block sees."""
+    from repro_torch.models import forward, model
+
+    cfg, params, kw = c["cfg"], c["params"], c["kw"]
+    seen = []
+    real = model.block_forward
+
+    def spy(bp, x, *a, **k):
+        seen.append(x.shape[1])
+        return real(bp, x, *a, **k)
+
+    model.block_forward = spy
+    try:
+        with torch.no_grad():
+            train = forward(cfg, params, mode="train", **kw)[0]
+            prefill = forward(cfg, params, mode="prefill", **kw)[0]
+    finally:
+        model.block_forward = real
+    return {"train": train, "prefill": prefill, "rows": sorted(set(seen))}
+
+
+def _seq_decode(c: dict, mesh) -> dict:
+    """A decode case under the active mesh: the prefill's cache cut to the
+    rank's blocks (``convert.cache_block``), then teacher-forced decode steps
+    (the rank's vocab blocks of the logits, any nan), the cache blocks'
+    shapes, and greedy tokens through the engine."""
+    from repro_torch import convert
+    from repro_torch.models import forward
+    from repro_torch.serving import ServingEngine
+
+    cfg, params, kw = c["cfg"], c["params"], c["kw"]
+    s, max_len = c["prompt_len"], c["max_len"]
+    with torch.no_grad():
+        _, cache, _ = forward(cfg, params, mode="prefill", **kw)
+        cache = convert.cache_block(cache, cfg, mesh, max_len=max_len)
+        steps = []
+        for t, tok in enumerate(c["decode"]):
+            logits, cache, _ = forward(cfg, params, tokens=tok, cache=cache, pos=s + t,
+                                       mode="decode")
+            steps.append(logits)
+    layers = [lc for g in cache["groups"] for lc in g["layers"]]
+    shapes = sorted({(kind, name, tuple(v.shape)) for lc in layers for kind in lc
+                     for name, v in lc[kind].items()})
+    out = {"decode": steps, "shapes": shapes,
+           "nan": any(bool(torch.isnan(x).any()) for x in steps)}
+    if c.get("prompts") is not None:
+        eng = ServingEngine(cfg, params, max_len=max_len)
+        out["generate"] = eng.generate_batch(c["prompts"], c["max_new"], **c.get("hand", {}))
+    return out
+
+
+def _seq_step(t: dict, mesh) -> dict:
+    """One ``seq_shard`` train step on ``mesh`` from DTensor parameters: the
+    new state's global leaves and the loss (rank 0 keeps them); and the
+    gradients with remat on and off, bit for bit."""
+    from repro_torch import tree
+    from repro_torch.models.parallel import local_params, tensor_parallel
+    from repro_torch.sharding import rules as shr
+    from repro_torch.train import step
+
+    cfg, opt_cfg = t["cfg"], t["opt_cfg"]
+    sh = shr.param_shardings(cfg, mesh)
+    state = step.init_state(cfg, tree.map_tree(shr.distribute, t["params"], sh), opt_cfg)
+    with shr.use_mesh(mesh):
+        new, metrics = step.train_step(cfg, opt_cfg, state, t["batch"], n_micro=t["n_micro"])
+        got = {k: [shr.global_tensor(v).detach().clone() for v in tree.leaves(x)]
+               for k, x in (("params", new.params), ("m", new.opt.m), ("v", new.opt.v))}
+        grads = {}
+        for remat in (True, False):
+            c = __import__("dataclasses").replace(cfg, remat=remat)
+            local = local_params(c, t["params"], tensor_parallel(c))
+            rows = {k: v[_row_block(mesh, v.shape[0])] for k, v in t["batch"].items()}
+            with shr.split_tokens(("data",)):
+                grads[remat] = tree.leaves(step.grads_fn(c, local, rows, 1)[2])
+    same = all(torch.equal(_bits(a), _bits(b)) for a, b in zip(grads[True], grads[False]))
+    return {"loss": float(metrics["loss"]), "state": got, "remat_bit_equal": same}
+
+
+def _masked(mesh) -> dict:
+    """The split softmax (``attention._split_sdpa``) over ``data``: a row
+    whose one valid key lies on data rank 0, and a row masked on every
+    rank, beside the whole row's ``_sdpa``."""
+    from repro_torch.core.division_modes import DivisionConfig
+    from repro_torch.models import attention
+    from repro_torch.models.parallel import kv_split
+
+    g = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn(shape, generator=g) for shape in ((1, 1, 2, 4), (1, 8, 2, 4),
+                                                                 (1, 8, 2, 4)))
+    div = DivisionConfig(mode="taylor_pallas")
+    seq = kv_split(_SeqCfg(), mesh, 1, 8)
+    lo = 4 * seq.index
+    one = torch.zeros((1, 1, 1, 8), dtype=torch.bool)
+    one[..., 1] = True
+    none = torch.zeros_like(one)
+    block = lambda t: t[:, lo:lo + 4]
+    return {"one_valid": attention._split_sdpa(q, block(k), block(v), one[..., lo:lo + 4], div,
+                                               0.5, seq),
+            "want": attention._sdpa(q, k, v, one, div, 0.5),
+            "none_valid": attention._split_sdpa(q, block(k), block(v), none[..., lo:lo + 4],
+                                                div, 0.5, seq)}
+
+
+class _SeqCfg:
+    """A stand-in config whose rules name no sequence axis (the batch-1
+    cache's sequence goes on data)."""
+
+    sharding_rules: dict = {}
+
+
+def _carry(c: dict, mesh) -> dict:
+    """A whole cache carried across from the reference, cut by
+    ``convert.cache_block``: the blocks, and ``make_cache``'s shapes."""
+    from repro_torch import convert, tree
+    from repro_torch.models import make_cache
+    from repro_torch.sharding import rules as shr
+
+    cfg = c["cfg"]
+    blocks = convert.cache_block(c["cache"], cfg, mesh, max_len=c["max_len"])
+    with shr.use_mesh(mesh):
+        made = make_cache(cfg, c["batch"], c["max_len"], device="meta")
+    return {"blocks": tree.leaves(blocks),
+            "made": [tuple(t.shape) for t in tree.leaves(made)],
+            "coord": dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))}
+
+
+def seq_rank(rank: int, inp: dict) -> dict:
+    """Every multi-rank check of tests/test_torch_seq_parallel.py, on one of
+    4 CPU ranks: ``seq_shard`` forwards on (2, 2) and on the two (1, 2)
+    pairs, one ``seq_shard`` train step of each STEP_ARCHS model on (2, 2);
+    decode against a cache split by sequence over ``model`` (``kvseq``)
+    and, at batch 1, over ``data``, on (2, 2); the split softmax with a
+    fully-masked rank; whole caches from the reference cut to the rank's
+    blocks."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.sharding import rules as shr
+
+    m22 = make_mesh((2, 2), ("data", "model"), "cpu")
+    pair, _ = _pair_meshes(rank)
+    meshes = {"2x2": m22, "1x2": pair}
+    out = {"coord": dict(zip(m22.mesh_dim_names, m22.get_coordinate())), "seq_shard": {},
+           "decode": {}}
+    for (name, mesh_name), c in inp["seq_shard"].items():
+        with shr.use_mesh(meshes[mesh_name]):
+            out["seq_shard"][name, mesh_name] = _seq_layouts(c, meshes[mesh_name])
+    for name, c in inp["decode"].items():
+        with shr.use_mesh(m22):
+            out["decode"][name] = _seq_decode(c, m22)
+    out["step"] = {arch: _seq_step(t, m22) for arch, t in inp["step"].items()}
+    if rank:
+        for o in out["step"].values():
+            o.pop("state")
+    out["masked"] = _masked(m22)
+    out["carry"] = {name: _carry(c, m22) for name, c in inp["carry"].items()}
+    return out

@@ -78,7 +78,8 @@ def test_train_cli_trains_checkpoints_and_resumes(tmp_path):
 def test_dryrun_and_report_clis_on_one_cell(tmp_path):
     """whisper_tiny decode_32k on the tp1 multi-pod mesh (512 ranks of a
     fake process group in the child): the reference's file name and keys,
-    then the report's row for it."""
+    then the report's rows for it (the roofline, the collectives by
+    axis)."""
     r = _run(["-m", "repro_torch.launch.dryrun", "--arch", "whisper_tiny",
               "--shape", "decode_32k", "--mesh", "multi", "--variant", "tp1",
               "--device", "cpu", "--out", str(tmp_path)])
@@ -95,7 +96,11 @@ def test_dryrun_and_report_clis_on_one_cell(tmp_path):
               "--variant", "tp1"])
     assert r.returncode == 0, r.stdout + r.stderr
     rows = [ln for ln in r.stdout.splitlines() if ln.startswith("| whisper_tiny")]
-    assert len(rows) == 1 and "| decode_32k |" in rows[0] and "**memory**" in rows[0]
+    assert len(rows) == 2 and "| decode_32k |" in rows[0] and "**memory**" in rows[0]
+    # The batch of 128 splits over pod only, so the cache's sequence lies on
+    # data (the reference's cache layout): the split softmax's three
+    # all-reduces in each of the 4 decoder layers.
+    assert "| data | all-reduce | 12 |" in rows[1]
 
 
 def test_dryrun_cli_refuses_a_model_axis(tmp_path):

@@ -496,3 +496,53 @@ def test_full_width_cell_traces_on_fake_tensors_without_allocating(tmp_path):
     assert cell["param_layout"] == "data"
     assert cell["hbm_traffic_model"] == memmodel.hbm_traffic(
         cfg, configs.LM_SHAPES["train_4k"], mesh)
+
+
+def test_sequence_layout_cells_issue_their_collectives(tmp_path):
+    """Three inference cells on the single mesh (data 16, model 16; a fake
+    process group of 256 ranks in one child), in the kernel mode:
+    llama3_8b prefill_32k under ``seq_shard``: each of the base layout's
+    2L + 1 all-reduces over model (attention and MLP outputs, the
+    vocab-split embedding) becomes a reduce-scatter, and each sub-layer's
+    and the LM head's input an all-gather (2L + 1 each); llama3_8b
+    decode_32k under ``kvseq``: per attention layer the query heads'
+    all-gather and the split softmax's three all-reduces (maximum, sum,
+    ``probs @ V``) beside the output projection's and the MLP's, and the
+    embedding's (5L + 1 all-reduces, L all-gathers); gemma3_12b long_500k
+    (batch 1): the split softmax's three all-reduces a layer over data,
+    the 2L + 1 all-reduces over model. The rank's cache is its block of
+    the slots: S / 16 of each K/V leaf."""
+    out = tmp_path / "cells.json"
+    code = ("import json, sys; from repro_torch.launch import dryrun; "
+            "json.dump([dryrun.run_cell(a, s, False, variant=v, device='cpu') for a, s, v in ("
+            "('llama3_8b', 'prefill_32k', 'tp16+seq_shard+kernels'), "
+            "('llama3_8b', 'decode_32k', 'kvseq+kernels'), "
+            "('gemma3_12b', 'long_500k', 'kernels'))], open(sys.argv[1], 'w'))")
+    r = subprocess.run([sys.executable, "-c", code, str(out)], capture_output=True, text=True,
+                       timeout=600, cwd=ROOT,
+                       env={**os.environ, "PYTHONPATH": "src", "OMP_NUM_THREADS": "1"})
+    assert r.returncode == 0, r.stdout + r.stderr
+    prefill, decode, long = json.loads(out.read_text())
+    count = lambda cell, axis: {op: v["count"]
+                                for op, v in cell["collectives"]["by_axis"][axis].items()}
+    L = configs.get_config("llama3_8b").n_layers
+    assert set(prefill["collectives"]["by_axis"]) == {"model"}
+    assert count(prefill, "model") == {"all-gather": 2 * L + 1, "reduce-scatter": 2 * L + 1}
+    assert set(decode["collectives"]["by_axis"]) == {"model"}
+    assert count(decode, "model") == {"all-gather": L, "all-reduce": 5 * L + 1}
+    g = configs.get_config("gemma3_12b")
+    assert set(long["collectives"]["by_axis"]) == {"data", "model"}
+    assert count(long, "data") == {"all-reduce": 3 * g.n_layers}
+    assert count(long, "model") == {"all-reduce": 2 * g.n_layers + 1}
+    # the split softmax kernel's three passes a split attention layer, no fused softmax
+    assert decode["unit_calls"]["softmax_split_f32"] == 3 * L
+    assert long["unit_calls"]["softmax_split_f32"] == 3 * g.n_layers
+    assert "softmax_f32" not in decode["unit_calls"] and "softmax_f32" not in long["unit_calls"]
+    cfg = configs.get_config("llama3_8b")
+    # 8 rows a data rank, every KV head, 32768 / 16 slots, bf16 K and V
+    assert decode["cache_bytes"] == (
+        cfg.n_layers * 2 * 8 * (32768 // 16) * cfg.n_kv_heads * cfg.head_dim * 2)
+    n_global = sum(s.mixer == "attn" for s in g.layer_specs())
+    # one row, 1 of 8 KV heads (the one the rank's query head reads)
+    assert long["cache_bytes"] == 2 * g.head_dim * 2 * (
+        n_global * 524288 // 16 + (g.n_layers - n_global) * g.sliding_window // 16)

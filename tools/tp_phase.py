@@ -1,5 +1,7 @@
 """chip_smoke.py's tp phase alone: the kernels' build, then tensor
-parallelism over the model axis on the one card (phase_tp).
+parallelism over the model axis on the one card (phase_tp, with the
+sequence layouts), then the split softmax kernel's times row
+(phase_times_split).
 
     python3 tools/tp_phase.py [--seed N]
 
@@ -33,7 +35,8 @@ def main(argv=None) -> int:
     smi = cs.phase_device()
     err = {k: 0.0 for k in cs.SOURCES}
     launches = {k: 0 for k in err}
-    cs.phase_tp(args.seed, launches, err)
+    tp = cs.phase_tp(args.seed, launches, err)
+    cs.phase_times_split(err, launches, tp["split_input"])
     print("seconds", time.perf_counter() - t0, smi, launches)
     return 0
 
