@@ -279,8 +279,10 @@ source, in parallel), then runs, each phase printing one line:
                  AdamW denominators (134.1 M lanes) beside torch.reciprocal;
                  and the tiled kernels at the mesh phase's shard shape
                  (rank 0, the other rank idle); the split softmax kernel's
-                 three passes on the seq part's global-layer rows of rank
-                 0, (8, 262144), beside torch.softmax of the same rows.
+                 three passes on rank 0's rows of the seq part's global
+                 and sliding-window layers, (8, 262144) and (8, 512), and of
+                 the tp part's kvseq decode, (128, 1032), each pass's device
+                 ms beside their sum, beside torch.softmax of the same rows.
                  Times are CUDA events over back-to-back wrapper calls
                  (``ms``, which holds the wrapper's host time where a kernel
                  is shorter); softmax, RMSNorm, flash attention and the ILM
@@ -527,9 +529,13 @@ def event_ms(fn, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_times(fn, reps: int = 10) -> dict:
-    """{kernel or copy name: device ms per call} of ``fn`` from
-    torch.profiler over ``reps`` calls after a warm-up."""
+def device_launches(fn, reps: int = 10) -> dict:
+    """{kernel or copy name: (device ms per call, launches recorded)} of
+    ``fn`` from torch.profiler over ``reps`` calls after a warm-up. A name's
+    time is its mean over the launches the profiler recorded of it times its
+    launches a call (those recorded over ``reps``, rounded, at least 1), so
+    a record the profiler lost moves no reading; a name it recorded no
+    device time of is left out."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -539,16 +545,30 @@ def device_times(fn, reps: int = 10) -> dict:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return {e.key: e.self_device_time_total / 1e3 / reps for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+    return {e.key: (e.self_device_time_total / 1e3 / e.count * max(1, round(e.count / reps)),
+                    e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0 and e.count}
+
+
+def device_times(fn, reps: int = 10) -> dict:
+    """{kernel or copy name: device ms per call} of ``fn``
+    (:func:`device_launches`)."""
+    return {name: ms for name, (ms, _) in device_launches(fn, reps).items()}
+
+
+def summed_ms(times: dict, kernel: str | None = None):
+    """The sum of ``times``' entries whose name holds ``kernel`` (all when
+    None); None where there is none."""
+    ms = [t for name, t in times.items() if kernel is None or kernel in name]
+    return sum(ms) if ms else None
 
 
 def device_ms(fn, kernel: str | None = None, reps: int = 10):
     """Device time per call of ``fn``: the kernels whose name holds
     ``kernel`` (every kernel and copy on the card when None). None where the
     profiler shows no device time for them."""
-    ms = sum(t for name, t in device_times(fn, reps).items() if kernel is None or kernel in name)
-    return ms if ms > 0 else None
+    return summed_ms(device_times(fn, reps), kernel)
 
 
 def phase_device():
@@ -2015,6 +2035,27 @@ def split_held(name: str, fn, got, args, kwargs):
 
 
 @contextlib.contextmanager
+def first_split_inputs(kept: dict):
+    """While open, the first input of each shape that the split softmax's
+    max pass is given, kept on the host in ``kept`` (shape -> rows): the
+    times phase's inputs."""
+    from repro_torch.kernels import softmax_split
+
+    real = softmax_split.split_max
+
+    def keep(x):
+        if tuple(x.shape) not in kept:
+            kept[tuple(x.shape)] = x.cpu()
+        return real(x)
+
+    softmax_split.split_max = keep
+    try:
+        yield kept
+    finally:
+        softmax_split.split_max = real
+
+
+@contextlib.contextmanager
 def held_kernels(held: list, kinds, on: bool = True, hold_s=None):
     """While open (and ``on``), every call of the kernels in ``kinds``
     (softmax_f32, rmsnorm_f32, tsdiv_recip, softmax_split_f32: each of its
@@ -2847,8 +2888,10 @@ def tp_seq_layouts(cfg, params, prompts, mesh, teacher) -> dict:
             m.reset_launches()
         sync()
         t0 = time.perf_counter()
-        picks, logits = replay(engs["kvseq"], prompts, TP_NEW, teacher)
+        with first_split_inputs({}) as kept:
+            picks, logits = replay(engs["kvseq"], prompts, TP_NEW, teacher)
         out["kv_replay_s"] = time.perf_counter() - t0
+        out["split_inputs"] = kept
         out["kv_launches"] = {k: v for m in mods for k, v in m.LAUNCHES.items() if v}
         out["kv_picks"], out["kv_logits"] = picks, logits.cpu()
         del logits
@@ -3098,6 +3141,8 @@ def phase_tp(seed: int, launches: dict, err: dict) -> dict:
     check(drift < 5e-3, f"tp serve: logit drift {drift} >= 5e-3")
     check(1 - serve_diff / n_tok >= 0.99, f"tp serve: serve() differs on {serve_diff} tokens")
     check(all(len(o) == TP_NEW for o in ranks[0]["bf16"]["tokens"]), "tp serve: short output")
+    split_inputs = {(s, f"tp: {TP_ARCH}'s kvseq decode on (1, 2)"): x
+                    for s, x in ranks[0]["seq"].pop("split_inputs").items()}
     check_tp_seq(ranks, want, launches, err)
     del ranks, want, logits
     gc.collect()
@@ -3113,7 +3158,9 @@ def phase_tp(seed: int, launches: dict, err: dict) -> dict:
     ranks = run_ranks(tp_train_rank, n_train, seed, seq["teacher"], device_type="cuda",
                       timeout_s=TP_TIMEOUT_S)
     train_s = time.perf_counter() - t0
-    split_input = ranks[0]["seq"].pop("split_input")
+    for s, x in ranks[0]["seq"].pop("split_inputs").items():
+        layer = "global" if s[-1] == SEQ_SLOTS // SEQ_MESH[0] else "sliding-window"
+        split_inputs[s, f"seq: {SEQ_ARCH}'s {layer} layer at batch 1, its cache over data 2"] = x
     check_seq([o["seq"] for o in ranks], seq, launches, err, train_s)
     per_step = train_launches(train_config(), TP_TRAIN_MICRO, ranks[0]["n_leaves"])
     for o in ranks:
@@ -3151,17 +3198,21 @@ def phase_tp(seed: int, launches: dict, err: dict) -> dict:
         for k, tol in TP_STEP_RTOL.items():
             check(f["worst_over_leaf_max"][k] <= tol,
                   f"tp train {name}: {k} off by {f['worst_over_leaf_max'][k]} of the leaf's max")
-    return {"serve_s": serve_s, "train_s": train_s, "split_input": split_input}
+    return {"serve_s": serve_s, "train_s": train_s, "split_inputs": split_inputs}
 
 
-def phase_times_split(err: dict, launches: dict, x: torch.Tensor) -> list:
-    """The split softmax kernel's three passes on the seq part's input
-    (rank 0's scores of the global layer's first decode step: its query
-    heads' rows over its SEQ_SLOTS / 2 slots), one rank's work without the
-    all-reduces between the passes (on one rank they compute the row
-    softmax), beside their plain versions and ``torch.softmax`` of the
-    same rows; the bound: the rows read once and the output written
-    once."""
+def phase_times_split(err: dict, launches: dict, inputs: dict) -> list:
+    """The split softmax kernel's three passes on the main path's own rows,
+    kept by the tp phase (``first_split_inputs``; ``inputs``: (shape, site)
+    -> rows): rank 0's scores in the seq part's first decode step, of
+    gemma3_12b's global layer (its query heads' rows over its SEQ_SLOTS / 2
+    slots) and of a sliding-window layer, and in llama3_8b's first
+    ``kvseq`` step. One rank's work without the all-reduces between the
+    passes (on one rank they compute the row softmax), held bit for bit to
+    its plain version, beside the plain version and ``torch.softmax`` of
+    the same rows, with each pass's device ms; the bound: the rows read
+    once and the output written once (the three passes' own traffic, five
+    times the rows' bytes, beside it)."""
     from repro_torch.configs import get_config
     from repro_torch.core import division_modes as dm
     from repro_torch.core.seeds import compute_segments
@@ -3170,29 +3221,37 @@ def phase_times_split(err: dict, launches: dict, x: torch.Tensor) -> list:
     div = dataclasses.replace(get_config(SEQ_ARCH).division, mode="taylor_pallas")
     n, bits, sched = div.n_iters, div.precision_bits, dm._kernel_schedule(div)
     table = compute_segments(n, bits)
-    x = x.to(DEVICE)
+    rows = []
+    for (shape, site), x in sorted(inputs.items(), key=lambda kv: -kv[0][0][-1]):
+        x = x.to(DEVICE)
 
-    def kernel():
-        e, s = ks.split_exp(x, ks.split_max(x))
-        return ks.split_scale(e, s, n, bits, sched)
+        def kernel():
+            e, s = ks.split_exp(x, ks.split_max(x))
+            return ks.split_scale(e, s, n, bits, sched)
 
-    def plain():
-        e, s = ks.split_exp_plain(x, ks.split_max_plain(x))
-        return ks.split_scale_plain(e, s, table, n, sched)
+        def plain():
+            e, s = ks.split_exp_plain(x, ks.split_max_plain(x))
+            return ks.split_scale_plain(e, s, table, n, sched)
 
-    n_bad, e = mismatch(kernel(), plain())
-    check(n_bad == 0, f"softmax_split_f32: {n_bad} lanes differ from the plain version")
-    err["softmax_split_f32"] = max(err["softmax_split_f32"], e)
-    library = lambda: torch.softmax(x, -1)
-    row = kernel_row("softmax_split_f32", event_ms(kernel), event_ms(plain, 3), event_ms(library),
-                     2 * x.numel() * x.element_size(), x.numel(), launches, err,
-                     shape=list(x.shape), dtype="float32", step="decode", passes=3,
-                     device_ms=device_ms(kernel, "split_"), library_device_ms=device_ms(library),
-                     site="seq: gemma3_12b's global layer, 524288 slots over data 2")
-    say("times", **row)
-    del x
+        n_bad, e = mismatch(kernel(), plain())
+        check(n_bad == 0, f"softmax_split_f32 {shape}: {n_bad} lanes differ from the plain version")
+        err["softmax_split_f32"] = max(err["softmax_split_f32"], e)
+        library = lambda: torch.softmax(x, -1)
+        times = device_times(kernel)
+        passes = {p: summed_ms(times, p) for p in ("split_max", "split_exp", "split_scale")}
+        nbytes = x.numel() * x.element_size()
+        row = kernel_row("softmax_split_f32", event_ms(kernel), event_ms(plain, 3),
+                         event_ms(library), 2 * nbytes, x.numel(), launches, err,
+                         shape=list(shape), dtype="float32", step="decode", passes=3,
+                         device_ms=summed_ms(times, "split_"),
+                         pass_device_ms=passes,
+                         three_pass_bytes_ms=5 * nbytes / HBM_BYTES_PER_S * 1e3,
+                         library_device_ms=device_ms(library), site=site)
+        say("times", **row)
+        rows.append(row)
+        del x
     torch.cuda.empty_cache()
-    return [row]
+    return rows
 
 
 def check_tp_seq(ranks: list, want: dict, launches: dict, err: dict) -> None:
@@ -4637,8 +4696,9 @@ def seq_on_mesh(mesh, seed: int, teacher: list) -> dict:
     training ranks): its blocks of the model, its block of the filled cache
     (SEQ_SLOTS / 2 slots a data rank, 4 of 8 KV heads), SEQ_NEW decode steps
     under the unsharded run's ``teacher`` stream (every kernel call held to
-    its plain version; rank 0 keeps the global layer's first split softmax
-    input for the times phase), the same steps again timed over a refilled
+    its plain version; rank 0 keeps the first split softmax input of the
+    global layer and of the rings for the times phase), the same steps
+    again timed over a refilled
     cache, the steps under each planted fault of the combine
     (``SEQ_FAULTS``) over a refilled cache, then the batch-1 generate."""
     from repro_torch import tree
@@ -4659,24 +4719,13 @@ def seq_on_mesh(mesh, seed: int, teacher: list) -> dict:
         held = []
         for m in mods:
             m.reset_launches()
-        kept = {}
-        real_max = softmax_split.split_max
-
-        def keep(x):
-            if x.shape[-1] == SEQ_SLOTS // SEQ_MESH[0] and not kept:
-                kept["x"] = x.cpu()
-            return real_max(x)
-
-        softmax_split.split_max = keep
-        try:
-            with held_kernels(held, ("softmax_f32", "rmsnorm_f32", "tsdiv_recip",
-                                     "softmax_split_f32")):
-                picks, logits, _ = seq_decode(cfg, params, cache, first, teacher)
-        finally:
-            softmax_split.split_max = real_max
+        with (first_split_inputs({}) as kept,
+              held_kernels(held, ("softmax_f32", "rmsnorm_f32", "tsdiv_recip",
+                                  "softmax_split_f32"))):
+            picks, logits, _ = seq_decode(cfg, params, cache, first, teacher)
         out["launches"] = {k: v for m in mods for k, v in m.LAUNCHES.items() if v}
         if torch.distributed.get_rank() == 0:
-            out["split_input"] = kept["x"]
+            out["split_inputs"] = kept
         seq_fill(cache, cfg, seed)    # the rings' slots were overwritten: refill
         _, again, steps = seq_decode(cfg, params, cache, first, teacher, timed=True)
         out.update(picks=picks, logits=logits, steps=steps, held=held,
@@ -5224,7 +5273,7 @@ def main(argv=None) -> int:
     rows += phase_times_models(err, launches, firsts)
     rows += phase_times_train(err, launches, recips)
     rows += phase_times_mesh(err, launches, mesh)
-    rows += phase_times_split(err, launches, tp["split_input"])
+    rows += phase_times_split(err, launches, tp["split_inputs"])
     result = {"kernels": rows}
     say("wall", seconds=time.perf_counter() - t_start)
     if args.json:

@@ -49,8 +49,8 @@ _SIGNATURES = {
     },
     "softmax": {
         "softmax_rows": [_vp, _vp, _i64, _i32, _i32, SeedTableC, _i32, _i32, _vp],
-        "softmax_split_max": [_vp, _vp, _i64, _i32, _vp],
-        "softmax_split_exp": [_vp, _vp, _vp, _vp, _i64, _i32, _vp],
+        "softmax_split_max": [_vp, _vp, _vp, _vp, _i64, _i32, _vp],
+        "softmax_split_exp": [_vp, _vp, _vp, _vp, _vp, _vp, _i64, _i32, _vp],
         "softmax_split_scale": [_vp, _vp, _vp, _i64, _i32, SeedTableC, _i32, _i32, _vp],
     },
     "rmsnorm": {

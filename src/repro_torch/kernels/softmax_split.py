@@ -14,7 +14,10 @@ replaces the reference's Pallas ``softmax_2d``
 
 The kernels are ``csrc/softmax.cu``'s ``softmax_split_max`` /
 ``softmax_split_exp`` / ``softmax_split_scale``; they take contiguous
-``(M, D)`` f32 rows. On CPU tensors the wrappers run the plain versions;
+``(M, D)`` f32 rows. Where rows are few the max and exp passes spread a row
+over blocks that meet in a workspace (:func:`_workspace`), one a device
+and stream. On CPU tensors
+the wrappers run the plain versions;
 on CUDA tensors they launch the kernel or raise; fake tensors take
 :mod:`.fake`'s path. Each launch adds one to ``LAUNCHES``. No autograd:
 decode runs without gradients.
@@ -58,6 +61,28 @@ def split_scale_plain(ex: torch.Tensor, total: torch.Tensor, table: SeedTable, n
     return torch.where(total == 0.0, 0.0, ex * rs)
 
 
+# The max and exp passes' workspace, one a device and stream: (M, 256) f32
+# partials (a row's slab maxima or chain sums) and M u32 tickets, which the
+# kernels leave at 0, so it is zeroed only when it grows, never per call.
+# Launches on one stream run one after another, so no two launches use a
+# buffer at once; launches on two streams take two buffers.
+_WORKSPACE: dict = {}
+
+
+def _workspace(x: torch.Tensor, stream: int):
+    """(partials, tickets) for ``x``'s M rows on its device and the stream
+    (its handle) the launch runs on. The tickets lie past every row of
+    partials the buffer holds, so no launch writes a partial over a ticket."""
+    chains = common.REDUCE_THREADS
+    key = (x.device, stream)
+    ws = _WORKSPACE.get(key)
+    if ws is None or ws.numel() < x.shape[0] * (chains + 1):
+        ws = _WORKSPACE[key] = torch.zeros(x.shape[0] * (chains + 1), dtype=torch.float32,
+                                           device=x.device)
+    rows = ws.numel() // (chains + 1)
+    return ws[:rows * chains], ws[rows * chains:]
+
+
 def _rows(*ts: torch.Tensor) -> bool:
     """On the card: f32 operands, (M, D) rows and (M, 1) columns."""
     on_card = rows_on_card(*ts)
@@ -75,8 +100,10 @@ def split_max(x: torch.Tensor) -> torch.Tensor:
     out = x.new_empty((x.shape[0], 1))
     if x.numel():
         with torch.cuda.device(x.device):
+            stream = _stream(x)
+            part, ticket = _workspace(x, stream.value)
             rc = _build.library("softmax").softmax_split_max(
-                _ptr(x), _ptr(out), x.shape[0], x.shape[1], _stream(x))
+                _ptr(x), _ptr(out), _ptr(part), _ptr(ticket), x.shape[0], x.shape[1], stream)
         _check(rc, "softmax_split_f32")
         LAUNCHES["softmax_split_f32"] += 1
     return out
@@ -94,8 +121,11 @@ def split_exp(x: torch.Tensor, top: torch.Tensor):
     ex, s = torch.empty_like(x), x.new_empty((x.shape[0], 1))
     if x.numel():
         with torch.cuda.device(x.device):
+            stream = _stream(x)
+            part, ticket = _workspace(x, stream.value)
             rc = _build.library("softmax").softmax_split_exp(
-                _ptr(x), _ptr(top), _ptr(ex), _ptr(s), x.shape[0], x.shape[1], _stream(x))
+                _ptr(x), _ptr(top), _ptr(ex), _ptr(s), _ptr(part), _ptr(ticket), x.shape[0],
+                x.shape[1], stream)
         _check(rc, "softmax_split_f32")
         LAUNCHES["softmax_split_f32"] += 1
     return ex, s

@@ -14,19 +14,22 @@ On the CPU the wrappers run the plain versions. Held here:
 - ``division_modes.split_softmax`` in every mode on one rank is
   ``division_modes.softmax`` bit for bit, and a row masked on every rank is
   zeros;
-- on fake tensors (the dry run's) each pass counts a call, never a launch.
+- on fake tensors (the dry run's) each pass counts a call, never a launch;
+- the exp pass's decomposition where rows are few (the order's 256 chains
+  a row over G blocks, staged a tile of steps at a time, each chain adding
+  in step order, the chains' sums met by chain index in whatever order the
+  blocks arrive, then the order's tree in ``rows::warp_tree_sum``'s lane
+  layout) is ``common.row_sum`` bit for bit.
 The kernel against its plain version runs on the card (marker ``cuda``).
 """
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from repro.kernels import ops as ref_ops
 from repro_torch.core import division_modes as dm
 from repro_torch.core.seeds import compute_segments
 from repro_torch.eval import consumers, ulp
-from repro_torch.kernels import fake, softmax, softmax_split as ks
+from repro_torch.kernels import common, fake, softmax, softmax_split as ks
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SCHEDULES = ["paper", "factored", "goldschmidt"]
@@ -75,6 +78,9 @@ def test_one_rank_is_the_fused_softmax_bit_for_bit(schedule, d):
 @pytest.mark.parametrize("n", [2, 4])
 @pytest.mark.parametrize("schedule", SCHEDULES)
 def test_over_ranks_within_the_consumer_bound_of_the_reference(n, schedule):
+    import jax.numpy as jnp                  # here, so that the card's tests run without JAX
+    from repro.kernels import ops as ref_ops
+
     for name, x in consumers.softmax_rows("float32", 16, 512, seed=n).items():
         want = np.asarray(ref_ops.softmax(jnp.asarray(x), 2, 24, schedule))
         got = _split(torch.from_numpy(x), n, schedule).numpy()
@@ -106,17 +112,90 @@ def test_fake_tensors_count_a_call_never_a_launch():
     assert fake.CALLS == {"softmax_split_f32": 3} and ks.LAUNCHES == {"softmax_split_f32": 0}
 
 
+def test_workspace_keeps_its_tickets_past_every_row_of_partials(monkeypatch):
+    """The max and exp passes' workspace: (M, 256) partials, then M tickets,
+    zeroed once; fewer rows reuse it (the same tickets, which no row of
+    partials overlaps), more rows grow it zeroed; another stream takes a
+    buffer of its own."""
+    monkeypatch.setattr(ks, "_WORKSPACE", {})
+    part, ticket = ks._workspace(torch.empty(8, 4), 0)
+    assert part.numel() == 8 * common.REDUCE_THREADS and ticket.numel() == 8
+    assert ticket.data_ptr() == part.data_ptr() + part.numel() * part.element_size()
+    part2, ticket2 = ks._workspace(torch.empty(3, 4), 0)
+    assert (part2.data_ptr(), ticket2.data_ptr()) == (part.data_ptr(), ticket.data_ptr())
+    other, _ = ks._workspace(torch.empty(3, 4), 1)
+    assert other.data_ptr() != part.data_ptr()
+    part3, ticket3 = ks._workspace(torch.empty(20, 4), 0)
+    assert part3.numel() == 20 * common.REDUCE_THREADS and ticket3.numel() == 20
+    assert not part3.any() and not ticket3.any()
+
+
+TILE = 1024   # kTile in csrc/softmax.cu: floats a block stages at a time
+
+
+def _chains_over_blocks(ex: torch.Tensor, groups: int, seed: int) -> torch.Tensor:
+    """The exp pass's row sums as its kernel takes them where rows are few:
+    block g of ``groups`` a row adds chains [C g, C g + C) (C = 256 /
+    groups) one stage of TILE / C steps at a time, each chain in step order
+    onto +0, steps past the row's end staged as +0; the blocks arrive in a
+    seeded order and leave their sums at their chains' indices; then the
+    halving tree as ``rows::warp_tree_sum`` runs it (lane l, slot j holding
+    chain 8 l + j: shuffles down by 16 ... 1 lanes, then slots 4, 2, 1)."""
+    t = common.REDUCE_THREADS
+    m, d = ex.shape
+    c, steps = t // groups, -(-d // t)
+    tile = TILE // c
+    padded = torch.zeros((m, -(-steps // tile) * tile * t))
+    padded[:, :d] = ex
+    view = padded.reshape(m, -1, t)
+    part = torch.full((m, t), torch.nan)
+    for g in np.random.default_rng(seed).permutation(groups):
+        acc = torch.zeros((m, c))
+        for k0 in range(0, view.shape[1], tile):
+            for k in range(k0, k0 + tile):
+                acc = acc + view[:, k, c * g:c * g + c]
+        part[:, c * g:c * g + c] = acc
+    p = part.reshape(m, 32, 8)
+    for lanes in (16, 8, 4, 2, 1):
+        p = torch.cat([p[:, :lanes] + p[:, lanes:2 * lanes], p[:, lanes:]], 1)
+    for h in (4, 2, 1):
+        p = torch.cat([p[..., :h] + p[..., h:2 * h], p[..., h:]], 2)
+    return p[:, :1, 0]
+
+
+@pytest.mark.parametrize("d", [5, 255, 256, 1032, 4100])
+@pytest.mark.parametrize("groups", [1, 2, 8, 32])
+def test_chains_over_blocks_are_row_sum_bit_for_bit(groups, d):
+    x = _rows(d, d + groups)
+    x[9, d // 2] = torch.inf                  # a +inf lane: the row's top is not finite
+    ex, want = ks.split_exp_plain(x, ks.split_max_plain(x))
+    got = _chains_over_blocks(ex, groups, seed=groups)
+    assert got.shape == want.shape and _same(got, want)
+    assert want[5].item() == 0.0 and want[7].isnan() and want[9].isinf()
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(8, 262144), (128, 1040), (3, 5)])
+@pytest.mark.parametrize("shape", [(8, 262144), (8, 512), (128, 1032), (128, 1040), (3, 5),
+                                   (8, 257), (8, 4099), (2, 131072 + 3)])
 def test_kernel_is_its_plain_version_on_the_card(shape):
     """Each pass bit for bit against its plain version at the decode
-    shapes the main path gives it (gemma3 at 524288 slots over data 2,
-    llama3_8b's kvseq cache) and a short row."""
+    shapes the main path gives it (gemma3 at 524288 slots over data 2, its
+    ring layers, llama3_8b's kvseq cache), rows the one-block and the
+    spread layouts split at a chain's end (d % 256 != 0, d % 4 != 0: the
+    scalar path) and a short row; a row with -inf lanes, a row holding a
+    nan, a row of -inf and a row with a +inf lane where there are rows for
+    them. The max and exp passes also run on a second stream, with a
+    workspace of its own. The workspaces' tickets are left at 0."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     g = torch.Generator(device="cuda").manual_seed(0)
     x = torch.randn(shape, generator=g, device="cuda") * 6
+    m, d = shape
     x[0, ::3] = -torch.inf
+    for row, lanes, value in ((1, d // 3, torch.nan), (2, slice(None), -torch.inf),
+                              (3, d // 2, torch.inf)):
+        if row < m:
+            x[row, lanes] = value
     ks.reset_launches()
     top = ks.split_max(x)
     assert _same(top, ks.split_max_plain(x))
@@ -127,4 +206,13 @@ def test_kernel_is_its_plain_version_on_the_card(shape):
     for schedule in SCHEDULES:
         assert _same(ks.split_scale(e, s, 2, 24, schedule),
                      ks.split_scale_plain(e, s, table, 2, schedule))
-    assert ks.LAUNCHES == {"softmax_split_f32": 2 + len(SCHEDULES)}
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        top2 = ks.split_max(x)
+        e2, s2 = ks.split_exp(x, top2)
+    torch.cuda.synchronize()
+    assert _same(top2, top) and _same(e2, e) and _same(s2, s)
+    assert ks.LAUNCHES == {"softmax_split_f32": 4 + len(SCHEDULES)}
+    for stream in (torch.cuda.current_stream(), side):
+        assert not ks._workspace(x, stream.cuda_stream)[1].any()

@@ -36,7 +36,7 @@ def main(argv=None) -> int:
     err = {k: 0.0 for k in cs.SOURCES}
     launches = {k: 0 for k in err}
     tp = cs.phase_tp(args.seed, launches, err)
-    cs.phase_times_split(err, launches, tp["split_input"])
+    cs.phase_times_split(err, launches, tp["split_inputs"])
     print("seconds", time.perf_counter() - t0, smi, launches)
     return 0
 
